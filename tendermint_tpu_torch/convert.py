@@ -1,0 +1,36 @@
+"""Carry verification state into the port from wire bytes and arrays.
+
+The JAX package and the port share no objects: a validator set and a
+commit cross over as their protobuf encodings (tendermint_tpu's
+ValidatorSet.encode() and Commit.encode(), the reference's wire format),
+and a signature batch as numpy columns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.entry_block import EntryBlock
+from .types.block import Commit
+from .types.validator_set import ValidatorSet
+
+
+def state_from_wire(valset_bytes: bytes, commit_bytes: bytes):
+    """(ValidatorSet, Commit) of the port, decoded from the protobuf
+    encodings of tendermint.types.ValidatorSet and tendermint.types.Commit."""
+    return ValidatorSet.decode(bytes(valset_bytes)), Commit.decode(bytes(commit_bytes))
+
+
+def entries_from_arrays(pub: np.ndarray, sig: np.ndarray, msgs,
+                        offsets: np.ndarray) -> EntryBlock:
+    """EntryBlock from pub (n, 32) uint8, sig (n, 64) uint8, the messages
+    concatenated in one buffer, and (n+1,) offsets into it."""
+    offsets = np.asarray(offsets)
+    if offsets.dtype.kind not in "iu":
+        raise ValueError("offsets must be integers")
+    return EntryBlock(
+        np.ascontiguousarray(pub),
+        np.ascontiguousarray(sig),
+        bytes(msgs),
+        offsets.astype(np.int64),
+    )

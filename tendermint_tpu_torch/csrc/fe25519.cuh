@@ -1,0 +1,348 @@
+// GF(2^255 - 19) field and edwards25519 point functions for the RLC kernels.
+//
+// Mirrors tendermint_tpu_torch/ops/fe.py and ops/point.py (themselves
+// mirrors of tendermint_tpu/ops/fe_t.py and pallas_verify.py:90-220) one
+// formula at a time: a field element is 20 signed 13-bit limbs in int32,
+// and every operation below performs the same integer steps as its plain
+// PyTorch counterpart, so kernels and plain versions agree limb for limb,
+// not only modulo p.
+//
+// All products and sums stay below 2^31 by fe_t's bound analysis
+// (fe_t.py:60-66, :103-108): one carry pass after add/sub/neg keeps limbs
+// in (-1216, 2^13 + 1216], and 20 products of such limbs fit int32, so
+// 32-bit IMAD suffices.
+//
+// nvcc compiles `>>` on a negative int as an arithmetic (sign-extending)
+// shift, which the carries rely on, as fe_t's jnp `>>` and torch's do.
+//
+// Verification handles public data only, so nothing here is constant
+// time: branches and table loads may depend on the data.
+#pragma once
+
+#include <cstdint>
+
+namespace edw {
+
+constexpr int NL = 20;
+constexpr int RADIX = 13;
+constexpr int32_t MASK = (1 << RADIX) - 1;
+constexpr int32_t TOP_WRAP = 608;  // 2^260 mod p = 2^5 * 19
+
+struct fe {
+  int32_t v[NL];
+};
+
+// Extended (X, Y, Z, T) point, or a Niels table entry (Y+X, Y-X, Z, 2dT).
+struct pt {
+  fe x, y, z, t;
+};
+
+// ---- constants (canonical limbs) ------------------------------------------
+
+__device__ __forceinline__ fe fe_zero() {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ fe fe_one() {
+  fe r = fe_zero();
+  r.v[0] = 1;
+  return r;
+}
+
+__device__ __forceinline__ fe fe_p() {
+  return fe{{8173, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191,
+             8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 255}};
+}
+
+__device__ __forceinline__ fe fe_8p() {
+  return fe{{8040, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191,
+             8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 2047}};
+}
+
+__device__ __forceinline__ fe fe_d() {
+  return fe{{6307, 6859, 4740, 5787, 5982, 3157, 1287, 2472, 4106, 3,
+             6694, 3827, 1943, 928, 3635, 8142, 2927, 1905, 219, 164}};
+}
+
+__device__ __forceinline__ fe fe_d2() {
+  return fe{{4441, 5527, 1289, 3383, 3773, 6315, 2574, 4944, 20, 7,
+             5196, 7655, 3886, 1856, 7270, 8092, 5855, 3810, 438, 72}};
+}
+
+__device__ __forceinline__ fe fe_sqrt_m1() {
+  return fe{{176, 4213, 2514, 7222, 3150, 4668, 5311, 213, 792, 6522,
+             5609, 7159, 2451, 1664, 3245, 7137, 4033, 1026, 201, 87}};
+}
+
+__device__ __forceinline__ pt base_point() {
+  return pt{fe{{5402, 6446, 6179, 3162, 3221, 5081, 5270, 3090, 3271, 841,
+                5911, 7085, 799, 4721, 6914, 2687, 3438, 5790, 6733, 66}},
+            fe{{1624, 4915, 6553, 3276, 1638, 4915, 6553, 3276, 1638, 4915,
+                6553, 3276, 1638, 4915, 6553, 3276, 1638, 4915, 6553, 204}},
+            fe_one(),
+            fe{{7587, 3518, 3305, 7445, 5853, 2426, 7493, 4110, 4255, 2311,
+                6367, 2391, 2278, 5415, 5531, 3788, 6027, 6270, 471, 207}}};
+}
+
+__device__ __forceinline__ pt identity_point() {
+  return pt{fe_zero(), fe_one(), fe_one(), fe_zero()};
+}
+
+// ---- field (fe.py) ----------------------------------------------------------
+
+// One parallel carry pass; limb 19's carry wraps to limb 0 times 608.
+__device__ __forceinline__ fe carry_pass(const fe& x) {
+  fe o;
+  o.v[0] = (x.v[0] & MASK) + (x.v[NL - 1] >> RADIX) * TOP_WRAP;
+#pragma unroll
+  for (int i = 1; i < NL; ++i) o.v[i] = (x.v[i] & MASK) + (x.v[i - 1] >> RADIX);
+  return o;
+}
+
+__device__ __forceinline__ fe carry(const fe& x) {
+  return carry_pass(carry_pass(carry_pass(x)));
+}
+
+__device__ __forceinline__ fe add(const fe& a, const fe& b) {
+  fe s;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) s.v[i] = a.v[i] + b.v[i];
+  return carry_pass(s);
+}
+
+__device__ __forceinline__ fe sub(const fe& a, const fe& b) {
+  fe s;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) s.v[i] = a.v[i] - b.v[i];
+  return carry_pass(s);
+}
+
+__device__ __forceinline__ fe neg(const fe& a) {
+  fe s;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) s.v[i] = -a.v[i];
+  return carry_pass(s);
+}
+
+// 39 convolution coefficients -> carried 20-limb element.
+__device__ __forceinline__ fe wrap_fold(const int32_t (&c)[2 * NL - 1]) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    int32_t v = c[i];
+    if (i < NL - 1) v += TOP_WRAP * (c[NL + i] & MASK);
+    if (i >= 1) v += TOP_WRAP * (c[NL - 1 + i] >> RADIX);
+    r.v[i] = v;
+  }
+  return carry(r);
+}
+
+__device__ __forceinline__ fe mul(const fe& a, const fe& b) {
+  int32_t c[2 * NL - 1];
+#pragma unroll
+  for (int k = 0; k < 2 * NL - 1; ++k) c[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) c[i + j] += a.v[i] * b.v[j];
+  }
+  return wrap_fold(c);
+}
+
+// Squaring by convolution symmetry (fe_t.sq): 210 products instead of
+// 400, the same 39 coefficients.
+__device__ __forceinline__ fe sq(const fe& a) {
+  int32_t c[2 * NL - 1];
+#pragma unroll
+  for (int k = 0; k < 2 * NL - 1; ++k) c[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    c[2 * i] += a.v[i] * a.v[i];
+    const int32_t d = a.v[i] + a.v[i];
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) c[i + j] += d * a.v[j];
+  }
+  return wrap_fold(c);
+}
+
+__device__ __forceinline__ fe sqn(fe a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) a = sq(a);
+  return a;
+}
+
+// z^(2^252 - 3), ref10 addition chain.
+__device__ __noinline__ fe pow22523(const fe z) {
+  const fe x2 = sq(z);
+  const fe x9 = mul(z, sqn(x2, 2));
+  const fe x11 = mul(x2, x9);
+  const fe x31 = mul(x9, sq(x11));
+  const fe xa = mul(sqn(x31, 5), x31);
+  const fe xb = mul(sqn(xa, 10), xa);
+  const fe xc = mul(sqn(xb, 20), xb);
+  const fe xd = mul(sqn(xc, 10), xa);
+  const fe xe = mul(sqn(xd, 50), xd);
+  const fe xf = mul(sqn(xe, 100), xe);
+  const fe xg = mul(sqn(xf, 50), xd);
+  return mul(sqn(xg, 2), z);
+}
+
+// Fold bits >= 2^255 (2^255 = 19 mod p).
+__device__ __forceinline__ fe fold255(const fe& x) {
+  fe b = x;
+  b.v[0] = x.v[0] + 19 * (x.v[NL - 1] >> 8);
+  b.v[NL - 1] = x.v[NL - 1] & 0xFF;
+  return carry(b);
+}
+
+// x - p if x >= p, by a sequential borrow over the limbs.
+__device__ __forceinline__ fe cond_sub_p(const fe& x) {
+  const fe p = fe_p();
+  fe t;
+  int32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int32_t s = (x.v[i] - p.v[i]) + c;
+    c = s >> RADIX;
+    t.v[i] = s & MASK;
+  }
+  return c < 0 ? x : t;
+}
+
+__device__ __noinline__ fe canon(const fe x0) {
+  fe x = carry(x0);
+  const fe p8 = fe_8p();
+#pragma unroll
+  for (int i = 0; i < NL; ++i) x.v[i] += p8.v[i];
+  x = carry(x);
+  x = fold255(x);
+  x = fold255(x);
+  x = cond_sub_p(x);
+  return cond_sub_p(x);
+}
+
+__device__ __forceinline__ bool is_zero(const fe& x) {
+  const fe c = canon(x);
+  bool z = true;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) z = z && (c.v[i] == 0);
+  return z;
+}
+
+__device__ __forceinline__ bool eq(const fe& a, const fe& b) {
+  fe d;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d.v[i] = a.v[i] - b.v[i];
+  return is_zero(d);
+}
+
+// ---- points (point.py) ------------------------------------------------------
+// Each writes its result only after reading every input, so `o` may alias
+// an input.
+
+__device__ __noinline__ void point_add(pt& o, const pt& p, const pt& q) {
+  const fe a = mul(sub(p.y, p.x), sub(q.y, q.x));
+  const fe b = mul(add(p.y, p.x), add(q.y, q.x));
+  const fe c = mul(mul(p.t, fe_d2()), q.t);
+  const fe zz = mul(p.z, q.z);
+  const fe d = add(zz, zz);
+  const fe e = sub(b, a), f = sub(d, c), g = add(d, c), h = add(b, a);
+  o.x = mul(e, f);
+  o.y = mul(g, h);
+  o.z = mul(f, g);
+  o.t = mul(e, h);
+}
+
+// Doubling never reads T; need_t = false skips producing it.
+__device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t) {
+  const fe a = sq(p.x);
+  const fe b = sq(p.y);
+  const fe zz = sq(p.z);
+  const fe c = add(zz, zz);
+  const fe e = sub(sub(sq(add(p.x, p.y)), a), b);
+  const fe g = sub(b, a);
+  const fe f = sub(g, c);
+  const fe h = neg(add(a, b));
+  o.x = mul(e, f);
+  o.y = mul(g, h);
+  o.z = mul(f, g);
+  o.t = need_t ? mul(e, h) : fe_zero();
+}
+
+// Extended accumulator + Niels entry; need_t = false where T is not read.
+__device__ __noinline__ void point_add_niels(pt& o, const pt& p, const pt& q,
+                                             bool need_t) {
+  const fe a = mul(sub(p.y, p.x), q.y);
+  const fe b = mul(add(p.y, p.x), q.x);
+  const fe c = mul(p.t, q.t);
+  const fe zz = mul(p.z, q.z);
+  const fe d = add(zz, zz);
+  const fe e = sub(b, a), f = sub(d, c), g = add(d, c), h = add(b, a);
+  o.x = mul(e, f);
+  o.y = mul(g, h);
+  o.z = mul(f, g);
+  o.t = need_t ? mul(e, h) : fe_zero();
+}
+
+__device__ __forceinline__ pt point_neg(const pt& p) {
+  return pt{neg(p.x), p.y, p.z, neg(p.t)};
+}
+
+__device__ __noinline__ void to_niels(pt& o, const pt& p) {
+  const fe yplusx = add(p.y, p.x);
+  const fe yminusx = sub(p.y, p.x);
+  const fe t2d = mul(p.t, fe_d2());
+  o.x = yplusx;
+  o.y = yminusx;
+  o.z = p.z;
+  o.t = t2d;
+}
+
+// 32 little-endian bytes -> limbs of the low 255 bits (pallas_verify
+// _unpack_limbs); the sign bit is e[31] >> 7.
+__device__ __forceinline__ fe unpack_limbs(const int32_t (&e)[32]) {
+  fe y;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int lo_bit = RADIX * i;
+    const int byte0 = lo_bit >> 3, shift = lo_bit & 7;
+    int32_t v = byte0 == 31 ? (e[31] & 0x7F) : e[byte0];
+    if (byte0 + 1 < 32) v += (byte0 + 1 == 31 ? (e[31] & 0x7F) : e[byte0 + 1]) << 8;
+    if (byte0 + 2 < 32 && shift + RADIX > 16)
+      v += (byte0 + 2 == 31 ? (e[31] & 0x7F) : e[byte0 + 2]) << 16;
+    y.v[i] = (v >> shift) & MASK;
+  }
+  return y;
+}
+
+// ZIP-215 decompression (pallas_verify.decompress): y is carried but not
+// reduced, so a non-canonical y is accepted; sqrt_ratio accepts
+// check == -u; the sign flip uses the canonical x.
+__device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
+  const fe one = fe_one();
+  const fe y = carry(unpack_limbs(e));
+  const int32_t sign = e[31] >> 7;
+  const fe yy = sq(y);
+  const fe u = sub(yy, one);
+  const fe v = add(mul(fe_d(), yy), one);
+  // sqrt_ratio(u, v)
+  const fe v3 = mul(sq(v), v);
+  const fe v7 = mul(sq(v3), v);
+  fe r = mul(mul(u, v3), pow22523(mul(u, v7)));
+  const fe check = mul(v, sq(r));
+  const bool ok_pos = eq(check, u);
+  const bool ok_neg = is_zero(add(check, u));
+  if (!ok_pos) r = mul(r, fe_sqrt_m1());
+  fe x = canon(r);
+  if ((x.v[0] & 1) != sign) x = neg(x);
+  o.x = x;
+  o.y = y;
+  o.z = one;
+  o.t = mul(x, y);
+  return ok_pos || ok_neg;
+}
+
+}  // namespace edw

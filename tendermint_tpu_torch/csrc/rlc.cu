@@ -1,0 +1,263 @@
+// The three RLC fast-accept kernels (M = 4 signatures per lane) for sm_90a.
+//
+// Counterpart: tendermint_tpu/ops/pallas_rlc.py; plain PyTorch versions:
+// tendermint_tpu_torch/ops/rlc.py (k1_rlc_plain, k2_rlc_plain,
+// k3_rlc_plain), which these kernels match limb for limb. Global arrays
+// keep the JAX layout, (rows, g) with the lane last: thread j works on
+// column j, so neighbouring threads read neighbouring addresses. Point
+// coordinates sit in 32-row slots (limbs 0..19; rows 20..31 written 0).
+//
+// What bounds them. The work is 32-bit multiply-adds of the limb
+// convolutions: 400 per field multiply, 210 per squaring. Counted from the
+// formulas (chip_smoke.py counts them by running the plain versions), per
+// lane:
+//   K1  492,400: 8 decompressions of 255 squarings + 20 multiplies, most of
+//       it pow22523
+//   K2  203,520: 4 tables of 2 doubles, 2 triples, 9 cross sums and 16
+//       Niels conversions
+//   K3  1,956,000: 127 iterations of 2 doubles and 3 or 4 Niels adds,
+//       then 6 doubles and the cross-multiplied test
+// against 132 SMs x 64 INT32 lanes per clock at the SM clock nvidia-smi
+// reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 2,560 lanes (10,240
+// signatures) that is 0.075, 0.031 and 0.30 ms. The bytes each kernel
+// moves (22, 94 and 105 MB) take 0.007 to 0.03 ms at 3.35 TB/s, so all
+// three are bound by operations.
+//
+// What the design does about it: the lanes are the parallelism. K1 runs a
+// thread per (lane, point) and K2 per (lane, table), so their independent
+// work spreads over 8 and 4 times the threads; K3's ladder is sequential
+// within a lane, so it runs one thread per lane: 2,560 threads, 20 blocks
+// of 128, one warp per scheduler on 20 of the 132 SMs. The card is mostly
+// idle during K3 (PERF.md has its time beside the bound). Splitting one
+// lane's ladder over several threads is left to a later change.
+//
+// Shared design: full unrolling of the limb loops inside a field multiply
+// keeps its 20 + 20 + 39 values in registers; point functions are
+// __noinline__ so that the build stays seconds long and each kernel holds
+// one copy of each formula.
+
+#include <cuda_runtime.h>
+
+#include "fe25519.cuh"
+
+namespace edw {
+
+constexpr int M = 4;
+constexpr int N_SCAL = 2 * M;
+constexpr int N_FULL_TABLES = M / 2 + 1;
+constexpr int THREADS = 128;
+
+__device__ __forceinline__ void store_fe(int32_t* __restrict__ base, int row,
+                                         const fe& x, int lane, int g) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) base[(size_t)(row + l) * g + lane] = x.v[l];
+#pragma unroll
+  for (int l = NL; l < 32; ++l) base[(size_t)(row + l) * g + lane] = 0;
+}
+
+__device__ __forceinline__ fe load_fe(const int32_t* __restrict__ base,
+                                      int row, int lane, int g) {
+  fe x;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.v[l] = base[(size_t)(row + l) * g + lane];
+  return x;
+}
+
+// Point p of the coords array: coordinate c at rows (p * 4 + c) * 32.
+__device__ __forceinline__ pt load_point(const int32_t* __restrict__ coords,
+                                         int p, int lane, int g) {
+  return pt{load_fe(coords, (p * 4 + 0) * 32, lane, g),
+            load_fe(coords, (p * 4 + 1) * 32, lane, g),
+            load_fe(coords, (p * 4 + 2) * 32, lane, g),
+            load_fe(coords, (p * 4 + 3) * 32, lane, g)};
+}
+
+// Entry e of table t: coordinate c at rows ((t * 16 + e) * 4 + c) * 32.
+__device__ __forceinline__ int tbl_row(int t, int e, int c) {
+  return ((t * 16 + e) * 4 + c) * 32;
+}
+
+// K1 — replaces pallas_rlc._k1_rlc_kernel (pallas_rlc.py:110).
+// Thread (lane, p), p = blockIdx.y in 0..2M-1, unpacks the base-4 digits
+// of scalar p and decompresses point p (A_0..A_{M-1}, then R_0..R_{M-1}).
+// Digit t of a scalar is (byte[t >> 2] >> 2 (t & 3)) & 3, stored at row
+// (t & 3) * 32 + (t >> 2) of its 128 (pallas_verify's shift-grouped
+// order). Bound: operations (the decompression's pow22523); eight
+// independent decompressions per lane are spread over eight threads.
+__global__ void __launch_bounds__(THREADS)
+k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
+              const uint8_t* __restrict__ scal_t, int32_t* __restrict__ coords,
+              int32_t* __restrict__ ok, int32_t* __restrict__ dig, int g) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (lane >= g) return;
+#pragma unroll 4
+  for (int b = 0; b < 32; ++b) {
+    const int32_t byte = scal_t[(size_t)(p * 32 + b) * g + lane];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      dig[(size_t)(p * 128 + s * 32 + b) * g + lane] = (byte >> (2 * s)) & 3;
+  }
+  const uint8_t* src = p < M ? a_t + (size_t)p * 32 * g
+                             : r_t + (size_t)(p - M) * 32 * g;
+  int32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = src[(size_t)b * g + lane];
+  pt P;
+  const bool okp = decompress(P, e);
+  ok[(size_t)p * g + lane] = okp ? 1 : 0;
+  store_fe(coords, (p * 4 + 0) * 32, P.x, lane, g);
+  store_fe(coords, (p * 4 + 1) * 32, P.y, lane, g);
+  store_fe(coords, (p * 4 + 2) * 32, P.z, lane, g);
+  store_fe(coords, (p * 4 + 3) * 32, P.t, lane, g);
+}
+
+// The point of scalar q: B for S (q = 0), -A_{q-1} for u (1 <= q <= M),
+// -R_{q-M} for z (q > M).
+__device__ __forceinline__ pt point_of(const int32_t* __restrict__ coords,
+                                       int q, int lane, int g) {
+  if (q == 0) return base_point();
+  return point_neg(load_point(coords, q <= M ? q - 1 : q, lane, g));
+}
+
+// K2 — replaces pallas_rlc._k2_rlc_kernel (pallas_rlc.py:177).
+// Thread (lane, t), t = blockIdx.y in 0..M-1, builds table t: entry
+// lo + 4 hi = [lo]P_t + [hi]Q_t (lo, hi in 0..3) for the points of
+// scalars (2t, 2t+1), stored in Niels form. Bound: operations (13 point
+// additions and doublings, 16 conversions per table); the M tables of a
+// lane are spread over M threads.
+__global__ void __launch_bounds__(THREADS)
+k2_rlc_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
+              int g) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.y;
+  if (lane >= g) return;
+  pt rows[4], cols[4];  // [O, P, 2P, 3P] and [O, Q, 2Q, 3Q]
+  rows[0] = identity_point();
+  cols[0] = identity_point();
+  rows[1] = point_of(coords, 2 * t, lane, g);
+  cols[1] = point_of(coords, 2 * t + 1, lane, g);
+  point_double(rows[2], rows[1], true);
+  point_double(cols[2], cols[1], true);
+  point_add(rows[3], rows[2], rows[1]);
+  point_add(cols[3], cols[2], cols[1]);
+#pragma unroll 1
+  for (int e = 0; e < 16; ++e) {
+    const int lo = e & 3, hi = e >> 2;
+    pt ent;
+    if (hi == 0)
+      ent = rows[lo];
+    else if (lo == 0)
+      ent = cols[hi];
+    else
+      point_add(ent, rows[lo], cols[hi]);
+    to_niels(ent, ent);
+    store_fe(tbl, tbl_row(t, e, 0), ent.x, lane, g);
+    store_fe(tbl, tbl_row(t, e, 1), ent.y, lane, g);
+    store_fe(tbl, tbl_row(t, e, 2), ent.z, lane, g);
+    store_fe(tbl, tbl_row(t, e, 3), ent.t, lane, g);
+  }
+}
+
+// One ladder iteration over NT tables: 2 doubles (the first skips T), then
+// one Niels add per table; only the last add skips T, since the next
+// iteration's doubles never read it. The table select is a direct indexed
+// load (pallas_rlc's 16-way masked select was a Mosaic constraint).
+template <int NT>
+__device__ __forceinline__ void ladder_step(pt& acc,
+                                            const int32_t* __restrict__ tbl,
+                                            const int32_t* __restrict__ dig,
+                                            int pos, int lane, int g) {
+  const int j = (pos & 3) * 32 + (pos >> 2);
+  point_double(acc, acc, false);
+  point_double(acc, acc, true);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int idx = dig[(size_t)(2 * t * 128 + j) * g + lane] +
+                    4 * dig[(size_t)((2 * t + 1) * 128 + j) * g + lane];
+    const pt ent{load_fe(tbl, tbl_row(t, idx, 0), lane, g),
+                 load_fe(tbl, tbl_row(t, idx, 1), lane, g),
+                 load_fe(tbl, tbl_row(t, idx, 2), lane, g),
+                 load_fe(tbl, tbl_row(t, idx, 3), lane, g)};
+    point_add_niels(acc, acc, ent, t + 1 < NT);
+  }
+}
+
+// K3 — replaces pallas_rlc._k3_rlc_kernel (pallas_rlc.py:251).
+// One thread per lane runs the 127-iteration joint ladder over the M
+// tables, digit positions 126 down to 0. Positions 126..64 (63 iterations)
+// skip the tables whose two scalars are both z's: z < 2^128, so their
+// digits there are zero and pallas_rlc skips them too (the accumulator's
+// limbs, not only its value, must match). Then [8]acc == [8]R_0 by
+// doubles-only projective cross-multiplication, ANDed with the 2M
+// decompression flags and the M host s < L flags. Bound: operations (the
+// ladder); one lane's ladder is sequential, so lanes are the only
+// parallelism here.
+__global__ void __launch_bounds__(THREADS)
+k3_rlc_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ dig,
+              const int32_t* __restrict__ coords, const int32_t* __restrict__ ok,
+              const int32_t* __restrict__ sok, int32_t* __restrict__ out,
+              int g) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= g) return;
+  pt acc = identity_point();
+#pragma unroll 1
+  for (int i = 0; i < 63; ++i)
+    ladder_step<N_FULL_TABLES>(acc, tbl, dig, 126 - i, lane, g);
+#pragma unroll 1
+  for (int i = 63; i < 127; ++i) ladder_step<M>(acc, tbl, dig, 126 - i, lane, g);
+  pt r8 = load_point(coords, M, lane, g);  // R_0
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    point_double(acc, acc, false);
+    point_double(r8, r8, false);
+  }
+  bool valid = is_zero(sub(mul(acc.x, r8.z), mul(r8.x, acc.z))) &&
+               is_zero(sub(mul(acc.y, r8.z), mul(r8.y, acc.z)));
+#pragma unroll
+  for (int p = 0; p < 2 * M; ++p) valid = valid && ok[(size_t)p * g + lane] != 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) valid = valid && sok[(size_t)j * g + lane] != 0;
+  out[lane] = valid ? 1 : 0;
+}
+
+}  // namespace edw
+
+// ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
+// Each entry launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() of its launch. The grid is ceil(g / THREADS) blocks
+// with the tail masked in the kernel.
+
+static dim3 lane_grid(int g, int y) {
+  return dim3((g + edw::THREADS - 1) / edw::THREADS, y);
+}
+
+extern "C" int tm_k1_rlc(const void* a_t, const void* r_t, const void* scal_t,
+                         void* coords, void* ok, void* dig, int g,
+                         void* stream) {
+  edw::k1_rlc_kernel<<<lane_grid(g, edw::N_SCAL), edw::THREADS, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)a_t, (const uint8_t*)r_t, (const uint8_t*)scal_t,
+      (int32_t*)coords, (int32_t*)ok, (int32_t*)dig, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_k2_rlc(const void* coords, void* tbl, int g, void* stream) {
+  edw::k2_rlc_kernel<<<lane_grid(g, edw::M), edw::THREADS, 0,
+                      (cudaStream_t)stream>>>((const int32_t*)coords,
+                                              (int32_t*)tbl, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_k3_rlc(const void* tbl, const void* dig, const void* coords,
+                         const void* ok, const void* sok, void* out, int g,
+                         void* stream) {
+  edw::k3_rlc_kernel<<<lane_grid(g, 1), edw::THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tbl, (const int32_t*)dig, (const int32_t*)coords,
+      (const int32_t*)ok, (const int32_t*)sok, (int32_t*)out, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* tm_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,118 @@
+"""Columnar signature batch.
+
+Counterpart: tendermint_tpu/ops/entry_block.py (EntryBlock). One batch of
+ed25519 signatures as contiguous columns, built once and passed by
+reference from commit selection to the kernel prep:
+
+    pub     (n, 32) uint8   public keys, one row per signature
+    sig     (n, 64) uint8   signatures (R || s)
+    msgs    bytes           all sign-bytes concatenated
+    offsets (n+1,) int64    msgs[offsets[i]:offsets[i+1]] is message i
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence, Tuple
+
+import numpy as np
+
+Entry = Tuple[bytes, bytes, bytes]
+
+
+class EntryBlock:
+    __slots__ = ("pub", "sig", "msgs", "offsets")
+
+    def __init__(self, pub: np.ndarray, sig: np.ndarray, msgs,
+                 offsets: np.ndarray):
+        n = pub.shape[0]
+        if (
+            pub.dtype != np.uint8 or sig.dtype != np.uint8
+            or pub.shape != (n, 32) or sig.shape != (n, 64)
+        ):
+            raise ValueError("pub must be (n, 32) and sig (n, 64) uint8")
+        if offsets.shape != (n + 1,):
+            raise ValueError("offsets must be (n+1,)")
+        # message lengths are offsets[i+1] - offsets[i]
+        if n and bool((np.diff(offsets) < 0).any()):
+            raise ValueError("offsets must be non-decreasing")
+        if int(offsets[-1]) > len(msgs) or int(offsets[0]) < 0:
+            raise ValueError("offsets run outside the message buffer")
+        self.pub = pub
+        self.sig = sig
+        self.msgs = msgs
+        self.offsets = offsets
+
+    @classmethod
+    def from_entries(cls, entries: Sequence[Entry]) -> "EntryBlock":
+        """(pub32, msg, sig64) triples -> columns."""
+        n = len(entries)
+        if any(len(pk) != 32 or len(s) != 64 for pk, _, s in entries):
+            raise ValueError("entries must be (pub32, msg, sig64) triples")
+        pub = np.frombuffer(b"".join(pk for pk, _, _ in entries),
+                            dtype=np.uint8).reshape(n, 32)
+        sig = np.frombuffer(b"".join(s for _, _, s in entries),
+                            dtype=np.uint8).reshape(n, 64)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(m) for _, m, _ in entries], out=offsets[1:])
+        return cls(pub, sig, b"".join(m for _, m, _ in entries), offsets)
+
+    def __len__(self) -> int:
+        return self.pub.shape[0]
+
+    def msg(self, i: int) -> bytes:
+        o = self.offsets
+        return bytes(memoryview(self.msgs)[int(o[i]) : int(o[i + 1])])
+
+    def entry(self, i: int) -> Entry:
+        """ONE (pub, msg, sig) tuple — the blame path's per-lane re-verify."""
+        return self.pub[i].tobytes(), self.msg(i), self.sig[i].tobytes()
+
+    def iter_entries(self) -> Iterator[Entry]:
+        for i in range(len(self)):
+            yield self.entry(i)
+
+    def messages(self) -> list:
+        """Every message as bytes (the host challenge loop's input)."""
+        buf = bytes(self.msgs)
+        o = self.offsets.tolist()
+        return [buf[o[i] : o[i + 1]] for i in range(len(self))]
+
+    def __getitem__(self, key: slice) -> "EntryBlock":
+        """Contiguous sub-block: numpy views + a rebased offset window."""
+        if not isinstance(key, slice):
+            raise TypeError("EntryBlock indexing takes a slice")
+        start, stop, step = key.indices(len(self))
+        if step != 1:
+            raise ValueError("EntryBlock slices must be contiguous")
+        o = self.offsets
+        base = int(o[start])
+        return EntryBlock(
+            self.pub[start:stop],
+            self.sig[start:stop],
+            memoryview(self.msgs)[base : int(o[stop])],
+            o[start : stop + 1] - base,
+        )
+
+    @staticmethod
+    def concat(blocks: Sequence["EntryBlock"]) -> "EntryBlock":
+        """One np.concatenate per column + one msgs join; a single
+        non-empty block passes through by identity."""
+        blocks = [b for b in blocks if len(b)]
+        if len(blocks) == 1:
+            return blocks[0]
+        if not blocks:
+            return EntryBlock.from_entries([])
+        msgs = []
+        offsets = [np.zeros(1, dtype=np.int64)]
+        base = 0
+        for b in blocks:
+            lo, hi = int(b.offsets[0]), int(b.offsets[-1])
+            msgs.append(bytes(memoryview(b.msgs)[lo:hi]))
+            offsets.append(b.offsets[1:] - lo + base)
+            base += hi - lo
+        return EntryBlock(
+            np.concatenate([b.pub for b in blocks]),
+            np.concatenate([b.sig for b in blocks]),
+            b"".join(msgs),
+            np.concatenate(offsets),
+        )

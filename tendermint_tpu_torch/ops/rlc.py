@@ -1,0 +1,458 @@
+"""Per-lane RLC fast-accept verification — M signatures per kernel lane.
+
+Counterpart: tendermint_tpu/ops/pallas_rlc.py. Lane g covers signatures
+j = 0..M-1 with coefficients c_0 = 1, c_j = z_j (random 128-bit, fresh
+from os.urandom for every batch):
+
+    acc = [S]B - sum_j [u_j]A_j - sum_{j>=1} [z_j]R_j
+    accept iff [8]acc == [8]R_0          (cofactored, ZIP-215)
+
+    S = (s_0 + sum z_j s_j) mod L,  u_0 = k_0,  u_j = (z_j k_j) mod L
+
+Valid lanes always accept; a lane with a bad signature rejects except
+with probability <= 2^-125, and its M signatures are then re-verified on
+the host for blame (expand_lanes). Three kernels run per batch, each
+with a CUDA version (csrc/rlc.cu) and a plain PyTorch version here:
+
+  K1  k1_rlc  digits of the 2M lane scalars; ZIP-215 decompression of
+              A_0..A_{M-1}, R_0..R_{M-1}
+  K2  k2_rlc  M joint 16-entry Straus tables in Niels form
+  K3  k3_rlc  the 127-iteration shared-doubles ladder and the final
+              [8]acc == [8]R_0 test, ANDed with the 2M decompression
+              flags and the M host s < L flags
+
+Global arrays keep the JAX layout: (rows, g) with the lane last, uint8
+bytes in, int32 limbs, flags and digits out; coordinates sit in 32-row
+slots (limbs 0..19, rows 20..31 zero). A wrapper runs the plain version
+for CPU tensors and launches its kernel for CUDA tensors; it counts its
+launches in LAUNCHES. verify_batch_rlc marks its stages (prep, h2d,
+kernels, d2h, expand) as torch.profiler record_function spans.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..crypto import _edwards
+from . import fe, point
+
+NL = fe.NLIMBS
+
+M = 4  # signatures per lane
+N_SCAL = 2 * M  # scalar q: 0 -> S, 1..M -> u_{q-1}, M+1..2M-1 -> z_{q-M}
+# Table t pairs scalars (2t, 2t+1); tables whose two scalars are both z's
+# have no digits above bit 128 and are skipped in the ladder's top half.
+N_FULL_TABLES = M // 2 + 1
+
+BLOCK_LANES = 128  # lanes per plan_bucket block (pallas_rlc.BLOCK_LANES)
+MAX_SIGS = 81920  # signatures per device batch
+RLC_BUCKETS = (512, 2048, 10240, 20480, 40960, 81920)
+
+COORD_ROWS = 2 * M * 4 * 32
+TBL_ROWS = M * 16 * 4 * 32
+DIG_ROWS = N_SCAL * 128
+
+# Launch counts of the three CUDA kernels (plain-version calls on CPU
+# tensors are not launches).
+LAUNCHES = {"k1_rlc": 0, "k2_rlc": 0, "k3_rlc": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _point_rows(p: int, c: int) -> slice:
+    """Rows of coordinate c of point p in the coords array (32-row slots)."""
+    base = (p * 4 + c) * 32
+    return slice(base, base + NL)
+
+
+def _tbl_rows(t: int, e: int, c: int) -> slice:
+    base = ((t * 16 + e) * 4 + c) * 32
+    return slice(base, base + NL)
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def k1_rlc_plain(a_t, r_t, scal_t):
+    """(M*32, g) A bytes, (M*32, g) R bytes, (N_SCAL*32, g) scalar bytes
+    (uint8) -> coords (COORD_ROWS, g), ok (2M, g), dig (DIG_ROWS, g) int32.
+    Points A_0..A_{M-1} then R_0..R_{M-1}; digits scalar-major."""
+    g = a_t.shape[-1]
+    kw = dict(dtype=torch.int32, device=a_t.device)
+    coords = torch.zeros((COORD_ROWS, g), **kw)
+    ok = torch.zeros((2 * M, g), **kw)
+    dig = torch.zeros((DIG_ROWS, g), **kw)
+    for q in range(N_SCAL):
+        enc = scal_t[q * 32 : (q + 1) * 32].to(torch.int32)
+        dig[q * 128 : (q + 1) * 128] = point.unpack_digits2_grouped(enc)
+    ys, signs = [], []
+    for src in (a_t, r_t):
+        for j in range(M):
+            y, s = point.unpack_limbs(src[j * 32 : (j + 1) * 32].to(torch.int32))
+            ys.append(y)
+            signs.append(s)
+    # one decompression over all 2M points, folded along the lane axis
+    ok_all, pts = point.decompress(torch.cat(ys, dim=1), torch.cat(signs, dim=1))
+    for p in range(2 * M):
+        ok[p : p + 1] = ok_all[:, p * g : (p + 1) * g].to(torch.int32)
+        for c in range(4):
+            coords[_point_rows(p, c)] = pts[c][:, p * g : (p + 1) * g]
+    return coords, ok, dig
+
+
+def _catp(points):
+    return tuple(torch.cat([p[c] for p in points], dim=1) for c in range(4))
+
+
+def _slicep(pt, i, g):
+    return tuple(c[:, i * g : (i + 1) * g] for c in pt)
+
+
+def k2_rlc_plain(coords):
+    """coords (COORD_ROWS, g) -> tbl (TBL_ROWS, g) int32. Table t holds
+    [lo]P_t + [hi]Q_t at entry lo + 4 hi (digits lo, hi in 0..3), where
+    (P_t, Q_t) are the points of scalars (2t, 2t+1): B for S, -A_j for
+    u_j, -R_j for z_j."""
+    g = coords.shape[-1]
+    pts = [
+        point.point_neg(tuple(coords[_point_rows(p, c)] for c in range(4)))
+        for p in range(2 * M)
+    ]
+    zero = torch.zeros((NL, g), dtype=torch.int32, device=coords.device)
+    one = fe.from_int(1, coords) + zero
+    base = tuple(fe.from_int(_edwards.BASE[c], coords) + zero for c in range(4))
+    ident = (zero, one, one, zero)
+
+    def point_of(q):
+        return base if q == 0 else pts[q - 1] if q <= M else pts[q]
+
+    P = [point_of(2 * t) for t in range(M)]
+    Q = [point_of(2 * t + 1) for t in range(M)]
+    pair = _catp(P + Q)
+    dbl = point.point_double(pair)
+    tri = point.point_add(dbl, pair)
+    tbl = torch.zeros((TBL_ROWS, g), dtype=torch.int32, device=coords.device)
+    for t in range(M):
+        rows = [ident, P[t], _slicep(dbl, t, g), _slicep(tri, t, g)]
+        cols = [ident, Q[t], _slicep(dbl, M + t, g), _slicep(tri, M + t, g)]
+        crosses = point.point_add(
+            _catp([rows[lo] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
+            _catp([cols[hi] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
+        )
+        entries = []
+        for hi in range(4):
+            for lo in range(4):
+                if hi == 0:
+                    entries.append(rows[lo])
+                elif lo == 0:
+                    entries.append(cols[hi])
+                else:
+                    entries.append(_slicep(crosses, (hi - 1) * 3 + (lo - 1), g))
+        niels = point.to_niels(_catp(entries))
+        for e in range(16):
+            ent = _slicep(niels, e, g)
+            for c in range(4):
+                tbl[_tbl_rows(t, e, c)] = ent[c]
+    return tbl
+
+
+def k3_rlc_plain(tbl, dig, coords, ok, sok):
+    """tbl (TBL_ROWS, g), dig (DIG_ROWS, g), coords (COORD_ROWS, g),
+    ok (2M, g), sok (M, g) -> (1, g) int32 lane verdicts."""
+    g = sok.shape[-1]
+    dev = sok.device
+    zero = torch.zeros((NL, g), dtype=torch.int32, device=dev)
+    one = fe.from_int(1, sok) + zero
+    acc = (zero, one, one, zero)
+    limb = torch.arange(NL, device=dev)[:, None]
+
+    def select(t, idx):
+        # direct indexed load of entry idx (per lane) of table t
+        return tuple(
+            tbl.gather(0, (((t * 16 + idx[None, :]) * 4 + c) * 32) + limb)
+            for c in range(4)
+        )
+
+    for i in range(127):
+        # digit positions 126..64 (i < 63): the all-z tables are skipped
+        n_tables = N_FULL_TABLES if i < 63 else M
+        j = point.digit_row(126 - i)
+        acc = point.point_double(point.point_double(acc, need_t=False))
+        for t in range(n_tables):
+            idx = dig[2 * t * 128 + j] + 4 * dig[(2 * t + 1) * 128 + j]
+            # only the last add before the next iteration's doubles skips T
+            acc = point.point_add_niels(acc, select(t, idx),
+                                        need_t=t + 1 < n_tables)
+
+    # [8]acc == [8]R_0 by doubles-only projective cross-multiplication
+    acc8 = acc
+    r8 = tuple(coords[_point_rows(M, c)] for c in range(4))
+    for _ in range(3):
+        acc8 = point.point_double(acc8, need_t=False)
+        r8 = point.point_double(r8, need_t=False)
+    eq_x = fe.is_zero(fe.sub(fe.mul(acc8[0], r8[2]), fe.mul(r8[0], acc8[2])))
+    eq_y = fe.is_zero(fe.sub(fe.mul(acc8[1], r8[2]), fe.mul(r8[1], acc8[2])))
+    valid = eq_x & eq_y & (ok != 0).all(dim=0, keepdim=True)
+    valid = valid & (sok != 0).all(dim=0, keepdim=True)
+    return valid.to(torch.int32)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+
+def check_lanes(g: int) -> None:
+    """Reject a lane count plan_bucket would not give: a multiple of
+    BLOCK_LANES, or a power of two below it. The CUDA grid is
+    ceil(g / threads) with the tail masked, but a g from elsewhere means
+    a caller sized its batch without plan_bucket."""
+    bad = g < 1 or (g % BLOCK_LANES if g >= BLOCK_LANES else g & (g - 1))
+    if bad:
+        raise ValueError(
+            f"lane count {g} is not one plan_bucket gives "
+            "(size buckets via plan_bucket)"
+        )
+
+
+def _check(name: str, t: torch.Tensor, rows: int, g: int, dtype,
+           device: torch.device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != (rows, g):
+        raise ValueError(
+            f"{name} must be ({rows}, {g}) {dtype}, got {tuple(t.shape)} {t.dtype}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _device_of(t: torch.Tensor) -> torch.device:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+def _launch(name: str, *args) -> None:
+    """Call a C entry of the kernel library on the current stream; the
+    entry returns cudaGetLastError() of its launch."""
+    from . import kernels
+
+    lib = kernels.library()
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    cargs = [
+        ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+        else ctypes.c_int(a)
+        for a in args
+    ]
+    # the C entry launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, "tm_" + name)(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {kernels.error_string(err)} ({err})"
+        )
+    LAUNCHES[name] += 1
+
+
+def k1_rlc(a_t, r_t, scal_t):
+    """K1 (replaces pallas_rlc._k1_rlc_kernel); see k1_rlc_plain."""
+    dev = _device_of(a_t)
+    g = a_t.shape[-1]
+    check_lanes(g)
+    _check("a_t", a_t, M * 32, g, torch.uint8, dev)
+    _check("r_t", r_t, M * 32, g, torch.uint8, dev)
+    _check("scal_t", scal_t, N_SCAL * 32, g, torch.uint8, dev)
+    if dev.type == "cpu":
+        return k1_rlc_plain(a_t, r_t, scal_t)
+    coords = torch.empty((COORD_ROWS, g), dtype=torch.int32, device=dev)
+    ok = torch.empty((2 * M, g), dtype=torch.int32, device=dev)
+    dig = torch.empty((DIG_ROWS, g), dtype=torch.int32, device=dev)
+    _launch("k1_rlc", a_t, r_t, scal_t, coords, ok, dig, g)
+    return coords, ok, dig
+
+
+def k2_rlc(coords):
+    """K2 (replaces pallas_rlc._k2_rlc_kernel); see k2_rlc_plain."""
+    dev = _device_of(coords)
+    g = coords.shape[-1]
+    check_lanes(g)
+    _check("coords", coords, COORD_ROWS, g, torch.int32, dev)
+    if dev.type == "cpu":
+        return k2_rlc_plain(coords)
+    tbl = torch.empty((TBL_ROWS, g), dtype=torch.int32, device=dev)
+    _launch("k2_rlc", coords, tbl, g)
+    return tbl
+
+
+def k3_rlc(tbl, dig, coords, ok, sok):
+    """K3 (replaces pallas_rlc._k3_rlc_kernel); see k3_rlc_plain."""
+    dev = _device_of(sok)
+    g = sok.shape[-1]
+    check_lanes(g)
+    _check("tbl", tbl, TBL_ROWS, g, torch.int32, dev)
+    _check("dig", dig, DIG_ROWS, g, torch.int32, dev)
+    _check("coords", coords, COORD_ROWS, g, torch.int32, dev)
+    _check("ok", ok, 2 * M, g, torch.int32, dev)
+    _check("sok", sok, M, g, torch.int32, dev)
+    if dev.type == "cpu":
+        return k3_rlc_plain(tbl, dig, coords, ok, sok)
+    out = torch.empty((1, g), dtype=torch.int32, device=dev)
+    _launch("k3_rlc", tbl, dig, coords, ok, sok, out, g)
+    return out
+
+
+# -- bucketing and host prep --------------------------------------------------
+
+
+def plan_bucket(n: int) -> tuple:
+    """(bucket_sigs, g_lanes) covering n signatures: buckets quantize to
+    RLC_BUCKETS, with power-of-two lane counts up to BLOCK_LANES; every
+    lane count is one check_lanes accepts."""
+    lanes = max((n + M - 1) // M, 1)
+    if lanes <= BLOCK_LANES:
+        g = 1 << (lanes - 1).bit_length()
+        return g * M, g
+    for b in RLC_BUCKETS:
+        if n <= b:
+            return b, b // M
+    return RLC_BUCKETS[-1], RLC_BUCKETS[-1] // M
+
+
+def _rlc_scalars_py(s_enc: bytes, k_enc: bytes, z_enc: bytes, m: int) -> bytes:
+    """Lane scalars S (g x 32 B) then U (g*m x 32 B), little-endian."""
+    L = _edwards.L
+    n = len(s_enc) // 32
+    S = bytearray()
+    U = bytearray()
+    for lane in range(n // m):
+        b = lane * m
+        s0 = int.from_bytes(s_enc[32 * b : 32 * b + 32], "little") % L
+        U += k_enc[32 * b : 32 * b + 32]
+        for j in range(1, m):
+            i = b + j
+            z = int.from_bytes(z_enc[32 * i : 32 * i + 32], "little")
+            s = int.from_bytes(s_enc[32 * i : 32 * i + 32], "little")
+            k = int.from_bytes(k_enc[32 * i : 32 * i + 32], "little")
+            s0 = (s0 + z * s) % L
+            U += ((z * k) % L).to_bytes(32, "little")
+        S += s0.to_bytes(32, "little")
+    return bytes(S) + bytes(U)
+
+
+def _gen_z(n: int) -> np.ndarray:
+    """(n, 32) uint8 coefficients: 128 random bits from os.urandom, top
+    16 bytes zero. There is no seed: predictable coefficients would let
+    an attacker pick them and void the 2^-125 bound."""
+    z = np.zeros((n, 32), dtype=np.uint8)
+    z[:, :16] = np.frombuffer(os.urandom(16 * n), dtype=np.uint8).reshape(n, 16)
+    return z
+
+
+def _rlc_host_scalars(entries, live: int, g_live: int, z: np.ndarray):
+    """Pack the live rows, then challenges k = SHA-512(R||A||M) mod L,
+    the s < L flags and the lane scalars. Returns (pub (live, 32),
+    r_enc (live, 32), scal (g_live, N_SCAL, 32), s_ok (live,) bool)."""
+    from .backend import _challenges, _pack_rows, _s_below_l
+
+    n = len(entries)
+    pub, r_enc, s_enc = _pack_rows(entries, live)
+    s_ok = _s_below_l(s_enc, n, live)
+    k_enc = np.zeros((live, 32), dtype=np.uint8)
+    if n:
+        ks = _challenges(r_enc[:n], pub[:n], entries.messages())
+        k_enc[:n] = np.frombuffer(ks, dtype=np.uint8).reshape(n, 32)
+    raw = _rlc_scalars_py(s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), M)
+    scal = np.zeros((g_live, N_SCAL, 32), dtype=np.uint8)
+    scal[:, 0] = np.frombuffer(raw[: 32 * g_live], dtype=np.uint8).reshape(g_live, 32)
+    scal[:, 1 : M + 1] = np.frombuffer(raw[32 * g_live :], dtype=np.uint8).reshape(
+        g_live, M, 32
+    )
+    scal[:, M + 1 :] = z.reshape(g_live, M, 32)[:, 1:]
+    return pub, r_enc, scal, s_ok
+
+
+def prepare_rlc(entries, bucket: int, z: np.ndarray = None):
+    """EntryBlock -> (a_t (M*32, g) u8, r_t (M*32, g) u8, scal_t
+    (N_SCAL*32, g) u8, sok_t (M, g) int32), padded to `bucket`
+    signatures (g = bucket // M lanes). Padding lanes: A = R = the
+    identity encoding (byte 0 = 1), zero scalars, s_ok = 1.
+
+    z: (bucket, 32) uint8 coefficients for tests only; the verify path
+    never passes it and draws fresh ones from os.urandom."""
+    n = len(entries)
+    if bucket % M or n > bucket:
+        raise ValueError(f"bucket {bucket} must be a multiple of M={M} and >= {n}")
+    g = bucket // M
+    g_live = min((n + M - 1) // M, g)
+    live = g_live * M
+    if z is None:
+        z = _gen_z(live)
+    else:
+        if z.dtype != np.uint8 or z.shape != (bucket, 32):
+            raise ValueError(f"z must be ({bucket}, 32) uint8")
+        if z[:, 16:].any():
+            # the ladder skips z digits above bit 128
+            raise ValueError("z coefficients must be below 2^128")
+        z = z[:live]
+    pub, r_enc, scal, s_ok = _rlc_host_scalars(entries, live, g_live, z)
+
+    def slotmajor(arr):  # (live, 32) -> (M*32, g_live)
+        return arr.reshape(g_live, M, 32).transpose(1, 2, 0).reshape(M * 32, g_live)
+
+    a_t = np.zeros((M * 32, g), dtype=np.uint8)
+    r_t = np.zeros((M * 32, g), dtype=np.uint8)
+    scal_t = np.zeros((N_SCAL * 32, g), dtype=np.uint8)
+    sok_t = np.ones((M, g), dtype=np.int32)
+    a_t[np.arange(M) * 32, g_live:] = 1
+    r_t[np.arange(M) * 32, g_live:] = 1
+    if g_live:
+        a_t[:, :g_live] = slotmajor(pub)
+        r_t[:, :g_live] = slotmajor(r_enc)
+        scal_t[:, :g_live] = scal.transpose(1, 2, 0).reshape(N_SCAL * 32, g_live)
+        sok_t[:, :g_live] = s_ok.reshape(g_live, M).T
+    return a_t, r_t, scal_t, sok_t
+
+
+def expand_lanes(lane_valid: np.ndarray, entries) -> np.ndarray:
+    """Lane verdicts -> per-signature verdicts. A valid lane accepts its
+    M signatures; a rejected lane's live signatures are re-verified one
+    by one on the host (the reference's blame asymmetry,
+    types/validation.go:242-248)."""
+    from ..crypto import ed25519 as _ed25519
+
+    n = len(entries)
+    per_sig = np.repeat(lane_valid, M)[:n].copy()
+    for lane in np.nonzero(~lane_valid)[0]:
+        for i in range(lane * M, min((lane + 1) * M, n)):
+            per_sig[i] = _ed25519.verify_zip215(*entries.entry(i))
+    return per_sig
+
+
+def verify_batch_rlc(entries, *, device) -> np.ndarray:
+    """EntryBlock of any size -> (n,) bool per-signature ZIP-215 verdicts,
+    in chunks of at most MAX_SIGS signatures, K1-K3 on `device`."""
+    out = []
+    for i in range(0, len(entries), MAX_SIGS):
+        chunk = entries[i : i + MAX_SIGS]
+        bucket, _ = plan_bucket(len(chunk))
+        with record_function("rlc.prep"):
+            args = prepare_rlc(chunk, bucket)
+        with record_function("rlc.h2d"):
+            a_t, r_t, scal_t, sok_t = (torch.from_numpy(a).to(device) for a in args)
+        with record_function("rlc.kernels"):
+            coords, ok, dig = k1_rlc(a_t, r_t, scal_t)
+            tbl = k2_rlc(coords)
+            lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
+        with record_function("rlc.d2h"):  # waits for the kernels
+            lane_valid = lanes.cpu().numpy()[0].astype(bool)
+        with record_function("rlc.expand"):
+            out.append(expand_lanes(lane_valid, chunk))
+    return np.concatenate(out) if out else np.zeros((0,), dtype=bool)

@@ -1,0 +1,95 @@
+"""The port stands alone: no module of tendermint_tpu_torch, and not
+chip_smoke.py, imports jax or anything of tendermint_tpu, and the entry
+points never pick the CPU by themselves."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "tendermint_tpu_torch"
+
+
+def _forbidden(name: str) -> bool:
+    # "tendermint_tpu_torch".startswith("tendermint_tpu") is true, so the
+    # JAX package is matched by equality or by its "tendermint_tpu." prefix
+    return (
+        name in ("jax", "tendermint_tpu")
+        or name.startswith(("jax.", "jaxlib", "tendermint_tpu."))
+    )
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import tendermint_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for m in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps([mods, sorted(sys.modules)]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    mods, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "tendermint_tpu_torch.types.validation" in mods
+    assert "tendermint_tpu_torch.ops.rlc" in mods
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_entry_points_default_to_cuda():
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519
+    from tendermint_tpu_torch.device import resolve_device
+    from tendermint_tpu_torch.types import validation
+    from tendermint_tpu_torch.types.block import BlockID, Commit
+
+    pk = ed25519.gen_priv_key(bytes(range(32))).pub_key()
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        assert batch.create_batch_verifier(pk).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.create_batch_verifier(pk)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validation.verify_commit("c", None, BlockID(), 1, Commit())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validation.verify_commit_light("c", None, BlockID(), 1, Commit())
+    # the CPU only when asked for
+    assert batch.create_batch_verifier(pk, device="cpu").device.type == "cpu"
+
+
+def test_unsupported_devices_raise():
+    from tendermint_tpu_torch.device import resolve_device
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
