@@ -8,25 +8,34 @@ Run from the repository root on a machine with a CUDA card:
 Phases, in order:
 
 1. the card: `nvidia-smi` name and power limit, torch's device name;
-2. build: the CUDA kernels of tendermint_tpu_torch/csrc, with the build
-   seconds and each kernel's registers and spills (`-Xptxas -v`);
-3. kernels: K1, K2 and K3 of the RLC path, each on the card against its
-   plain PyTorch version on the card, at 64 and at 2,560 lanes, over the
-   ZIP-215 edge battery, padding lanes and one tampered lane. Coordinates
-   are compared after canonicalisation, flags, digits and verdicts
-   exactly;
+2. build: the CUDA kernels of tendermint_tpu_torch/csrc, one nvcc per
+   source, all started together, with the build seconds and each
+   kernel's registers and spills (`-Xptxas -v`);
+3. kernels: each of the eight CUDA entries on the card against its plain
+   PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
+   and 2,560 lanes, the per-signature K1, K2 and K3 at 256 and 10,240
+   signatures, and the epoch table build at 16,384 rows, over the ZIP-215
+   edge battery, padding and one tampered signature. Coordinates are
+   compared after canonicalisation, flags, digits and verdicts exactly;
 4. slice: `types.validation.verify_commit` on a 10,000-validator ed25519
-   commit on the card: the valid commit passes, a tampered signature
-   raises `wrong signature (#i): <HEX>`, and a commit below 2/3 of the
-   voting power raises ErrNotEnoughVotingPowerSigned. The three kernels'
-   launch counters are set to 0 just before the valid run and read just
-   after it;
-5. timing: the end-to-end verify_commit wall clock (warm, median); a
-   torch.profiler trace of a few more calls, from which each call's host
+   commit on the card, on each path with the launch counters set to 0
+   just before it and read just after:
+   (a) RLC: five calls on one validator set, the first cold (k1_rlc),
+       the rest warm (k1_rlc_cached, the epoch table built once), with
+       the epoch cache's misses and hits; a tampered signature raises
+       `wrong signature (#i): <HEX>` warm and cold; verify_commit_light
+       runs warm; a commit below 2/3 raises ErrNotEnoughVotingPowerSigned;
+   (b) per-signature (TM_TPU_RLC=0): the valid, tampered and below-2/3
+       commits give the same results, through k1_decompress, k2_table
+       and k3_ladder once each per call;
+5. timing, for each path (RLC cold, RLC warm, per-signature): the
+   end-to-end verify_commit wall clock (warm, median of 20); a
+   torch.profiler trace of 5 more calls, from which each call's host
    stages (the port's record_function spans), the rest of the call, and
-   the card's busy time and idle share come; each kernel's time from
-   CUDA events beside its plain version's time and its bound; and peak
-   device memory. The trace is kept in build/traces/.
+   the card's busy time and idle share come; peak device memory. Then
+   each kernel's time from CUDA events at the path's shape beside its
+   plain version's time and its bound. The traces are kept in
+   build/traces/.
 
 It prints one JSON line of kernel records, then the `nvidia-smi` line,
 then, last, `{"ok": true, "device": {...}}`. Any failed check exits
@@ -36,6 +45,7 @@ or a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -52,7 +62,7 @@ import torch
 
 from tendermint_tpu_torch.crypto import _edwards
 from tendermint_tpu_torch.crypto import ed25519
-from tendermint_tpu_torch.ops import fe, kernels, rlc
+from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, rlc, verify
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 from tendermint_tpu_torch.types import validation
 from tendermint_tpu_torch.types.block import (
@@ -81,15 +91,23 @@ BLOCK = BlockID(
     part_set_header=PartSetHeader(1, hashlib.sha256(b"chip-smoke parts").digest()),
 )
 TAMPER_AT = 4321  # signature flipped in the tampered commit
-LANE_SHAPES = (64, 2560)  # kernel-phase shapes; 2,560 lanes = 10,240 signatures
+LANE_SHAPES = (64, 2560)  # RLC kernel shapes; 2,560 lanes = 10,240 signatures
+WARM_CALLS = 5  # verify_commit calls on one set in slice (a): 1 cold, 4 warm
 REPEATS = 20  # warm end-to-end runs (median)
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
 KERNEL_REPS = 10  # launches per CUDA-event timing
-TRACE_PATH = kernels.BUILD_DIR.parent / "traces" / "verify_commit.json"
-# the port's record_function spans on the batch path, in path order
-HOST_STAGES = ("commit.select", "commit.sign_bytes", "rlc.prep", "rlc.h2d",
-               "rlc.kernels", "rlc.d2h", "rlc.expand")
+TRACE_DIR = kernels.BUILD_DIR.parent / "traces"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the port's record_function spans on each batch path, in path order
+COMMIT_STAGES = ("commit.select", "commit.sign_bytes")
+PATHS = {
+    "rlc_cold": COMMIT_STAGES + ("rlc.prep", "rlc.h2d", "rlc.kernels", "rlc.d2h",
+                                 "rlc.expand"),
+    "rlc_warm": COMMIT_STAGES + ("rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
+                                 "rlc.d2h", "rlc.expand"),
+    "per_signature": COMMIT_STAGES + ("verify.prep", "verify.h2d", "verify.kernels",
+                                      "verify.d2h"),
+}
 
 # Bound model of one H100 (SXM, 700 W): 132 SMs, each 64 INT32 lanes a
 # clock at the SM clock nvidia-smi reports as its maximum, and HBM3 at
@@ -100,15 +118,28 @@ INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 PRODUCTS_MUL = 400
 PRODUCTS_SQ = 210
-# multiply-adds per lane, as csrc/rlc.cu's header states them
-PRODUCTS_PER_LANE = {"k1_rlc": 492_400, "k2_rlc": 203_520, "k3_rlc": 1_956_000}
-
-SOURCE = "tendermint_tpu_torch/csrc/rlc.cu"
-REPLACES = {
-    "k1_rlc": "tendermint_tpu/ops/pallas_rlc.py:110",
-    "k2_rlc": "tendermint_tpu/ops/pallas_rlc.py:177",
-    "k3_rlc": "tendermint_tpu/ops/pallas_rlc.py:251",
+# multiply-adds per unit of work (an RLC lane, a table row, a signature),
+# as the headers of csrc/rlc.cu and csrc/verify.cu state them
+PRODUCTS_PER_UNIT = {
+    "k1_rlc": 492_400, "k1_rlc_cached": 246_200, "k2_rlc": 203_520,
+    "k3_rlc": 1_956_000, "epoch_coords": 61_550,
+    "k1_decompress": 123_100, "k2_table": 50_880, "k3_ladder": 938_400,
 }
+KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
+    "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
+    "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
+    "k2_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:177"),
+    "k3_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:251"),
+    "epoch_coords": ("rlc.cu", "tendermint_tpu/ops/epoch_cache.py:292"),
+    "k1_decompress": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:239"),
+    "k2_table": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:286"),
+    "k3_ladder": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:329"),
+}
+# outputs of each kernel that hold 32-row coordinate slots (compared
+# after canonicalisation; the rest exactly)
+SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (0,), "k2_rlc": (0,), "k3_rlc": (),
+                "epoch_coords": (0,), "k1_decompress": (0,), "k2_table": (0,),
+                "k3_ladder": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -130,6 +161,23 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def rlc_env(value):
+    """TM_TPU_RLC set to `value` (None: unset) inside the block."""
+    old = os.environ.get("TM_TPU_RLC")
+    if value is None:
+        os.environ.pop("TM_TPU_RLC", None)
+    else:
+        os.environ["TM_TPU_RLC"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TM_TPU_RLC", None)
+        else:
+            os.environ["TM_TPU_RLC"] = old
 
 
 # -- data ----------------------------------------------------------------------
@@ -192,7 +240,7 @@ def edge_entries() -> list:
     """Entries over every ZIP-215 accept and reject branch: valid
     signatures, a corrupted signature, a wrong message, a corrupted key,
     s >= L, small-order keys (accepted for any message), non-canonical
-    key encodings (accepted), and random bytes."""
+    key encodings (accepted), a key off the curve, and random bytes."""
     rng = random.Random(SEED)
     out = []
     for i in range(6):
@@ -208,6 +256,7 @@ def edge_entries() -> list:
     bad_pub[3] ^= 1
     out.append((bytes(bad_pub), msg, sig))
     out.append((pub, msg, sig[:32] + (_edwards.L + 5).to_bytes(32, "little")))
+    out.append(((2).to_bytes(32, "little"), msg, sig))  # y = 2: no point
     small = []
     for y in range(50):
         for sign in (0, 1):
@@ -233,14 +282,46 @@ def edge_entries() -> list:
     return out
 
 
+def sig_inputs(commit_ents: list, edge: list, lanes: int, pool) -> tuple:
+    """An EntryBlock for `lanes` RLC lanes (lanes * M signatures): the
+    edge battery, commit signatures with one tampered, a last lane
+    holding one signature and three padding slots, and at least 8
+    padding lanes; and the oracle's per-signature verdicts padded to
+    lanes * M (padding accepts)."""
+    n = min(lanes * rlc.M - 8 * rlc.M, len(edge) + len(commit_ents)) - 3
+    body = list(commit_ents[: n - len(edge)])
+    pk, msg, sig = body[len(body) // 2]
+    body[len(body) // 2] = (pk, msg, tamper(sig))
+    ents = edge + body
+    # commit signatures are valid except the tampered one
+    per_sig = np.ones(lanes * rlc.M, dtype=bool)
+    per_sig[: len(edge)] = pool.map(_oracle, edge)
+    per_sig[len(edge) + len(body) // 2] = False
+    return EntryBlock.from_entries(ents), per_sig
+
+
+def with_epoch(block: EntryBlock, seed: int) -> tuple:
+    """(block with val_idx and a key, its EpochEntry): the block's keys in
+    a shuffled table, so val_idx runs out of order."""
+    n = len(block)
+    order = np.random.default_rng(seed).permutation(n)
+    ep = epoch_cache.EpochEntry(b"smoke %d" % seed, block.pub[order])
+    val_idx = np.argsort(order).astype(np.int32)
+    return EntryBlock(block.pub, block.sig, block.msgs, block.offsets,
+                      val_idx=val_idx, epoch_key=ep.key), ep
+
+
 # -- build ---------------------------------------------------------------------
 
 
 def build_kernels() -> None:
     b = kernels.build()
-    log(f"build: {b.seconds:.2f} s ({b.path.name})")
+    log(f"build: {b.seconds:.2f} s, {len(kernels.SOURCES)} sources in parallel "
+        f"({b.path.name})")
     for line in b.ptxas.splitlines():
-        if any(k in line for k in ("entry function", "Function properties", "registers", "spill")):
+        if line.startswith("==") or any(
+            k in line for k in ("Compiling entry", "registers", "spill")
+        ):
             log("  ptxas: " + line.strip())
     kernels.library()
 
@@ -267,69 +348,105 @@ def _timed(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
-def kernel_phase(entries_by_lanes: dict, expected_lanes: dict, dev) -> dict:
-    """K1-K3 against their plain versions on the card. Returns per kernel
-    the max abs error over both shapes and the plain time at the last."""
-    stats = {k: {"max_abs_err": 0, "plain_ms": None} for k in REPLACES}
-    for lanes, block in entries_by_lanes.items():
-        args = rlc.prepare_rlc(block, lanes * rlc.M)
-        a_t, r_t, scal_t, sok = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args)
+def hold(stats: dict, name: str, label: str, plain, kernel) -> tuple:
+    """Run kernel `name` and its plain version on the same inputs; check
+    every output equal (coordinate slots after canonicalisation). Returns
+    the plain version's outputs, which feed the next kernel."""
+    want, ms = _timed(plain)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    err, raw = 0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in SLOT_OUTPUTS[name]:
+            err = max(err, _max_err(_canon_slots(g), _canon_slots(w)))
+        else:
+            err = max(err, _max_err(g, w))
+        raw = raw and torch.equal(g, w)
+    check(err == 0, f"{name} differs from its plain version at {label} (max abs error {err})")
+    st = stats[name]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["plain_ms"] = ms
+    log(f"kernels: {name} @ {label}: equal to plain (raw limbs equal: {raw}); "
+        f"plain {ms:.1f} ms")
+    return want if len(want) > 1 else want[0]
+
+
+def _verdicts(out: torch.Tensor) -> np.ndarray:
+    return out.cpu().numpy()[0].astype(bool)
+
+
+def kernel_phase(inputs: dict, table_pub: np.ndarray, dev) -> dict:
+    """Every kernel against its plain version on the card. Returns per
+    kernel the max abs error over its shapes and the plain time at the
+    last (the main path's) shape."""
+    stats = {k: {"max_abs_err": 0, "plain_ms": None} for k in KERNELS}
+    M = rlc.M
+    for lanes in LANE_SHAPES:
+        block, per_sig = inputs[lanes]
+        want_lanes = per_sig.reshape(lanes, M).all(axis=1)
+        label = f"{lanes} lanes"
+        a_t, r_t, scal_t, sok = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in rlc.prepare_rlc(block, lanes * M)
+        )
         check(a_t.shape[-1] == lanes, f"prepared {a_t.shape[-1]} lanes, wanted {lanes}")
+        coords, ok, dig = hold(stats, "k1_rlc", label, lambda: rlc.k1_rlc_plain(a_t, r_t, scal_t),
+                               lambda: rlc.k1_rlc(a_t, r_t, scal_t))
+        tbl = hold(stats, "k2_rlc", label, lambda: rlc.k2_rlc_plain(coords),
+                   lambda: rlc.k2_rlc(coords))
+        out = hold(stats, "k3_rlc", label, lambda: rlc.k3_rlc_plain(tbl, dig, coords, ok, sok),
+                   lambda: rlc.k3_rlc(tbl, dig, coords, ok, sok))
+        got = _verdicts(out)
+        check(bool((got == want_lanes).all()),
+              f"cold lane verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != want_lanes)[0][:8].tolist()}")
 
-        (coords_p, ok_p, dig_p), ms1 = _timed(lambda: rlc.k1_rlc_plain(a_t, r_t, scal_t))
-        coords_k, ok_k, dig_k = rlc.k1_rlc(a_t, r_t, scal_t)
-        torch.cuda.synchronize()
-        err1 = _max_err(_canon_slots(coords_k), _canon_slots(coords_p))
-        check(err1 == 0, f"K1 coords differ at {lanes} lanes (max {err1})")
-        check(torch.equal(ok_k, ok_p), f"K1 flags differ at {lanes} lanes")
-        check(torch.equal(dig_k, dig_p), f"K1 digits differ at {lanes} lanes")
-        raw1 = torch.equal(coords_k, coords_p)
+        wblock, ep = with_epoch(block, lanes)
+        idx, r_rows, scal_rows, sok_rows = rlc.prepare_rlc_cached(wblock, lanes * M, ep)
+        pub_t = torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)).to(dev)
+        ctbl, oktbl = epoch_cache.epoch_coords_plain(pub_t)
+        idx, r_rows, scal_rows = (torch.from_numpy(a).to(dev) for a in (idx, r_rows, scal_rows))
+        sok_w = torch.from_numpy(np.ascontiguousarray(sok_rows.T)).to(dev)
+        coords, ok, dig = hold(
+            stats, "k1_rlc_cached", label,
+            lambda: rlc.k1_rlc_cached_plain(ctbl, oktbl, idx, r_rows, scal_rows),
+            lambda: rlc.k1_rlc_cached(ctbl, oktbl, idx, r_rows, scal_rows))
+        got = _verdicts(rlc.k3_rlc(rlc.k2_rlc(coords), dig, coords, ok, sok_w))
+        check(bool((got == want_lanes).all()),
+              f"warm lane verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != want_lanes)[0][:8].tolist()}")
+        log(f"kernels: {label}: cold and warm lanes equal the oracle; "
+            f"{int((~want_lanes).sum())} lanes reject")
 
-        tbl_p, ms2 = _timed(lambda: rlc.k2_rlc_plain(coords_p))
-        tbl_k = rlc.k2_rlc(coords_p)
-        torch.cuda.synchronize()
-        err2 = _max_err(_canon_slots(tbl_k), _canon_slots(tbl_p))
-        check(err2 == 0, f"K2 table differs at {lanes} lanes (max {err2})")
-        raw2 = torch.equal(tbl_k, tbl_p)
+        n = lanes * M
+        label = f"{n} signatures"
+        a_t, r_t, s_t, k_t, sok = (torch.from_numpy(a).to(dev)
+                                   for a in verify.prepare_compact(block, n))
+        coords, ok, sdig, kdig = hold(
+            stats, "k1_decompress", label, lambda: verify.k1_decompress_plain(a_t, r_t, s_t, k_t),
+            lambda: verify.k1_decompress(a_t, r_t, s_t, k_t))
+        tbl = hold(stats, "k2_table", label, lambda: verify.k2_table_plain(coords),
+                   lambda: verify.k2_table(coords))
+        out = hold(stats, "k3_ladder", label,
+                   lambda: verify.k3_ladder_plain(tbl, sdig, kdig, coords, ok, sok),
+                   lambda: verify.k3_ladder(tbl, sdig, kdig, coords, ok, sok))
+        got = _verdicts(out)
+        check(bool((got == per_sig).all()),
+              f"per-signature verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != per_sig)[0][:8].tolist()}")
+        log(f"kernels: {label}: verdicts equal the oracle; {int((~per_sig).sum())} reject")
 
-        out_p, ms3 = _timed(lambda: rlc.k3_rlc_plain(tbl_p, dig_p, coords_p, ok_p, sok))
-        out_k = rlc.k3_rlc(tbl_p, dig_p, coords_p, ok_p, sok)
-        torch.cuda.synchronize()
-        err3 = _max_err(out_k, out_p)
-        check(err3 == 0, f"K3 verdicts differ at {lanes} lanes")
-
-        got = out_k.cpu().numpy()[0].astype(bool)
-        want = expected_lanes[lanes]
-        check(bool((got == want).all()),
-              f"lane verdicts at {lanes} lanes differ from the oracle at "
-              f"{np.nonzero(got != want)[0][:8].tolist()}")
-        log(f"kernels @ {lanes} lanes: K1 K2 K3 equal to plain (raw limbs equal: "
-            f"K1 {raw1}, K2 {raw2}); {int((~got).sum())} lanes reject; "
-            f"plain ms K1 {ms1:.1f} K2 {ms2:.1f} K3 {ms3:.1f}")
-        for name, err, ms in (("k1_rlc", err1, ms1), ("k2_rlc", err2, ms2), ("k3_rlc", err3, ms3)):
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            stats[name]["plain_ms"] = ms
+    ep = epoch_cache.EpochEntry(b"smoke table", table_pub)
+    pub_t = torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)).to(dev)
+    coords, ok = hold(stats, "epoch_coords", f"{ep.vp} rows",
+                      lambda: epoch_cache.epoch_coords_plain(pub_t),
+                      lambda: epoch_cache.epoch_coords(pub_t))
+    want_ok = [_edwards.decompress(r.tobytes()) is not None for r in ep.pub_rows]
+    check(ok.cpu().numpy()[0].astype(bool).tolist() == want_ok,
+          "table flags differ from the oracle's decompression")
     return stats
-
-
-def lane_inputs(commit_ents: list, edge: list, lanes: int, pool) -> tuple:
-    """An EntryBlock for `lanes` RLC lanes: the edge battery, commit
-    signatures with one tampered, a last lane holding one signature and
-    three padding slots, and at least 8 padding lanes; and the oracle's
-    lane verdicts for it (a lane accepts iff all its signatures do;
-    padding accepts)."""
-    n = min(lanes * rlc.M - 8 * rlc.M, len(edge) + len(commit_ents)) - 3
-    body = list(commit_ents[: n - len(edge)])
-    pk, msg, sig = body[len(body) // 2]
-    body[len(body) // 2] = (pk, msg, tamper(sig))
-    ents = edge + body
-    # commit signatures are valid except the tampered one
-    per_sig = np.ones(len(ents), dtype=bool)
-    per_sig[: len(edge)] = pool.map(_oracle, edge)
-    per_sig[len(edge) + len(body) // 2] = False
-    padded = np.ones(lanes * rlc.M, dtype=bool)
-    padded[: len(ents)] = per_sig
-    return EntryBlock.from_entries(ents), padded.reshape(lanes, rlc.M).all(axis=1)
 
 
 # -- slice phase ---------------------------------------------------------------
@@ -344,25 +461,16 @@ def expect_error(fn, exc_type, message: str) -> None:
     raise SmokeFailure(f"no {exc_type.__name__} raised (wanted {message:.80})")
 
 
-def slice_phase(vals, commit, dev) -> dict:
-    """verify_commit on the card; returns the launch counts of the valid run."""
-    rlc.reset_launches()
-    validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
-    launches = dict(rlc.LAUNCHES)
-    log(f"slice: valid {N_VALIDATORS}-validator commit verified; launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched by verify_commit")
+def _launched(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items() if v - before.get(k, 0)}
 
+
+def _commits(vals, commit) -> tuple:
+    """(tampered commit and its message, below-2/3 commit and its message)."""
     bad = Commit(commit.height, commit.round, commit.block_id, list(commit.signatures))
     cs = bad.signatures[TAMPER_AT]
     bad.signatures[TAMPER_AT] = dataclasses.replace(cs, signature=tamper(cs.signature))
-    expect_error(
-        lambda: validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, bad, device=dev),
-        ValueError,
-        f"wrong signature (#{TAMPER_AT}): {bad.signatures[TAMPER_AT].signature.hex().upper()}",
-    )
-    log(f"slice: tampered signature #{TAMPER_AT} blamed")
-
+    bad_msg = f"wrong signature (#{TAMPER_AT}): {bad.signatures[TAMPER_AT].signature.hex().upper()}"
     total = vals.total_voting_power()
     needed = total * 2 // 3
     low = Commit(commit.height, commit.round, commit.block_id, list(commit.signatures))
@@ -372,26 +480,89 @@ def slice_phase(vals, commit, dev) -> dict:
             break
         low.signatures[i] = CommitSig(BLOCK_ID_FLAG_ABSENT)
         got -= v.voting_power
-    expect_error(
-        lambda: validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, low, device=dev),
-        ErrNotEnoughVotingPowerSigned,
-        f"invalid commit -- insufficient voting power: got {got}, needed more than {needed}",
-    )
-    log(f"slice: low power ({got} of {total}) rejected")
+    low_msg = f"invalid commit -- insufficient voting power: got {got}, needed more than {needed}"
+    return bad, bad_msg, low, low_msg
+
+
+def slice_phase(vals, commit, dev) -> dict:
+    """verify_commit on the card on both paths; returns each kernel's
+    launches in its path's run: the WARM_CALLS RLC calls, and one
+    per-signature call."""
+
+    def vc(c, fn=validation.verify_commit):
+        return lambda: fn(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
+
+    bad, bad_msg, low, low_msg = _commits(vals, commit)
+    launches = {}
+    with rlc_env(None):
+        # (a) RLC: one set, cold then warm
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        kernels.reset_launches()
+        per_call = []
+        for _ in range(WARM_CALLS):
+            before = dict(kernels.LAUNCHES)
+            vc(commit)()
+            per_call.append(_launched(before))
+        launches.update(kernels.LAUNCHES)
+        stats = epoch_cache.stats()
+        log(f"slice (a): {WARM_CALLS} verify_commit calls on one set, launches per call "
+            f"{per_call}; epoch cache {stats}")
+        check(per_call[0] == {"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1},
+              f"the cold call launched {per_call[0]}")
+        check(per_call[1] == {"epoch_coords": 1, "k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1},
+              f"the first warm call launched {per_call[1]}")
+        for c in per_call[2:]:
+            check(c == {"k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1},
+                  f"a warm call launched {c}")
+        check((stats["misses"], stats["hits"]) == (1, WARM_CALLS - 1),
+              f"epoch cache misses/hits {stats['misses']}/{stats['hits']}")
+
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        check(_launched(before).get("k1_rlc_cached") == 1, "the tampered commit did not run warm")
+        before = dict(kernels.LAUNCHES)
+        vc(commit, validation.verify_commit_light)()
+        light = _launched(before)
+        check(light == {"k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1},
+              f"verify_commit_light launched {light}")
+        expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+        epoch_cache.reset(depth=0)
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        check(_launched(before).get("k1_rlc") == 1, "the tampered commit did not run cold")
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        log(f"slice (a): tampered signature #{TAMPER_AT} blamed warm and cold; "
+            f"verify_commit_light warm {light}; low power rejected")
+
+    with rlc_env("0"):
+        # (b) per-signature
+        kernels.reset_launches()
+        vc(commit)()
+        valid = dict(kernels.LAUNCHES)
+        launches.update({k: valid[k] for k in ("k1_decompress", "k2_table", "k3_ladder")})
+        want = {"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1}
+        check(_launched({}) == want, f"the per-signature call launched {valid}")
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        bad_launches = _launched(before)
+        check(bad_launches == want, f"the tampered per-signature call launched {bad_launches}")
+        expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+        log(f"slice (b): per-signature valid commit verified, launches {want}; "
+            f"tampered #{TAMPER_AT} blamed; low power rejected")
     return launches
 
 
 # -- timing --------------------------------------------------------------------
 
 
-def count_products(a_t, r_t, scal_t, sok) -> dict:
-    """Multiply-adds per lane of each kernel, counted by running the plain
-    versions on one lane on the CPU with fe.mul and fe.sq counted per
-    column (the kernels run the same formulas; a squaring is counted at
-    the kernel's 210 products). Each count must equal the one stated in
-    csrc/rlc.cu's header: a field product the count misses would
-    otherwise lower the bound without an error."""
-    one = [t[:, :1].cpu().contiguous() for t in (a_t, r_t, scal_t, sok)]
+def count_products(units: dict) -> dict:
+    """Multiply-adds per unit of each kernel, counted by running the plain
+    versions on one unit (a lane, a table row, a signature) on the CPU
+    with fe.mul and fe.sq counted per column (the kernels run the same
+    formulas; a squaring is counted at the kernel's 210 products). Each
+    count must equal the one stated in its source's header: a field
+    product the count misses would otherwise lower the bound without an
+    error. `units` maps a kernel to a thunk of its plain version."""
     counts = {"mul": 0, "sq": 0}
     real_mul, real_sq = fe.mul, fe.sq
 
@@ -404,22 +575,42 @@ def count_products(a_t, r_t, scal_t, sok) -> dict:
         counts["sq"] += a.shape[-1]
         return real_sq(a)
 
-    def products(fn):
-        counts["mul"] = counts["sq"] = 0
-        out = fn()
-        return out, counts["mul"] * PRODUCTS_MUL + counts["sq"] * PRODUCTS_SQ
-
+    counted = {}
     fe.mul, fe.sq = mul, sq
     try:
-        (coords, ok, dig), p1 = products(lambda: rlc.k1_rlc_plain(*one[:3]))
-        tbl, p2 = products(lambda: rlc.k2_rlc_plain(coords))
-        _, p3 = products(lambda: rlc.k3_rlc_plain(tbl, dig, coords, ok, one[3]))
+        for name, fn in units.items():
+            counts["mul"] = counts["sq"] = 0
+            fn()
+            counted[name] = counts["mul"] * PRODUCTS_MUL + counts["sq"] * PRODUCTS_SQ
     finally:
         fe.mul, fe.sq = real_mul, real_sq
-    counted = {"k1_rlc": p1, "k2_rlc": p2, "k3_rlc": p3}
-    check(counted == PRODUCTS_PER_LANE,
-          f"multiply-adds per lane {counted}, csrc/rlc.cu states {PRODUCTS_PER_LANE}")
+    check(counted == PRODUCTS_PER_UNIT,
+          f"multiply-adds per unit {counted}, the sources state {PRODUCTS_PER_UNIT}")
     return counted
+
+
+def _one_unit_thunks(cold, warm, table, sig) -> dict:
+    """Plain-version thunks over one unit of each kernel's inputs (CPU)."""
+    a_t, r_t, scal_t, sok = (t[:, :1].cpu().contiguous() for t in cold)
+    ctbl, oktbl, idx, r_rows, scal_rows = (t.cpu() for t in warm)
+    pub_t = table[:, :1].cpu().contiguous()
+    a, r, s, k, sok1 = (t[:, :1].cpu().contiguous() for t in sig)
+    c1, o1, d1 = rlc.k1_rlc_plain(a_t, r_t, scal_t)
+    t1 = rlc.k2_rlc_plain(c1)
+    vc, vo, vs, vk = verify.k1_decompress_plain(a, r, s, k)
+    vt = verify.k2_table_plain(vc)
+    return {
+        "k1_rlc": lambda: rlc.k1_rlc_plain(a_t, r_t, scal_t),
+        "k1_rlc_cached": lambda: rlc.k1_rlc_cached_plain(
+            ctbl, oktbl, idx[: rlc.M].contiguous(), r_rows[: rlc.M].contiguous(),
+            scal_rows[:1].contiguous()),
+        "k2_rlc": lambda: rlc.k2_rlc_plain(c1),
+        "k3_rlc": lambda: rlc.k3_rlc_plain(t1, d1, c1, o1, sok),
+        "epoch_coords": lambda: epoch_cache.epoch_coords_plain(pub_t),
+        "k1_decompress": lambda: verify.k1_decompress_plain(a, r, s, k),
+        "k2_table": lambda: verify.k2_table_plain(vc),
+        "k3_ladder": lambda: verify.k3_ladder_plain(vt, vs, vk, vc, vo, sok1),
+    }
 
 
 def event_ms(fn, reps: int) -> float:
@@ -446,24 +637,27 @@ def _union_ms(intervals: list) -> float:
     return busy / 1e3
 
 
-def profiled_calls(vals, commit, dev) -> list:
+def profiled_calls(vals, commit, dev, path: str) -> list:
     """PROFILED verify_commit calls under torch.profiler. From the one
-    trace, per call: its wall time, each host stage span (the port's
-    record_function spans), the rest of the call outside them, and the
-    union of the card's kernel and copy intervals inside the call."""
+    trace, per call: its wall time, each host stage span of the path (the
+    port's record_function spans), the rest of the call outside them, and
+    the union of the card's kernel and copy intervals inside the call."""
+    stages_of = PATHS[path]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(PROFILED):
             with torch.profiler.record_function("verify_commit"):
                 validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
         torch.cuda.synchronize()
-    TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(TRACE_PATH))
-    with open(TRACE_PATH) as f:
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    trace = TRACE_DIR / f"verify_commit_{path}.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     spans = [e for e in events if e.get("cat") == "user_annotation"]
     calls = sorted((e for e in spans if e["name"] == "verify_commit"), key=lambda e: e["ts"])
-    check(len(calls) == PROFILED, f"trace holds {len(calls)} verify_commit spans, wanted {PROFILED}")
+    check(len(calls) == PROFILED,
+          f"trace holds {len(calls)} verify_commit spans, wanted {PROFILED}")
     out = []
     for c in calls:
         t0, t1 = c["ts"], c["ts"] + c["dur"]
@@ -472,9 +666,9 @@ def profiled_calls(vals, commit, dev) -> list:
             return t0 <= e["ts"] and e["ts"] + e["dur"] <= t1
 
         mine = [e for e in spans if inside(e)]
-        missing = set(HOST_STAGES) - {e["name"] for e in mine}
-        check(not missing, f"a traced verify_commit call lacks the spans {sorted(missing)}")
-        stages = {s: sum(e["dur"] for e in mine if e["name"] == s) / 1e3 for s in HOST_STAGES}
+        missing = set(stages_of) - {e["name"] for e in mine}
+        check(not missing, f"a traced {path} call lacks the spans {sorted(missing)}")
+        stages = {s: sum(e["dur"] for e in mine if e["name"] == s) / 1e3 for s in stages_of}
         stages["rest"] = c["dur"] / 1e3 - sum(stages.values())
         dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS and inside(e)]
         out.append({
@@ -486,74 +680,42 @@ def profiled_calls(vals, commit, dev) -> list:
     return out
 
 
-def timing_phase(vals, commit, block, dev, sm_clock_hz: float) -> tuple:
-    """End-to-end times, the stage breakdown of profiled calls, and each
-    kernel's CUDA-event time beside its bound; returns (kernel records,
-    summary)."""
-    torch.cuda.reset_peak_memory_stats(dev)
-    e2e = []
-    for _ in range(REPEATS):
-        t = time.perf_counter()
-        validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
-        e2e.append(time.perf_counter() - t)
-    peak = torch.cuda.max_memory_allocated(dev)
+def time_path(path: str, vals, commit, dev) -> dict:
+    """End-to-end times and the stage breakdown of one path."""
+    env = "0" if path == "per_signature" else None
+    with rlc_env(env):
+        epoch_cache.reset(depth=0 if path == "rlc_cold" else epoch_cache.DEFAULT_DEPTH)
+        for _ in range(2):  # the second call of a set is warm
+            validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        e2e = []
+        for _ in range(REPEATS):
+            t = time.perf_counter()
+            validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+            e2e.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = profiled_calls(vals, commit, dev, path)
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
     e2e_ms = statistics.median(e2e) * 1e3
-
-    prof = profiled_calls(vals, commit, dev)
     stage_ms = {k: statistics.median(p["stages_ms"][k] for p in prof) for k in prof[0]["stages_ms"]}
     prof_ms = statistics.median(p["call_ms"] for p in prof)
-    n_dev = sum(sum(p["device_events"].values()) for p in prof)
-    if n_dev:
+    busy_ms = idle = None
+    if sum(sum(p["device_events"].values()) for p in prof):
         busy_ms = statistics.median(p["device_busy_ms"] for p in prof)
         idle = statistics.median(1 - p["device_busy_ms"] / p["call_ms"] for p in prof)
-        log(f"timing: profiled calls: device busy {busy_ms:.3f} ms (median), idle "
-            f"{idle:.1%} of the call; device events per call "
-            f"{prof[0]['device_events']}")
-    else:
-        busy_ms = idle = None
-        log("timing: the profiler trace holds no device events: device busy and "
+    log(f"timing [{path}]: verify_commit {N_VALIDATORS} validators median {e2e_ms:.2f} ms over "
+        f"{REPEATS} runs (min {min(e2e) * 1e3:.2f}, max {max(e2e) * 1e3:.2f}; "
+        f"{N_VALIDATORS / (e2e_ms / 1e3):.0f} sigs/s); peak memory {peak} bytes")
+    log(f"timing [{path}]: {PROFILED} profiled calls, median {prof_ms:.2f} ms; stages (median ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
+    if busy_ms is None:
+        log(f"timing [{path}]: the profiler trace holds no device events: device busy and "
             "idle share not measured")
-
-    bucket, g = rlc.plan_bucket(len(block))
-    args = rlc.prepare_rlc(block, bucket)
-    a_t, r_t, scal_t, sok = (torch.from_numpy(a).to(dev) for a in args)
-    coords, ok, dig = rlc.k1_rlc(a_t, r_t, scal_t)
-    tbl = rlc.k2_rlc(coords)
-    out = rlc.k3_rlc(tbl, dig, coords, ok, sok)
-    check(bool(out.all().item()), "the commit's lanes did not all accept")
-    k_ms = {
-        "k1_rlc": event_ms(lambda: rlc.k1_rlc(a_t, r_t, scal_t), KERNEL_REPS),
-        "k2_rlc": event_ms(lambda: rlc.k2_rlc(coords), KERNEL_REPS),
-        "k3_rlc": event_ms(lambda: rlc.k3_rlc(tbl, dig, coords, ok, sok), KERNEL_REPS),
-    }
-    products = count_products(a_t, r_t, scal_t, sok)
-    io_bytes = {
-        "k1_rlc": sum(t.nbytes for t in (a_t, r_t, scal_t, coords, ok, dig)),
-        "k2_rlc": coords.nbytes + tbl.nbytes,
-        "k3_rlc": sum(t.nbytes for t in (tbl, dig, coords, ok, sok, out)),
-    }
-    int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
-    records = []
-    for name in REPLACES:
-        ops_ms = products[name] * g / int_rate * 1e3
-        bytes_ms = io_bytes[name] / HBM_BYTES_PER_S * 1e3
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[name],
-            "ms": k_ms[name],
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "products_per_lane": products[name],
-            "bytes": io_bytes[name],
-        })
-        log(f"timing: {name} {k_ms[name]:.3f} ms at {g} lanes; bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms ({products[name] * g / 1e9:.3f} G "
-            f"multiply-adds -> {ops_ms:.4f} ms, {io_bytes[name] / 1e6:.2f} MB -> "
-            f"{bytes_ms:.4f} ms)")
-    summary = {
+    else:
+        log(f"timing [{path}]: device busy {busy_ms:.3f} ms (median), idle {idle:.1%} of the "
+            f"call; device events per call {prof[0]['device_events']}")
+    return {
         "verify_commit_ms": e2e_ms,
         "verify_commit_runs_ms": [x * 1e3 for x in e2e],
         "sigs_per_s": N_VALIDATORS / (e2e_ms / 1e3),
@@ -563,15 +725,78 @@ def timing_phase(vals, commit, block, dev, sm_clock_hz: float) -> tuple:
         "device_busy_ms": busy_ms,
         "device_idle_share": idle,
         "max_memory_allocated": peak,
-        "lanes": g,
     }
-    log(f"timing: verify_commit {N_VALIDATORS} validators median {e2e_ms:.2f} ms "
-        f"over {REPEATS} warm runs (min {min(e2e) * 1e3:.2f}, max {max(e2e) * 1e3:.2f}; "
-        f"{summary['sigs_per_s']:.0f} sigs/s)")
-    log(f"timing: {PROFILED} profiled calls, median {prof_ms:.2f} ms; stages (median ms) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
-    log(f"timing: max_memory_allocated {peak} bytes")
-    return records, summary
+
+
+def kernel_timing(vals, block: EntryBlock, dev, sm_clock_hz: float) -> list:
+    """Each kernel's CUDA-event time on the main path's inputs, beside its
+    bound; returns the kernel records without launches and plain times."""
+    M = rlc.M
+    bucket, g = rlc.plan_bucket(len(block))
+    cold = [torch.from_numpy(a).to(dev) for a in rlc.prepare_rlc(block, bucket)]
+    a_t, r_t, scal_t, sok = cold
+    coords, ok, dig = rlc.k1_rlc(a_t, r_t, scal_t)
+    tbl = rlc.k2_rlc(coords)
+    out = rlc.k3_rlc(tbl, dig, coords, ok, sok)
+    check(bool(out.all().item()), "the commit's lanes did not all accept")
+
+    rows = np.arange(len(block), dtype=np.int32)  # the commit's rows are the set's
+    wblock = EntryBlock(block.pub, block.sig, block.msgs, block.offsets, val_idx=rows,
+                        epoch_key=vals.hash())
+    ep = epoch_cache.EpochEntry(vals.hash(), vals.ed25519_columns()[0])
+    pub_t = torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)).to(dev)
+    ctbl, oktbl = epoch_cache.epoch_coords(pub_t)
+    idx, r_rows, scal_rows, _ = (torch.from_numpy(a).to(dev)
+                                 for a in rlc.prepare_rlc_cached(wblock, bucket, ep))
+    warm = (ctbl, oktbl, idx, r_rows, scal_rows)
+    wc, wo, wd = rlc.k1_rlc_cached(*warm)
+
+    n = verify.bucket_for(len(block))
+    sig = [torch.from_numpy(a).to(dev) for a in verify.prepare_compact(block, n)]
+    vc, vo, vs, vk = verify.k1_decompress(*sig[:4])
+    vt = verify.k2_table(vc)
+    vout = verify.k3_ladder(vt, vs, vk, vc, vo, sig[4])
+    check(bool(vout[0, : len(block)].all().item()), "the commit's signatures did not all verify")
+
+    runs = {
+        "k1_rlc": (lambda: rlc.k1_rlc(a_t, r_t, scal_t), (a_t, r_t, scal_t, coords, ok, dig), g),
+        "k1_rlc_cached": (lambda: rlc.k1_rlc_cached(*warm), warm + (wc, wo, wd), g),
+        "k2_rlc": (lambda: rlc.k2_rlc(coords), (coords, tbl), g),
+        "k3_rlc": (lambda: rlc.k3_rlc(tbl, dig, coords, ok, sok),
+                   (tbl, dig, coords, ok, sok, out), g),
+        "epoch_coords": (lambda: epoch_cache.epoch_coords(pub_t), (pub_t, ctbl, oktbl), ep.vp),
+        "k1_decompress": (lambda: verify.k1_decompress(*sig[:4]),
+                          tuple(sig[:4]) + (vc, vo, vs, vk), n),
+        "k2_table": (lambda: verify.k2_table(vc), (vc, vt), n),
+        "k3_ladder": (lambda: verify.k3_ladder(vt, vs, vk, vc, vo, sig[4]),
+                      (vt, vs, vk, vc, vo, sig[4], vout), n),
+    }
+    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig))
+    int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
+    records = []
+    for name, (fn, tensors, units) in runs.items():
+        ms = event_ms(fn, KERNEL_REPS)
+        io_bytes = sum(t.nbytes for t in tensors)
+        ops_ms = products[name] * units / int_rate * 1e3
+        bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        source, replaces = KERNELS[name]
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tendermint_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "ms": ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "products_per_unit": products[name],
+            "units": units,
+            "bytes": io_bytes,
+        })
+        log(f"timing: {name} {ms:.3f} ms over {units} units; bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({products[name] * units / 1e9:.3f} G "
+            f"multiply-adds -> {ops_ms:.4f} ms, {io_bytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
+    return records
 
 
 # -- main ----------------------------------------------------------------------
@@ -604,24 +829,32 @@ def main() -> int:
             f"{time.perf_counter() - t:.1f} s by {workers} processes")
         ents = commit_entries(commit, vals)
         edge = edge_entries()
-        inputs = {}
-        expected = {}
-        for lanes in LANE_SHAPES:
-            inputs[lanes], expected[lanes] = lane_inputs(ents, edge, lanes, pool)
+        inputs = {lanes: sig_inputs(ents, edge, lanes, pool) for lanes in LANE_SHAPES}
+    table_pub = np.concatenate([
+        np.frombuffer(b"".join(p for p, _, _ in edge), np.uint8).reshape(-1, 32),
+        vals.ed25519_columns()[0],
+    ])
 
     t = time.perf_counter()
-    kstats = kernel_phase(inputs, expected, dev)
+    kstats = kernel_phase(inputs, table_pub, dev)
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
     launches = slice_phase(vals, commit, dev)
+    log(f"slice phase: {time.perf_counter() - t:.1f} s")
 
-    records, summary = timing_phase(vals, commit, EntryBlock.from_entries(ents),
-                                    dev, sm_clock_hz)
+    t = time.perf_counter()
+    paths = {p: time_path(p, vals, commit, dev) for p in PATHS}
+    records = kernel_timing(vals, EntryBlock.from_entries(ents), dev, sm_clock_hz)
+    log(f"timing phase: {time.perf_counter() - t:.1f} s")
+    log("paths (median ms): " + ", ".join(
+        f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
+        for p, s in paths.items()))
     for r in records:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
-    log("summary: " + json.dumps(summary))
+    log("summary: " + json.dumps(paths))
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// GF(2^255 - 19) field and edwards25519 point functions for the RLC kernels.
+// GF(2^255 - 19) field and edwards25519 point functions for the kernels.
 //
 // Mirrors tendermint_tpu_torch/ops/fe.py and ops/point.py (themselves
 // mirrors of tendermint_tpu/ops/fe_t.py and pallas_verify.py:90-220) one
@@ -16,7 +16,9 @@
 // shift, which the carries rely on, as fe_t's jnp `>>` and torch's do.
 //
 // Verification handles public data only, so nothing here is constant
-// time: branches and table loads may depend on the data.
+// time: branches and table loads may depend on the data. The out-of-line
+// (__noinline__) functions are static: each source that includes this
+// header compiles its own copy, and the objects link without clashes.
 #pragma once
 
 #include <cstdint>
@@ -175,7 +177,7 @@ __device__ __forceinline__ fe sqn(fe a, int n) {
 }
 
 // z^(2^252 - 3), ref10 addition chain.
-__device__ __noinline__ fe pow22523(const fe z) {
+static __device__ __noinline__ fe pow22523(const fe z) {
   const fe x2 = sq(z);
   const fe x9 = mul(z, sqn(x2, 2));
   const fe x11 = mul(x2, x9);
@@ -212,7 +214,7 @@ __device__ __forceinline__ fe cond_sub_p(const fe& x) {
   return c < 0 ? x : t;
 }
 
-__device__ __noinline__ fe canon(const fe x0) {
+static __device__ __noinline__ fe canon(const fe x0) {
   fe x = carry(x0);
   const fe p8 = fe_8p();
 #pragma unroll
@@ -243,7 +245,7 @@ __device__ __forceinline__ bool eq(const fe& a, const fe& b) {
 // Each writes its result only after reading every input, so `o` may alias
 // an input.
 
-__device__ __noinline__ void point_add(pt& o, const pt& p, const pt& q) {
+static __device__ __noinline__ void point_add(pt& o, const pt& p, const pt& q) {
   const fe a = mul(sub(p.y, p.x), sub(q.y, q.x));
   const fe b = mul(add(p.y, p.x), add(q.y, q.x));
   const fe c = mul(mul(p.t, fe_d2()), q.t);
@@ -257,7 +259,7 @@ __device__ __noinline__ void point_add(pt& o, const pt& p, const pt& q) {
 }
 
 // Doubling never reads T; need_t = false skips producing it.
-__device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t) {
+static __device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t) {
   const fe a = sq(p.x);
   const fe b = sq(p.y);
   const fe zz = sq(p.z);
@@ -273,7 +275,7 @@ __device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t) {
 }
 
 // Extended accumulator + Niels entry; need_t = false where T is not read.
-__device__ __noinline__ void point_add_niels(pt& o, const pt& p, const pt& q,
+static __device__ __noinline__ void point_add_niels(pt& o, const pt& p, const pt& q,
                                              bool need_t) {
   const fe a = mul(sub(p.y, p.x), q.y);
   const fe b = mul(add(p.y, p.x), q.x);
@@ -291,7 +293,7 @@ __device__ __forceinline__ pt point_neg(const pt& p) {
   return pt{neg(p.x), p.y, p.z, neg(p.t)};
 }
 
-__device__ __noinline__ void to_niels(pt& o, const pt& p) {
+static __device__ __noinline__ void to_niels(pt& o, const pt& p) {
   const fe yplusx = add(p.y, p.x);
   const fe yminusx = sub(p.y, p.x);
   const fe t2d = mul(p.t, fe_d2());
@@ -299,6 +301,60 @@ __device__ __noinline__ void to_niels(pt& o, const pt& p) {
   o.y = yminusx;
   o.z = p.z;
   o.t = t2d;
+}
+
+// ---- global layout ------------------------------------------------------------
+// Global arrays are (rows, g) with the batch column last: thread j works
+// on column j, so neighbouring threads touch neighbouring addresses.
+// Coordinates sit in 32-row slots (limbs 0..19; rows 20..31 written 0).
+
+__device__ __forceinline__ void store_fe(int32_t* __restrict__ base, int row,
+                                         const fe& x, int col, int g) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) base[(size_t)(row + l) * g + col] = x.v[l];
+#pragma unroll
+  for (int l = NL; l < 32; ++l) base[(size_t)(row + l) * g + col] = 0;
+}
+
+__device__ __forceinline__ fe load_fe(const int32_t* __restrict__ base,
+                                      int row, int col, int g) {
+  fe x;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.v[l] = base[(size_t)(row + l) * g + col];
+  return x;
+}
+
+// Point p of a coords array: coordinate c at rows (p * 4 + c) * 32.
+__device__ __forceinline__ pt load_point(const int32_t* __restrict__ coords,
+                                         int p, int col, int g) {
+  return pt{load_fe(coords, (p * 4 + 0) * 32, col, g),
+            load_fe(coords, (p * 4 + 1) * 32, col, g),
+            load_fe(coords, (p * 4 + 2) * 32, col, g),
+            load_fe(coords, (p * 4 + 3) * 32, col, g)};
+}
+
+__device__ __forceinline__ void store_point(int32_t* __restrict__ coords,
+                                            int p, const pt& P, int col, int g) {
+  store_fe(coords, (p * 4 + 0) * 32, P.x, col, g);
+  store_fe(coords, (p * 4 + 1) * 32, P.y, col, g);
+  store_fe(coords, (p * 4 + 2) * 32, P.z, col, g);
+  store_fe(coords, (p * 4 + 3) * 32, P.t, col, g);
+}
+
+// Base-4 digits of one scalar's 32 bytes (read with byte stride `bstride`
+// from `src`): digit t = (byte[t >> 2] >> 2 (t & 3)) & 3 at row
+// (t & 3) * 32 + (t >> 2) of the 128 rows from `row0` (pallas_verify's
+// shift-grouped order).
+__device__ __forceinline__ void store_digits(int32_t* __restrict__ dig, int row0,
+                                             const uint8_t* __restrict__ src,
+                                             size_t bstride, int col, int g) {
+#pragma unroll 4
+  for (int b = 0; b < 32; ++b) {
+    const int32_t byte = src[(size_t)b * bstride];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      dig[(size_t)(row0 + s * 32 + b) * g + col] = (byte >> (2 * s)) & 3;
+  }
 }
 
 // 32 little-endian bytes -> limbs of the low 255 bits (pallas_verify
@@ -321,7 +377,7 @@ __device__ __forceinline__ fe unpack_limbs(const int32_t (&e)[32]) {
 // ZIP-215 decompression (pallas_verify.decompress): y is carried but not
 // reduced, so a non-canonical y is accepted; sqrt_ratio accepts
 // check == -u; the sign flip uses the canonical x.
-__device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
+static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
   const fe one = fe_one();
   const fe y = carry(unpack_limbs(e));
   const int32_t sign = e[31] >> 7;

@@ -1,27 +1,29 @@
-// The three RLC fast-accept kernels (M = 4 signatures per lane) for sm_90a.
+// The RLC fast-accept kernels (M = 4 signatures per lane) and the epoch
+// table build, for sm_90a.
 //
-// Counterpart: tendermint_tpu/ops/pallas_rlc.py; plain PyTorch versions:
-// tendermint_tpu_torch/ops/rlc.py (k1_rlc_plain, k2_rlc_plain,
-// k3_rlc_plain), which these kernels match limb for limb. Global arrays
-// keep the JAX layout, (rows, g) with the lane last: thread j works on
-// column j, so neighbouring threads read neighbouring addresses. Point
-// coordinates sit in 32-row slots (limbs 0..19; rows 20..31 written 0).
+// Counterpart: tendermint_tpu/ops/pallas_rlc.py and the device half of
+// ops/epoch_cache.py; plain PyTorch versions: tendermint_tpu_torch/ops/
+// rlc.py (k1_rlc_plain, k1_rlc_cached_plain, k2_rlc_plain, k3_rlc_plain)
+// and ops/epoch_cache.py (epoch_coords_plain), which these kernels match
+// limb for limb. Global arrays keep the JAX layout (fe25519.cuh).
 //
 // What bounds them. The work is 32-bit multiply-adds of the limb
 // convolutions: 400 per field multiply, 210 per squaring. Counted from the
 // formulas (chip_smoke.py counts them by running the plain versions), per
-// lane:
-//   K1  492,400: 8 decompressions of 255 squarings + 20 multiplies, most of
-//       it pow22523
-//   K2  203,520: 4 tables of 2 doubles, 2 triples, 9 cross sums and 16
-//       Niels conversions
-//   K3  1,956,000: 127 iterations of 2 doubles and 3 or 4 Niels adds,
-//       then 6 doubles and the cross-multiplied test
+// lane, or per row for the table:
+//   K1         492,400: 8 decompressions of 255 squarings + 20 multiplies,
+//              most of it pow22523
+//   K1 cached  246,200: the 4 R decompressions; the 4 A come from the table
+//   K2         203,520: 4 tables of 2 doubles, 2 triples, 9 cross sums and
+//              16 Niels conversions
+//   K3         1,956,000: 127 iterations of 2 doubles and 3 or 4 Niels
+//              adds, then 6 doubles and the cross-multiplied test
+//   table      61,550: one decompression a row
 // against 132 SMs x 64 INT32 lanes per clock at the SM clock nvidia-smi
 // reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 2,560 lanes (10,240
-// signatures) that is 0.075, 0.031 and 0.30 ms. The bytes each kernel
-// moves (22, 94 and 105 MB) take 0.007 to 0.03 ms at 3.35 TB/s, so all
-// three are bound by operations.
+// signatures) that is 0.075, 0.038, 0.031 and 0.30 ms, and 0.060 ms for a
+// table of 16,384 rows. The bytes each moves (22, 30, 94, 105 and 9 MB)
+// take 0.003 to 0.03 ms at 3.35 TB/s, so all are bound by operations.
 //
 // What the design does about it: the lanes are the parallelism. K1 runs a
 // thread per (lane, point) and K2 per (lane, table), so their independent
@@ -29,7 +31,8 @@
 // within a lane, so it runs one thread per lane: 2,560 threads, 20 blocks
 // of 128, one warp per scheduler on 20 of the 132 SMs. The card is mostly
 // idle during K3 (PERF.md has its time beside the bound). Splitting one
-// lane's ladder over several threads is left to a later change.
+// lane's ladder over several threads is left to a later change. The
+// table runs a thread per row, once per validator set.
 //
 // Shared design: full unrolling of the limb loops inside a field multiply
 // keeps its 20 + 20 + 39 values in registers; point functions are
@@ -46,31 +49,6 @@ constexpr int M = 4;
 constexpr int N_SCAL = 2 * M;
 constexpr int N_FULL_TABLES = M / 2 + 1;
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ void store_fe(int32_t* __restrict__ base, int row,
-                                         const fe& x, int lane, int g) {
-#pragma unroll
-  for (int l = 0; l < NL; ++l) base[(size_t)(row + l) * g + lane] = x.v[l];
-#pragma unroll
-  for (int l = NL; l < 32; ++l) base[(size_t)(row + l) * g + lane] = 0;
-}
-
-__device__ __forceinline__ fe load_fe(const int32_t* __restrict__ base,
-                                      int row, int lane, int g) {
-  fe x;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) x.v[l] = base[(size_t)(row + l) * g + lane];
-  return x;
-}
-
-// Point p of the coords array: coordinate c at rows (p * 4 + c) * 32.
-__device__ __forceinline__ pt load_point(const int32_t* __restrict__ coords,
-                                         int p, int lane, int g) {
-  return pt{load_fe(coords, (p * 4 + 0) * 32, lane, g),
-            load_fe(coords, (p * 4 + 1) * 32, lane, g),
-            load_fe(coords, (p * 4 + 2) * 32, lane, g),
-            load_fe(coords, (p * 4 + 3) * 32, lane, g)};
-}
 
 // Entry e of table t: coordinate c at rows ((t * 16 + e) * 4 + c) * 32.
 __device__ __forceinline__ int tbl_row(int t, int e, int c) {
@@ -91,13 +69,7 @@ k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int p = blockIdx.y;
   if (lane >= g) return;
-#pragma unroll 4
-  for (int b = 0; b < 32; ++b) {
-    const int32_t byte = scal_t[(size_t)(p * 32 + b) * g + lane];
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      dig[(size_t)(p * 128 + s * 32 + b) * g + lane] = (byte >> (2 * s)) & 3;
-  }
+  store_digits(dig, p * 128, scal_t + (size_t)p * 32 * g + lane, g, lane, g);
   const uint8_t* src = p < M ? a_t + (size_t)p * 32 * g
                              : r_t + (size_t)(p - M) * 32 * g;
   int32_t e[32];
@@ -106,10 +78,69 @@ k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
   pt P;
   const bool okp = decompress(P, e);
   ok[(size_t)p * g + lane] = okp ? 1 : 0;
-  store_fe(coords, (p * 4 + 0) * 32, P.x, lane, g);
-  store_fe(coords, (p * 4 + 1) * 32, P.y, lane, g);
-  store_fe(coords, (p * 4 + 2) * 32, P.z, lane, g);
-  store_fe(coords, (p * 4 + 3) * 32, P.t, lane, g);
+  store_point(coords, p, P, lane, g);
+}
+
+// K1 for a warm epoch — replaces pallas_rlc._k1_rlc_kernel_cached
+// (pallas_rlc.py:139). The epoch table (epoch_coords below) holds every
+// validator's decompressed A; idx (signature-major, i = lane * M + slot)
+// names each signature's column, and padding signatures name column
+// vp - 1, the identity. Thread (lane, p) unpacks the digits of scalar p
+// from the row-major scal_rows (g, 2M, 32) and, for p < M, copies A_p's
+// coordinates and flag from table column idx[lane * M + p]; for p >= M it
+// decompresses R_{p-M} from the row-major r_rows (g * M, 32). So the
+// gathered (M * 4 * 32, g) array of the JAX pipeline is never built, and
+// the slot-major transposes are the kernel's own reads. Bound: operations
+// (the M R decompressions); the copies are a few hundred bytes a thread.
+__global__ void __launch_bounds__(THREADS)
+k1_rlc_cached_kernel(const int32_t* __restrict__ ctbl,
+                     const int32_t* __restrict__ oktbl,
+                     const int32_t* __restrict__ idx,
+                     const uint8_t* __restrict__ r_rows,
+                     const uint8_t* __restrict__ scal_rows,
+                     int32_t* __restrict__ coords, int32_t* __restrict__ ok,
+                     int32_t* __restrict__ dig, int g, int vp) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (lane >= g) return;
+  store_digits(dig, p * 128, scal_rows + ((size_t)lane * N_SCAL + p) * 32, 1,
+               lane, g);
+  if (p < M) {
+    const int col = idx[(size_t)lane * M + p];
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c)
+      store_fe(coords, (p * 4 + c) * 32, load_fe(ctbl, c * 32, col, vp), lane, g);
+    ok[(size_t)p * g + lane] = oktbl[col];
+    return;
+  }
+  const uint8_t* src = r_rows + ((size_t)lane * M + (p - M)) * 32;
+  int32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = src[b];
+  pt P;
+  const bool okp = decompress(P, e);
+  ok[(size_t)p * g + lane] = okp ? 1 : 0;
+  store_point(coords, p, P, lane, g);
+}
+
+// The epoch table — the build that replaces epoch_cache._coords_fn
+// (epoch_cache.py:292-309, XLA code rather than a Pallas kernel). One
+// thread per table row decompresses the row's key from pub_t (32, vp)
+// and writes its coordinates to coords (4 * 32, vp) and its flag to
+// ok (1, vp). Padding rows hold the identity encoding. Bound: operations
+// (one decompression a row); built once per validator set and device.
+__global__ void __launch_bounds__(THREADS)
+epoch_coords_kernel(const uint8_t* __restrict__ pub_t, int32_t* __restrict__ coords,
+                    int32_t* __restrict__ ok, int vp) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= vp) return;
+  int32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = pub_t[(size_t)b * vp + row];
+  pt P;
+  const bool okp = decompress(P, e);
+  ok[row] = okp ? 1 : 0;
+  store_point(coords, 0, P, row, vp);
 }
 
 // The point of scalar q: B for S (q = 0), -A_{q-1} for u (1 <= q <= M),
@@ -239,6 +270,26 @@ extern "C" int tm_k1_rlc(const void* a_t, const void* r_t, const void* scal_t,
                       (cudaStream_t)stream>>>(
       (const uint8_t*)a_t, (const uint8_t*)r_t, (const uint8_t*)scal_t,
       (int32_t*)coords, (int32_t*)ok, (int32_t*)dig, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_k1_rlc_cached(const void* ctbl, const void* oktbl,
+                                const void* idx, const void* r_rows,
+                                const void* scal_rows, void* coords, void* ok,
+                                void* dig, int g, int vp, void* stream) {
+  edw::k1_rlc_cached_kernel<<<lane_grid(g, edw::N_SCAL), edw::THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)ctbl, (const int32_t*)oktbl, (const int32_t*)idx,
+      (const uint8_t*)r_rows, (const uint8_t*)scal_rows, (int32_t*)coords,
+      (int32_t*)ok, (int32_t*)dig, g, vp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_epoch_coords(const void* pub_t, void* coords, void* ok, int vp,
+                               void* stream) {
+  edw::epoch_coords_kernel<<<lane_grid(vp, 1), edw::THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)pub_t, (int32_t*)coords, (int32_t*)ok, vp);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,20 @@
-"""Host side of the device verifier: row packing, challenges, s < L, and
-the BatchVerifier the commit path uses.
+"""Host side of the device verifier: row packing, challenges, s < L, the
+path switch, and the BatchVerifier the commit path uses.
 
 Counterpart: tendermint_tpu/ops/backend.py (_pack_rows, _challenges,
-_s_below_l, Ed25519DeviceBatchVerifier). The batch path is the RLC one
-of ops/rlc.py (verify_batch_rlc), synchronous: one batch at a time, no
-epoch cache and no async pipeline. Challenges are hashlib SHA-512 and
-Python big-int reductions (the JAX package's fallback when its native
-helpers are not built).
+_s_below_l, _use_rlc, Ed25519DeviceBatchVerifier). The batch path is
+synchronous, one batch at a time with no async pipeline: the RLC path of
+ops/rlc.py (verify_batch_rlc, which takes a warm validator set's epoch
+table) or, with TM_TPU_RLC=0, the per-signature path of ops/verify.py
+(verify_batch_compact). Challenges are hashlib SHA-512 and Python
+big-int reductions (the JAX package's fallback when its native helpers
+are not built).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -20,11 +23,20 @@ from ..crypto import BatchVerifier, PubKey
 from ..crypto import ed25519 as _ed25519
 from ..crypto._edwards import L
 from . import rlc
+from . import verify as per_sig
 from .entry_block import EntryBlock
 
 # Below this many signatures a batch verifies on the host, one signature
 # at a time (backend.DEVICE_THRESHOLD's default).
 DEVICE_THRESHOLD = 64
+
+
+def use_rlc() -> bool:
+    """The batch path, read from TM_TPU_RLC at each call (backend._use_rlc):
+    unset or any value but "0" takes the RLC path, "0" the per-signature
+    one."""
+    return os.environ.get("TM_TPU_RLC", "1") != "0"
+
 
 _L_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8)
 
@@ -74,6 +86,20 @@ def _s_below_l(s_enc: np.ndarray, n: int, bucket: int) -> np.ndarray:
     return s_ok
 
 
+def _host_rows(entries: EntryBlock, bucket: int):
+    """The host stage both batch preps share: (bucket, 32) pub, R, s and
+    k = SHA512(R || A || M) mod L rows (k = 0 on padding rows) and the
+    (bucket,) s < L flags."""
+    n = len(entries)
+    pub, r_enc, s_enc = _pack_rows(entries, bucket)
+    s_ok = _s_below_l(s_enc, n, bucket)
+    k_enc = np.zeros((bucket, 32), dtype=np.uint8)
+    if n:
+        ks = _challenges(r_enc[:n], pub[:n], entries.messages())
+        k_enc[:n] = np.frombuffer(ks, dtype=np.uint8).reshape(n, 32)
+    return pub, r_enc, s_enc, k_enc, s_ok
+
+
 class Ed25519DeviceBatchVerifier(BatchVerifier):
     """Accumulate-then-verify on `device`. add() mirrors curve25519-voi's
     BatchVerifier.Add checks (crypto/ed25519/ed25519.go:203-217); verify()
@@ -116,5 +142,8 @@ class Ed25519DeviceBatchVerifier(BatchVerifier):
         if n < DEVICE_THRESHOLD:
             valid = [_ed25519.verify_zip215(*e) for e in block.iter_entries()]
             return all(valid), valid
-        res = rlc.verify_batch_rlc(block, device=self.device)
+        if use_rlc():
+            res = rlc.verify_batch_rlc(block, device=self.device)
+        else:
+            res = per_sig.verify_batch_compact(block, device=self.device)
         return bool(res.all()), res.tolist()

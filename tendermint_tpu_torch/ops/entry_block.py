@@ -8,6 +8,14 @@ reference from commit selection to the kernel prep:
     sig     (n, 64) uint8   signatures (R || s)
     msgs    bytes           all sign-bytes concatenated
     offsets (n+1,) int64    msgs[offsets[i]:offsets[i+1]] is message i
+
+and, for a commit's block, the epoch metadata of ops/epoch_cache.py:
+
+    val_idx   (n,) int32    each signature's row in its validator set
+    epoch_key bytes         the set's hash(), set when the set is warm
+
+Slicing keeps both; concat keeps them only when every block has rows
+and all share one key (rows of different sets index different tables).
 """
 
 from __future__ import annotations
@@ -20,10 +28,11 @@ Entry = Tuple[bytes, bytes, bytes]
 
 
 class EntryBlock:
-    __slots__ = ("pub", "sig", "msgs", "offsets")
+    __slots__ = ("pub", "sig", "msgs", "offsets", "val_idx", "epoch_key")
 
     def __init__(self, pub: np.ndarray, sig: np.ndarray, msgs,
-                 offsets: np.ndarray):
+                 offsets: np.ndarray, val_idx: np.ndarray = None,
+                 epoch_key: bytes = None):
         n = pub.shape[0]
         if (
             pub.dtype != np.uint8 or sig.dtype != np.uint8
@@ -37,10 +46,14 @@ class EntryBlock:
             raise ValueError("offsets must be non-decreasing")
         if int(offsets[-1]) > len(msgs) or int(offsets[0]) < 0:
             raise ValueError("offsets run outside the message buffer")
+        if val_idx is not None and val_idx.shape != (n,):
+            raise ValueError("val_idx must be (n,)")
         self.pub = pub
         self.sig = sig
         self.msgs = msgs
         self.offsets = offsets
+        self.val_idx = val_idx
+        self.epoch_key = epoch_key
 
     @classmethod
     def from_entries(cls, entries: Sequence[Entry]) -> "EntryBlock":
@@ -91,6 +104,8 @@ class EntryBlock:
             self.sig[start:stop],
             memoryview(self.msgs)[base : int(o[stop])],
             o[start : stop + 1] - base,
+            val_idx=None if self.val_idx is None else self.val_idx[start:stop],
+            epoch_key=self.epoch_key,
         )
 
     @staticmethod
@@ -110,9 +125,15 @@ class EntryBlock:
             msgs.append(bytes(memoryview(b.msgs)[lo:hi]))
             offsets.append(b.offsets[1:] - lo + base)
             base += hi - lo
+        key = blocks[0].epoch_key
+        same_epoch = key is not None and all(
+            b.epoch_key == key and b.val_idx is not None for b in blocks
+        )
         return EntryBlock(
             np.concatenate([b.pub for b in blocks]),
             np.concatenate([b.sig for b in blocks]),
             b"".join(msgs),
             np.concatenate(offsets),
+            val_idx=np.concatenate([b.val_idx for b in blocks]) if same_epoch else None,
+            epoch_key=key if same_epoch else None,
         )

@@ -1,0 +1,226 @@
+"""Validator-set epoch cache: device tables of the committee's points.
+
+Counterpart: tendermint_tpu/ops/epoch_cache.py (ed25519 only). A
+validator set stays the same from one height to the next, so the keys
+of every commit after the first are ones the device has already
+decompressed. The cache keys on ValidatorSet.hash(). The first sight of
+a set registers it and returns None: that commit verifies cold. From
+the second sight on the set is warm: types/validation.py attaches the
+set's key (`epoch_key`) and each signature's validator row (`val_idx`)
+to the EntryBlock, and ops/rlc.py's k1_rlc_cached reads A from the
+set's table instead of decompressing it.
+
+    coords_tables(device)  (4*32, vp) int32 decompressed extended
+                           coordinates in the kernels' 32-row slots and
+                           (1, vp) int32 ok flags, built once per device
+                           by the epoch_coords kernel (csrc/rlc.cu)
+
+Rows are padded to vp = max(next_pow2(v + 1), 16) with the identity
+encoding, so column vp - 1 is always the identity: padding signatures
+gather it.
+
+TM_TPU_EPOCH_CACHE=N sets the LRU depth (0 disables the cache); unset,
+the depth is 8. An evicted or unknown key makes `lookup` return None and
+the batch verifies cold: never an error.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from collections import OrderedDict
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import fe, kernels, point
+
+DEFAULT_DEPTH = 8
+TABLE_ROWS = 4 * 32
+
+_IDENT_ENC = np.zeros(32, dtype=np.uint8)
+_IDENT_ENC[0] = 1  # y = 1: the identity point's encoding
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+# -- the table build ------------------------------------------------------------
+
+
+def epoch_coords_plain(pub_t):
+    """(32, vp) uint8 key bytes -> (coords (4*32, vp), ok (1, vp)) int32:
+    each column's ZIP-215 decompression (epoch_cache._coords_fn)."""
+    vp = pub_t.shape[-1]
+    y, sign = point.unpack_limbs(pub_t.to(torch.int32))
+    ok, pt = point.decompress(y, sign)
+    coords = torch.zeros((TABLE_ROWS, vp), dtype=torch.int32, device=pub_t.device)
+    for c in range(4):
+        coords[c * 32 : c * 32 + fe.NLIMBS] = pt[c]
+    return coords, ok.to(torch.int32)
+
+
+def epoch_coords(pub_t):
+    """The table build (csrc/rlc.cu epoch_coords_kernel, replacing the
+    XLA _coords_fn); see epoch_coords_plain."""
+    dev = kernels.device_of(pub_t)
+    vp = pub_t.shape[-1]
+    kernels.check_tensor("pub_t", pub_t, (32, vp), torch.uint8, dev)
+    if vp < 1:
+        raise ValueError("an epoch table has at least one row")
+    if dev.type == "cpu":
+        return epoch_coords_plain(pub_t)
+    coords = torch.empty((TABLE_ROWS, vp), dtype=torch.int32, device=dev)
+    ok = torch.empty((1, vp), dtype=torch.int32, device=dev)
+    kernels.launch("epoch_coords", pub_t, coords, ok, vp)
+    return coords, ok
+
+
+# -- the cache ------------------------------------------------------------------
+
+
+class EpochEntry:
+    """One validator set's keys: `pub_rows` (vp, 32) on the host, padded
+    with identity rows, and its device tables, built lazily once per
+    device under the entry's lock."""
+
+    __slots__ = ("key", "n_vals", "vp", "pub_rows", "_mtx", "_tables")
+
+    def __init__(self, key: bytes, pub_col: np.ndarray):
+        v = pub_col.shape[0]
+        vp = max(_next_pow2(v + 1), 16)
+        rows = np.empty((vp, 32), dtype=np.uint8)
+        rows[:v] = pub_col
+        rows[v:] = _IDENT_ENC
+        self.key = key
+        self.n_vals = v
+        self.vp = vp
+        self.pub_rows = rows
+        self._mtx = threading.Lock()
+        self._tables: dict = {}
+
+    def coords_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """((4*32, vp) int32 coordinates, (1, vp) int32 ok flags) on
+        `device`, built on first use there."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with self._mtx:
+            t = self._tables.get(dev)
+            if t is None:
+                pub_t = torch.from_numpy(np.ascontiguousarray(self.pub_rows.T)).to(dev)
+                t = self._tables[dev] = epoch_coords(pub_t)
+            return t
+
+
+class EpochCache:
+    """LRU over recent validator sets, with hit, miss and eviction counts."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self.hits = self.misses = self.evictions = 0
+        self._mtx = threading.Lock()
+        self._entries: "OrderedDict[bytes, EpochEntry]" = OrderedDict()
+
+    def __len__(self) -> int:
+        with self._mtx:
+            return len(self._entries)
+
+    def get(self, key: bytes) -> Optional[EpochEntry]:
+        with self._mtx:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+            return e
+
+    def note(self, key: bytes, pub_col: np.ndarray) -> Optional[EpochEntry]:
+        """The entry of a warm set (seen before: a hit); a cold set is
+        registered (a miss, evicting the least recent beyond `depth`) and
+        gives None, so its first commit verifies cold."""
+        with self._mtx:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return e
+            self.misses += 1
+            self._entries[key] = EpochEntry(key, pub_col)
+            while len(self._entries) > self.depth:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+        return None
+
+
+_cache: Optional[EpochCache] = None
+_cache_mtx = threading.Lock()
+
+
+def _depth_from_env() -> int:
+    env = os.environ.get("TM_TPU_EPOCH_CACHE")
+    if env is None:
+        return DEFAULT_DEPTH
+    try:
+        return max(int(env), 0)
+    except ValueError:
+        return 0
+
+
+def _current() -> EpochCache:
+    global _cache
+    with _cache_mtx:
+        if _cache is None:
+            _cache = EpochCache(_depth_from_env())
+        return _cache
+
+
+def cache() -> Optional[EpochCache]:
+    """The process-wide cache, or None when its depth is 0. The depth is
+    read from the environment once; reset() reads it again."""
+    c = _current()
+    return c if c.depth > 0 else None
+
+
+def reset(depth: Optional[int] = None) -> None:
+    """Drop every entry and zero the counts; `depth` overrides the
+    environment's."""
+    global _cache
+    with _cache_mtx:
+        _cache = EpochCache(_depth_from_env() if depth is None else depth)
+
+
+def note_valset(vals) -> Optional[bytes]:
+    """Register or refresh `vals`; its key when the set is warm (seen
+    before) and all-ed25519, else None."""
+    c = cache()
+    if c is None:
+        return None
+    cols = vals.ed25519_columns()
+    if cols is None:
+        return None
+    key = vals.hash()
+    return key if c.note(key, cols[0]) is not None else None
+
+
+def lookup(entries) -> Optional[EpochEntry]:
+    """The epoch entry of an EntryBlock, or None (no key or rows, an
+    evicted key, or the cache disabled)."""
+    key = getattr(entries, "epoch_key", None)
+    if key is None or getattr(entries, "val_idx", None) is None:
+        return None
+    c = cache()
+    return None if c is None else c.get(key)
+
+
+def stats() -> dict:
+    """The cache's state and its counts since the last reset()."""
+    c = _current()
+    return {
+        "enabled": c.depth > 0,
+        "depth": c.depth,
+        "entries": len(c),
+        "hits": c.hits,
+        "misses": c.misses,
+        "evictions": c.evictions,
+    }

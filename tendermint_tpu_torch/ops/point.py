@@ -108,6 +108,23 @@ def decompress(y_limbs, sign):
     return ok, (x, y, z, t)
 
 
+def slot_rows(p: int, c: int) -> slice:
+    """Rows of coordinate c of point p (or table entry p) in a global
+    array's 32-row slots."""
+    base = (p * 4 + c) * 32
+    return slice(base, base + fe.NLIMBS)
+
+
+def cat_points(points):
+    """Points side by side along the batch axis (one lane-folded op)."""
+    return tuple(torch.cat([p[c] for p in points], dim=1) for c in range(4))
+
+
+def slice_point(pt, i: int, n: int):
+    """The i-th block of n columns of a lane-folded point."""
+    return tuple(c[:, i * n : (i + 1) * n] for c in pt)
+
+
 def unpack_limbs(enc32):
     """(32, B) int32 bytes of a little-endian encoding -> ((20, B) limbs
     of the low 255 bits, (1, B) sign bit)."""

@@ -16,6 +16,8 @@ with a CUDA version (csrc/rlc.cu) and a plain PyTorch version here:
 
   K1  k1_rlc  digits of the 2M lane scalars; ZIP-215 decompression of
               A_0..A_{M-1}, R_0..R_{M-1}
+      k1_rlc_cached  the same for a warm validator set: A_j comes from
+              the epoch table (ops/epoch_cache.py), only R decompresses
   K2  k2_rlc  M joint 16-entry Straus tables in Niels form
   K3  k3_rlc  the 127-iteration shared-doubles ladder and the final
               [8]acc == [8]R_0 test, ANDed with the 2M decompression
@@ -25,13 +27,13 @@ Global arrays keep the JAX layout: (rows, g) with the lane last, uint8
 bytes in, int32 limbs, flags and digits out; coordinates sit in 32-row
 slots (limbs 0..19, rows 20..31 zero). A wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors; it counts its
-launches in LAUNCHES. verify_batch_rlc marks its stages (prep, h2d,
-kernels, d2h, expand) as torch.profiler record_function spans.
+launches in kernels.LAUNCHES. verify_batch_rlc marks its stages (prep,
+gather on a warm epoch, h2d, kernels, d2h, expand) as torch.profiler
+record_function spans.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import numpy as np
@@ -39,7 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import _edwards
-from . import fe, point
+from . import epoch_cache, fe, kernels, point
 
 NL = fe.NLIMBS
 
@@ -57,20 +59,7 @@ COORD_ROWS = 2 * M * 4 * 32
 TBL_ROWS = M * 16 * 4 * 32
 DIG_ROWS = N_SCAL * 128
 
-# Launch counts of the three CUDA kernels (plain-version calls on CPU
-# tensors are not launches).
-LAUNCHES = {"k1_rlc": 0, "k2_rlc": 0, "k3_rlc": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _point_rows(p: int, c: int) -> slice:
-    """Rows of coordinate c of point p in the coords array (32-row slots)."""
-    base = (p * 4 + c) * 32
-    return slice(base, base + NL)
+_point_rows = point.slot_rows
 
 
 def _tbl_rows(t: int, e: int, c: int) -> slice:
@@ -81,39 +70,60 @@ def _tbl_rows(t: int, e: int, c: int) -> slice:
 # -- plain versions -----------------------------------------------------------
 
 
-def k1_rlc_plain(a_t, r_t, scal_t):
-    """(M*32, g) A bytes, (M*32, g) R bytes, (N_SCAL*32, g) scalar bytes
-    (uint8) -> coords (COORD_ROWS, g), ok (2M, g), dig (DIG_ROWS, g) int32.
-    Points A_0..A_{M-1} then R_0..R_{M-1}; digits scalar-major."""
-    g = a_t.shape[-1]
-    kw = dict(dtype=torch.int32, device=a_t.device)
+def _k1_outputs(scal_t):
+    """Zeroed K1 outputs with the digits of the 2M lane scalars filled in
+    from the slot-major scalar bytes (N_SCAL*32, g)."""
+    g = scal_t.shape[-1]
+    kw = dict(dtype=torch.int32, device=scal_t.device)
     coords = torch.zeros((COORD_ROWS, g), **kw)
     ok = torch.zeros((2 * M, g), **kw)
     dig = torch.zeros((DIG_ROWS, g), **kw)
     for q in range(N_SCAL):
         enc = scal_t[q * 32 : (q + 1) * 32].to(torch.int32)
         dig[q * 128 : (q + 1) * 128] = point.unpack_digits2_grouped(enc)
-    ys, signs = [], []
-    for src in (a_t, r_t):
-        for j in range(M):
-            y, s = point.unpack_limbs(src[j * 32 : (j + 1) * 32].to(torch.int32))
-            ys.append(y)
-            signs.append(s)
-    # one decompression over all 2M points, folded along the lane axis
-    ok_all, pts = point.decompress(torch.cat(ys, dim=1), torch.cat(signs, dim=1))
-    for p in range(2 * M):
-        ok[p : p + 1] = ok_all[:, p * g : (p + 1) * g].to(torch.int32)
-        for c in range(4):
-            coords[_point_rows(p, c)] = pts[c][:, p * g : (p + 1) * g]
     return coords, ok, dig
 
 
-def _catp(points):
-    return tuple(torch.cat([p[c] for p in points], dim=1) for c in range(4))
+def _decompress_points(coords, ok, srcs, first: int) -> None:
+    """Decompress the (32, g) encodings `srcs` into points first,
+    first+1, ... of coords and ok, in one decompression folded along the
+    lane axis."""
+    g = coords.shape[-1]
+    ys, signs = zip(*(point.unpack_limbs(e.to(torch.int32)) for e in srcs))
+    ok_all, pts = point.decompress(torch.cat(ys, dim=1), torch.cat(signs, dim=1))
+    for i in range(len(srcs)):
+        p = first + i
+        ok[p : p + 1] = ok_all[:, i * g : (i + 1) * g].to(torch.int32)
+        for c in range(4):
+            coords[_point_rows(p, c)] = pts[c][:, i * g : (i + 1) * g]
 
 
-def _slicep(pt, i, g):
-    return tuple(c[:, i * g : (i + 1) * g] for c in pt)
+def k1_rlc_plain(a_t, r_t, scal_t):
+    """(M*32, g) A bytes, (M*32, g) R bytes, (N_SCAL*32, g) scalar bytes
+    (uint8) -> coords (COORD_ROWS, g), ok (2M, g), dig (DIG_ROWS, g) int32.
+    Points A_0..A_{M-1} then R_0..R_{M-1}; digits scalar-major."""
+    coords, ok, dig = _k1_outputs(scal_t)
+    srcs = [t[j * 32 : (j + 1) * 32] for t in (a_t, r_t) for j in range(M)]
+    _decompress_points(coords, ok, srcs, 0)
+    return coords, ok, dig
+
+
+def k1_rlc_cached_plain(ctbl, oktbl, idx, r_rows, scal_rows):
+    """K1 for a warm epoch. ctbl (4*32, vp), oktbl (1, vp) int32: the
+    epoch table (ops/epoch_cache.py); idx (g*M,) int32 table columns,
+    signature-major (i = lane*M + slot); r_rows (g*M, 32) and scal_rows
+    (g, N_SCAL, 32) uint8, row-major -> k1_rlc_plain's outputs. A_j
+    comes from column idx[lane*M + j]; only the M R points decompress."""
+    g = scal_rows.shape[0]
+    coords, ok, dig = _k1_outputs(scal_rows.permute(1, 2, 0).reshape(N_SCAL * 32, g))
+    cols = idx.to(torch.int64).view(g, M).T  # (M, g)
+    for p in range(M):
+        ok[p] = oktbl[0, cols[p]]
+        for c in range(4):
+            coords[_point_rows(p, c)] = ctbl[c * 32 : c * 32 + NL][:, cols[p]]
+    r_t = r_rows.view(g, M, 32).permute(1, 2, 0)  # (M, 32, g)
+    _decompress_points(coords, ok, list(r_t), M)
+    return coords, ok, dig
 
 
 def k2_rlc_plain(coords):
@@ -136,16 +146,16 @@ def k2_rlc_plain(coords):
 
     P = [point_of(2 * t) for t in range(M)]
     Q = [point_of(2 * t + 1) for t in range(M)]
-    pair = _catp(P + Q)
+    pair = point.cat_points(P + Q)
     dbl = point.point_double(pair)
     tri = point.point_add(dbl, pair)
     tbl = torch.zeros((TBL_ROWS, g), dtype=torch.int32, device=coords.device)
     for t in range(M):
-        rows = [ident, P[t], _slicep(dbl, t, g), _slicep(tri, t, g)]
-        cols = [ident, Q[t], _slicep(dbl, M + t, g), _slicep(tri, M + t, g)]
+        rows = [ident, P[t], point.slice_point(dbl, t, g), point.slice_point(tri, t, g)]
+        cols = [ident, Q[t], point.slice_point(dbl, M + t, g), point.slice_point(tri, M + t, g)]
         crosses = point.point_add(
-            _catp([rows[lo] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
-            _catp([cols[hi] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
+            point.cat_points([rows[lo] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
+            point.cat_points([cols[hi] for hi in (1, 2, 3) for lo in (1, 2, 3)]),
         )
         entries = []
         for hi in range(4):
@@ -155,10 +165,10 @@ def k2_rlc_plain(coords):
                 elif lo == 0:
                     entries.append(cols[hi])
                 else:
-                    entries.append(_slicep(crosses, (hi - 1) * 3 + (lo - 1), g))
-        niels = point.to_niels(_catp(entries))
+                    entries.append(point.slice_point(crosses, (hi - 1) * 3 + (lo - 1), g))
+        niels = point.to_niels(point.cat_points(entries))
         for e in range(16):
-            ent = _slicep(niels, e, g)
+            ent = point.slice_point(niels, e, g)
             for c in range(4):
                 tbl[_tbl_rows(t, e, c)] = ent[c]
     return tbl
@@ -221,91 +231,72 @@ def check_lanes(g: int) -> None:
         )
 
 
-def _check(name: str, t: torch.Tensor, rows: int, g: int, dtype,
-           device: torch.device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != (rows, g):
-        raise ValueError(
-            f"{name} must be ({rows}, {g}) {dtype}, got {tuple(t.shape)} {t.dtype}"
-        )
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _device_of(t: torch.Tensor) -> torch.device:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device
-
-
-def _launch(name: str, *args) -> None:
-    """Call a C entry of the kernel library on the current stream; the
-    entry returns cudaGetLastError() of its launch."""
-    from . import kernels
-
-    lib = kernels.library()
-    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
-    cargs = [
-        ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-        else ctypes.c_int(a)
-        for a in args
-    ]
-    # the C entry launches on the current device: make it the tensors'
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, "tm_" + name)(*cargs, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {kernels.error_string(err)} ({err})"
-        )
-    LAUNCHES[name] += 1
-
-
 def k1_rlc(a_t, r_t, scal_t):
     """K1 (replaces pallas_rlc._k1_rlc_kernel); see k1_rlc_plain."""
-    dev = _device_of(a_t)
+    dev = kernels.device_of(a_t)
     g = a_t.shape[-1]
     check_lanes(g)
-    _check("a_t", a_t, M * 32, g, torch.uint8, dev)
-    _check("r_t", r_t, M * 32, g, torch.uint8, dev)
-    _check("scal_t", scal_t, N_SCAL * 32, g, torch.uint8, dev)
+    kernels.check_tensor("a_t", a_t, (M * 32, g), torch.uint8, dev)
+    kernels.check_tensor("r_t", r_t, (M * 32, g), torch.uint8, dev)
+    kernels.check_tensor("scal_t", scal_t, (N_SCAL * 32, g), torch.uint8, dev)
     if dev.type == "cpu":
         return k1_rlc_plain(a_t, r_t, scal_t)
     coords = torch.empty((COORD_ROWS, g), dtype=torch.int32, device=dev)
     ok = torch.empty((2 * M, g), dtype=torch.int32, device=dev)
     dig = torch.empty((DIG_ROWS, g), dtype=torch.int32, device=dev)
-    _launch("k1_rlc", a_t, r_t, scal_t, coords, ok, dig, g)
+    kernels.launch("k1_rlc", a_t, r_t, scal_t, coords, ok, dig, g)
+    return coords, ok, dig
+
+
+def k1_rlc_cached(ctbl, oktbl, idx, r_rows, scal_rows):
+    """K1 for a warm epoch (replaces pallas_rlc._k1_rlc_kernel_cached);
+    see k1_rlc_cached_plain."""
+    dev = kernels.device_of(idx)
+    g = scal_rows.shape[0]
+    check_lanes(g)
+    vp = ctbl.shape[-1]
+    kernels.check_tensor("ctbl", ctbl, (epoch_cache.TABLE_ROWS, vp), torch.int32, dev)
+    kernels.check_tensor("oktbl", oktbl, (1, vp), torch.int32, dev)
+    kernels.check_tensor("idx", idx, (g * M,), torch.int32, dev)
+    kernels.check_tensor("r_rows", r_rows, (g * M, 32), torch.uint8, dev)
+    kernels.check_tensor("scal_rows", scal_rows, (g, N_SCAL, 32), torch.uint8, dev)
+    if dev.type == "cpu":
+        return k1_rlc_cached_plain(ctbl, oktbl, idx, r_rows, scal_rows)
+    coords = torch.empty((COORD_ROWS, g), dtype=torch.int32, device=dev)
+    ok = torch.empty((2 * M, g), dtype=torch.int32, device=dev)
+    dig = torch.empty((DIG_ROWS, g), dtype=torch.int32, device=dev)
+    kernels.launch("k1_rlc_cached", ctbl, oktbl, idx, r_rows, scal_rows,
+                   coords, ok, dig, g, vp)
     return coords, ok, dig
 
 
 def k2_rlc(coords):
     """K2 (replaces pallas_rlc._k2_rlc_kernel); see k2_rlc_plain."""
-    dev = _device_of(coords)
+    dev = kernels.device_of(coords)
     g = coords.shape[-1]
     check_lanes(g)
-    _check("coords", coords, COORD_ROWS, g, torch.int32, dev)
+    kernels.check_tensor("coords", coords, (COORD_ROWS, g), torch.int32, dev)
     if dev.type == "cpu":
         return k2_rlc_plain(coords)
     tbl = torch.empty((TBL_ROWS, g), dtype=torch.int32, device=dev)
-    _launch("k2_rlc", coords, tbl, g)
+    kernels.launch("k2_rlc", coords, tbl, g)
     return tbl
 
 
 def k3_rlc(tbl, dig, coords, ok, sok):
     """K3 (replaces pallas_rlc._k3_rlc_kernel); see k3_rlc_plain."""
-    dev = _device_of(sok)
+    dev = kernels.device_of(sok)
     g = sok.shape[-1]
     check_lanes(g)
-    _check("tbl", tbl, TBL_ROWS, g, torch.int32, dev)
-    _check("dig", dig, DIG_ROWS, g, torch.int32, dev)
-    _check("coords", coords, COORD_ROWS, g, torch.int32, dev)
-    _check("ok", ok, 2 * M, g, torch.int32, dev)
-    _check("sok", sok, M, g, torch.int32, dev)
+    kernels.check_tensor("tbl", tbl, (TBL_ROWS, g), torch.int32, dev)
+    kernels.check_tensor("dig", dig, (DIG_ROWS, g), torch.int32, dev)
+    kernels.check_tensor("coords", coords, (COORD_ROWS, g), torch.int32, dev)
+    kernels.check_tensor("ok", ok, (2 * M, g), torch.int32, dev)
+    kernels.check_tensor("sok", sok, (M, g), torch.int32, dev)
     if dev.type == "cpu":
         return k3_rlc_plain(tbl, dig, coords, ok, sok)
     out = torch.empty((1, g), dtype=torch.int32, device=dev)
-    _launch("k3_rlc", tbl, dig, coords, ok, sok, out, g)
+    kernels.launch("k3_rlc", tbl, dig, coords, ok, sok, out, g)
     return out
 
 
@@ -360,15 +351,9 @@ def _rlc_host_scalars(entries, live: int, g_live: int, z: np.ndarray):
     """Pack the live rows, then challenges k = SHA-512(R||A||M) mod L,
     the s < L flags and the lane scalars. Returns (pub (live, 32),
     r_enc (live, 32), scal (g_live, N_SCAL, 32), s_ok (live,) bool)."""
-    from .backend import _challenges, _pack_rows, _s_below_l
+    from .backend import _host_rows
 
-    n = len(entries)
-    pub, r_enc, s_enc = _pack_rows(entries, live)
-    s_ok = _s_below_l(s_enc, n, live)
-    k_enc = np.zeros((live, 32), dtype=np.uint8)
-    if n:
-        ks = _challenges(r_enc[:n], pub[:n], entries.messages())
-        k_enc[:n] = np.frombuffer(ks, dtype=np.uint8).reshape(n, 32)
+    pub, r_enc, s_enc, k_enc, s_ok = _host_rows(entries, live)
     raw = _rlc_scalars_py(s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), M)
     scal = np.zeros((g_live, N_SCAL, 32), dtype=np.uint8)
     scal[:, 0] = np.frombuffer(raw[: 32 * g_live], dtype=np.uint8).reshape(g_live, 32)
@@ -379,6 +364,25 @@ def _rlc_host_scalars(entries, live: int, g_live: int, z: np.ndarray):
     return pub, r_enc, scal, s_ok
 
 
+def _lanes_and_z(entries, bucket: int, z):
+    """(g, g_live, live, z[:live]) of a batch padded to `bucket`; z is
+    drawn here unless a test passes it."""
+    n = len(entries)
+    if bucket % M or n > bucket:
+        raise ValueError(f"bucket {bucket} must be a multiple of M={M} and >= {n}")
+    g = bucket // M
+    g_live = min((n + M - 1) // M, g)
+    live = g_live * M
+    if z is None:
+        return g, g_live, live, _gen_z(live)
+    if z.dtype != np.uint8 or z.shape != (bucket, 32):
+        raise ValueError(f"z must be ({bucket}, 32) uint8")
+    if z[:, 16:].any():
+        # the ladder skips z digits above bit 128
+        raise ValueError("z coefficients must be below 2^128")
+    return g, g_live, live, z[:live]
+
+
 def prepare_rlc(entries, bucket: int, z: np.ndarray = None):
     """EntryBlock -> (a_t (M*32, g) u8, r_t (M*32, g) u8, scal_t
     (N_SCAL*32, g) u8, sok_t (M, g) int32), padded to `bucket`
@@ -387,21 +391,7 @@ def prepare_rlc(entries, bucket: int, z: np.ndarray = None):
 
     z: (bucket, 32) uint8 coefficients for tests only; the verify path
     never passes it and draws fresh ones from os.urandom."""
-    n = len(entries)
-    if bucket % M or n > bucket:
-        raise ValueError(f"bucket {bucket} must be a multiple of M={M} and >= {n}")
-    g = bucket // M
-    g_live = min((n + M - 1) // M, g)
-    live = g_live * M
-    if z is None:
-        z = _gen_z(live)
-    else:
-        if z.dtype != np.uint8 or z.shape != (bucket, 32):
-            raise ValueError(f"z must be ({bucket}, 32) uint8")
-        if z[:, 16:].any():
-            # the ladder skips z digits above bit 128
-            raise ValueError("z coefficients must be below 2^128")
-        z = z[:live]
+    g, g_live, live, z = _lanes_and_z(entries, bucket, z)
     pub, r_enc, scal, s_ok = _rlc_host_scalars(entries, live, g_live, z)
 
     def slotmajor(arr):  # (live, 32) -> (M*32, g_live)
@@ -421,6 +411,36 @@ def prepare_rlc(entries, bucket: int, z: np.ndarray = None):
     return a_t, r_t, scal_t, sok_t
 
 
+def prepare_rlc_cached(entries, bucket: int, ep, z: np.ndarray = None):
+    """Warm-epoch prep (pallas_rlc.prepare_rlc_cached): the host scalar
+    stage of prepare_rlc, but the committee ships as table columns
+    (entries.val_idx) and every per-signature array ships row-major;
+    k1_rlc_cached reads them in place. Padding signatures take column
+    vp - 1 (the identity), padding lanes the identity R, zero scalars
+    and s_ok = 1.
+
+    Returns (idx (bucket,) int32, r_rows (bucket, 32) uint8, scal_rows
+    (g, N_SCAL, 32) uint8, sok_rows (g, M) int32)."""
+    n = len(entries)
+    vidx = entries.val_idx
+    if vidx is None:
+        raise ValueError("prepare_rlc_cached needs an EntryBlock with val_idx")
+    if n and (int(vidx.min()) < 0 or int(vidx.max()) >= ep.n_vals):
+        raise ValueError(f"val_idx outside the epoch's {ep.n_vals} validators")
+    g, g_live, live, z = _lanes_and_z(entries, bucket, z)
+    _pub, r_enc, scal, s_ok = _rlc_host_scalars(entries, live, g_live, z)
+    idx = np.full((bucket,), ep.vp - 1, dtype=np.int32)
+    idx[:n] = vidx
+    r_rows = np.zeros((bucket, 32), dtype=np.uint8)
+    r_rows[:live] = r_enc
+    r_rows[live:, 0] = 1
+    scal_rows = np.zeros((g, N_SCAL, 32), dtype=np.uint8)
+    scal_rows[:g_live] = scal
+    sok_rows = np.ones((g, M), dtype=np.int32)
+    sok_rows[:g_live] = s_ok.reshape(g_live, M)
+    return idx, r_rows, scal_rows, sok_rows
+
+
 def expand_lanes(lane_valid: np.ndarray, entries) -> np.ndarray:
     """Lane verdicts -> per-signature verdicts. A valid lane accepts its
     M signatures; a rejected lane's live signatures are re-verified one
@@ -438,19 +458,37 @@ def expand_lanes(lane_valid: np.ndarray, entries) -> np.ndarray:
 
 def verify_batch_rlc(entries, *, device) -> np.ndarray:
     """EntryBlock of any size -> (n,) bool per-signature ZIP-215 verdicts,
-    in chunks of at most MAX_SIGS signatures, K1-K3 on `device`."""
+    in chunks of at most MAX_SIGS signatures, the kernels on `device`. A
+    block of a warm epoch (ops/epoch_cache.lookup finds its table) takes
+    k1_rlc_cached; any other block, or an evicted epoch, takes k1_rlc."""
+    ep = epoch_cache.lookup(entries)
     out = []
     for i in range(0, len(entries), MAX_SIGS):
         chunk = entries[i : i + MAX_SIGS]
         bucket, _ = plan_bucket(len(chunk))
-        with record_function("rlc.prep"):
-            args = prepare_rlc(chunk, bucket)
-        with record_function("rlc.h2d"):
-            a_t, r_t, scal_t, sok_t = (torch.from_numpy(a).to(device) for a in args)
-        with record_function("rlc.kernels"):
-            coords, ok, dig = k1_rlc(a_t, r_t, scal_t)
-            tbl = k2_rlc(coords)
-            lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
+        if ep is None:
+            with record_function("rlc.prep"):
+                args = prepare_rlc(chunk, bucket)
+            with record_function("rlc.h2d"):
+                a_t, r_t, scal_t, sok_t = (torch.from_numpy(a).to(device) for a in args)
+            with record_function("rlc.kernels"):
+                coords, ok, dig = k1_rlc(a_t, r_t, scal_t)
+                tbl = k2_rlc(coords)
+                lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
+        else:
+            with record_function("rlc.prep"):
+                idx, r_rows, scal_rows, sok_rows = prepare_rlc_cached(chunk, bucket, ep)
+                sok_t = np.ascontiguousarray(sok_rows.T)
+            with record_function("rlc.gather"):  # builds the table once
+                ctbl, oktbl = ep.coords_tables(device)
+            with record_function("rlc.h2d"):
+                idx, r_rows, scal_rows, sok_t = (
+                    torch.from_numpy(a).to(device) for a in (idx, r_rows, scal_rows, sok_t)
+                )
+            with record_function("rlc.kernels"):
+                coords, ok, dig = k1_rlc_cached(ctbl, oktbl, idx, r_rows, scal_rows)
+                tbl = k2_rlc(coords)
+                lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
         with record_function("rlc.d2h"):  # waits for the kernels
             lane_valid = lanes.cpu().numpy()[0].astype(bool)
         with record_function("rlc.expand"):

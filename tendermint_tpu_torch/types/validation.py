@@ -4,7 +4,10 @@ Counterpart: tendermint_tpu/types/validation.py (types/validation.go).
 verify_commit / verify_commit_light take the batch path through
 crypto.batch, where the port's device verifier packs the commit's
 signatures into RLC lanes on `device`; commits below the batch threshold
-verify one signature at a time on the host. Error cases, the tally and
+verify one signature at a time on the host. The batch carries its
+validator rows and, once the set has been seen before, the set's epoch
+key (ops/epoch_cache.py), so a warm set's keys come from the device
+table instead of being decompressed again. Error cases, the tally and
 the blame of the first bad signature are byte-identical to the
 reference's. The batch path's host stages are torch.profiler
 record_function spans ("commit.*" here, "rlc.*" in ops/rlc.py), so one
@@ -20,6 +23,7 @@ from torch.profiler import record_function
 
 from ..crypto import batch as _batch
 from ..device import resolve_device
+from ..ops import epoch_cache
 from ..ops.entry_block import EntryBlock
 from .block import BlockID, Commit, CommitSig
 from .validator_set import ErrNotEnoughVotingPowerSigned, ValidatorSet
@@ -155,20 +159,27 @@ def _verify_commit_batch(
     with record_function("commit.sign_bytes"):
         sig_idxs = [idx for idx, _ in selected]
         buf, offsets = commit.vote_sign_bytes_block(chain_id, sig_idxs)
-        keys = [val.pub_key for _, val in selected]
-        pub_b = b"".join(k.bytes() for k in keys)
         n = len(selected)
-        if len(pub_b) != 32 * n:
-            # a wrong-size key must fail as per-entry add() does, not as
-            # a reshape error
-            raise TypeError("pubkey is not ed25519")
-        block = EntryBlock(
-            np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
-            np.frombuffer(b"".join(sigs[i].signature for i in sig_idxs),
-                          dtype=np.uint8).reshape(n, 64),
-            buf,
-            offsets,
-        )
+        sig = np.frombuffer(b"".join(sigs[i].signature for i in sig_idxs),
+                            dtype=np.uint8).reshape(n, 64)
+        cols = vals.ed25519_columns()
+        if cols is not None:
+            # every key is ed25519 (JAX validation.py:357-383): gather the
+            # selected rows and note the set in the epoch cache; the key
+            # type check is the column's
+            rows = np.asarray(sig_idxs, dtype=np.int32)
+            keys = None
+            block = EntryBlock(cols[0][rows], sig, buf, offsets, val_idx=rows,
+                               epoch_key=epoch_cache.note_valset(vals))
+        else:
+            keys = [val.pub_key for _, val in selected]
+            pub_b = b"".join(k.bytes() for k in keys)
+            if len(pub_b) != 32 * n:
+                # a wrong-size key must fail as per-entry add() does, not
+                # as a reshape error
+                raise TypeError("pubkey is not ed25519")
+            block = EntryBlock(np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
+                               sig, buf, offsets)
     bv.add_block(block, keys=keys)
     ok, valid_sigs = bv.verify()
     if ok:

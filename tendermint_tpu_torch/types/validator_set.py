@@ -4,8 +4,11 @@ Counterpart: tendermint_tpu/types/validator_set.py (types/validator.go,
 types/validator_set.go). What commit verification needs: construction
 of a new set (with the reference's proposer-priority rotation, so the
 proposer and the validator order match), proto encode/decode, size,
-total voting power and the proposer. Integer operations follow Go's
-int64 semantics (clipping adds, truncated division).
+total voting power, the proposer, the set's hash (the epoch cache's key)
+and its ed25519 key column. Integer operations follow Go's int64
+semantics (clipping adds, truncated division). The port changes no set
+after it is built (there is no update path), so the hash and the
+column are computed once per set and kept.
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from ..crypto import PubKey
+from ..crypto import ed25519 as _ed25519
+from ..crypto import merkle
 from ..crypto.encoding import pubkey_from_proto, pubkey_to_proto
 from ..wire.proto import (
     ProtoWriter,
@@ -78,6 +85,14 @@ class Validator:
             return other
         raise ValueError("cannot compare identical validators")
 
+    def bytes(self) -> bytes:
+        """SimpleValidator proto (validator.go:116-132), the leaf of the
+        set's hash: 1 pub_key (message), 2 voting_power (varint)."""
+        w = ProtoWriter()
+        w.write_message(1, pubkey_to_proto(self.pub_key), always=True)
+        w.write_varint(2, self.voting_power)
+        return w.bytes()
+
     def encode(self) -> bytes:
         """Validator proto (validator.pb.go:88-91)."""
         w = ProtoWriter()
@@ -106,6 +121,8 @@ class ValidatorSet:
         self.validators: List[Validator] = validators if validators is not None else []
         self.proposer: Optional[Validator] = proposer
         self._total_voting_power = 0
+        self._hash: Optional[bytes] = None
+        self._ed_cols = None
 
     @classmethod
     def new(cls, valz: Sequence[Validator]) -> "ValidatorSet":
@@ -176,6 +193,35 @@ class ValidatorSet:
                     proposer = proposer.compare_proposer_priority(v)
             self.proposer = proposer
         return self.proposer.copy()
+
+    def hash(self) -> bytes:
+        """Merkle root of the validators' SimpleValidator encodings
+        (ValidatorSet.Hash in validator_set.go); it covers keys and powers only."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [v.bytes() for v in self.validators]
+            )
+        return self._hash
+
+    def ed25519_columns(self) -> Optional[tuple]:
+        """(pub (n, 32) uint8, power (n,) int64) over the set, or None
+        unless every key is ed25519: the commit path gathers its
+        signatures' keys from here, and the epoch cache builds its table
+        from the pub column."""
+        if self._ed_cols is None:
+            vals = self.validators
+            n = len(vals)
+            cols = ()
+            if n and all(isinstance(v.pub_key, _ed25519.PubKey) for v in vals):
+                pub_b = b"".join(v.pub_key.bytes() for v in vals)
+                if len(pub_b) == 32 * n:
+                    cols = (
+                        np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
+                        np.fromiter((v.voting_power for v in vals),
+                                    dtype=np.int64, count=n),
+                    )
+            self._ed_cols = cols
+        return self._ed_cols or None
 
     def validate_basic(self) -> None:
         if not self.validators:

@@ -18,6 +18,7 @@ os.environ.setdefault("TM_TPU_PUREPY_CRYPTO", "1")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from tendermint_tpu.crypto import batch as jbatch  # noqa: E402
 from tendermint_tpu.crypto import ed25519 as jed  # noqa: E402
@@ -39,6 +40,10 @@ from tendermint_tpu_torch import convert  # noqa: E402
 from tendermint_tpu_torch.ops import backend, rlc  # noqa: E402
 from tendermint_tpu_torch.types import validation  # noqa: E402
 from tendermint_tpu_torch.types.block import BlockID  # noqa: E402
+
+# The plain versions run thousands of small tensor ops: one intra-op
+# thread keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 CHAIN_ID = "torch-port-chain"
 HEIGHT = 12

@@ -15,7 +15,7 @@ import torch
 
 from tendermint_tpu_torch.crypto import _edwards
 from tendermint_tpu_torch.crypto import ed25519
-from tendermint_tpu_torch.ops import fe, rlc
+from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, rlc, verify
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 
 pytestmark = pytest.mark.cuda
@@ -83,9 +83,10 @@ def test_k2_and_k3_match_plain(inputs):
 
 def test_verify_batch_launches_each_kernel_once(cuda):
     block = EntryBlock.from_entries(_entries(100))
-    rlc.reset_launches()
+    kernels.reset_launches()
     got = rlc.verify_batch_rlc(block, device=cuda)
-    assert rlc.LAUNCHES == {"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1}
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1}
     assert got.tolist() == [_edwards.verify_zip215(*e) for e in block.iter_entries()]
 
 
@@ -93,3 +94,80 @@ def test_cuda_wrappers_reject_mixed_devices(inputs):
     a_t, r_t, scal_t, _ = inputs
     with pytest.raises(ValueError, match="expected"):
         rlc.k1_rlc(a_t, r_t.cpu(), scal_t)
+
+
+@pytest.fixture(scope="module")
+def epoch(cuda):
+    """An epoch of the 240 keys of _entries(240), in a shuffled order."""
+    ents = _entries(240)
+    pubs = [p for p, _, _ in ents]
+    order = np.random.default_rng(3).permutation(240)
+    col = np.frombuffer(b"".join(pubs[i] for i in order), np.uint8).reshape(240, 32)
+    val_idx = np.argsort(order).astype(np.int32)
+    ep = epoch_cache.EpochEntry(b"E" * 32, col)
+    return ents, ep, val_idx
+
+
+def test_epoch_coords_matches_plain(epoch, cuda):
+    _, ep, _ = epoch
+    rows = ep.pub_rows.copy()
+    rows[-2] = np.frombuffer((2).to_bytes(32, "little"), np.uint8)  # y = 2: no point
+    pub_t = torch.from_numpy(np.ascontiguousarray(rows.T)).to(cuda)
+    want = epoch_cache.epoch_coords_plain(pub_t)
+    got = epoch_cache.epoch_coords(pub_t)
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
+    assert torch.equal(got[1], want[1]) and not bool(got[1].all())
+
+
+def test_k1_rlc_cached_matches_plain(epoch, cuda):
+    ents, ep, val_idx = epoch
+    block = EntryBlock.from_entries(ents)
+    block = EntryBlock(block.pub, block.sig, block.msgs, block.offsets, val_idx=val_idx,
+                       epoch_key=ep.key)
+    args = [torch.from_numpy(a).to(cuda) for a in rlc.prepare_rlc_cached(block, 256, ep)[:3]]
+    tables = ep.coords_tables(cuda)
+    want = rlc.k1_rlc_cached_plain(*tables, *args)
+    got = rlc.k1_rlc_cached(*tables, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_per_signature_kernels_match_plain(cuda):
+    ents = _entries(250)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in verify.prepare_compact(EntryBlock.from_entries(ents), 256)]
+    want = verify.k1_decompress_plain(*args[:4])
+    got = verify.k1_decompress(*args[:4])
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    tbl_p = verify.k2_table_plain(want[0])
+    tbl_k = verify.k2_table(want[0])
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(tbl_k), _canon_slots(tbl_p))
+    out_p = verify.k3_ladder_plain(tbl_p, want[2], want[3], want[0], want[1], args[4])
+    out_k = verify.k3_ladder(tbl_p, want[2], want[3], want[0], want[1], args[4])
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p)
+    oracle = [_edwards.verify_zip215(*e) for e in ents] + [True] * 6
+    assert out_k.cpu().numpy()[0].astype(bool).tolist() == oracle
+
+
+def test_warm_verify_batch_launches_the_cached_k1(epoch, cuda):
+    ents, ep, val_idx = epoch
+    epoch_cache.reset(depth=8)
+    try:
+        cache = epoch_cache.cache()
+        cache.note(ep.key, ep.pub_rows[: ep.n_vals])
+        block = EntryBlock.from_entries(ents)
+        block = EntryBlock(block.pub, block.sig, block.msgs, block.offsets,
+                           val_idx=val_idx, epoch_key=ep.key)
+        kernels.reset_launches()
+        got = rlc.verify_batch_rlc(block, device=cuda)
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+            "epoch_coords": 1, "k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1}
+        assert got.tolist() == [_edwards.verify_zip215(*e) for e in ents]
+    finally:
+        epoch_cache.reset()

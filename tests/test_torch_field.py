@@ -21,6 +21,10 @@ import torch  # noqa: E402
 from tendermint_tpu.ops import fe_t  # noqa: E402
 from tendermint_tpu_torch.ops import fe  # noqa: E402
 
+# The plain versions run thousands of small tensor ops: one intra-op
+# thread keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 P = fe.P
 EDGE = [0, 1, P - 1, P, 2**255 - 1, 8 * P]
 

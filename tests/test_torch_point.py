@@ -24,6 +24,10 @@ from tendermint_tpu.crypto import _edwards as E  # noqa: E402
 from tendermint_tpu.ops import pallas_verify as pv  # noqa: E402
 from tendermint_tpu_torch.ops import fe, point  # noqa: E402
 
+# The plain versions run thousands of small tensor ops: one intra-op
+# thread keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 P = E.P
 
 

@@ -5,8 +5,10 @@ ZIP-215 oracle.
 - prepare_rlc: byte-equal to the JAX prepare_rlc for the same
   coefficients z (TM_TPU_RLC_SEED on the JAX side; its _gen_z output is
   handed to the port).
-- K1-K3: lane verdicts equal to the JAX Pallas pipeline in interpret
-  mode, in one module-scoped call at 16 signatures (it is slow cold).
+- K1-K3: the JAX kernel bodies run eagerly (tests/pallas_bodies.py) in
+  one module-scoped fixture at 16 signatures (the ladder body is slow
+  on the CPU); K1's coords, flags and digits and K2's table equal the
+  port's plain versions limb for limb, and the lane verdicts are equal.
 - verify_batch_rlc: per-signature verdicts equal to verify_zip215.
 
 Tolerance: none; every compared value is an integer or a flag.
@@ -20,12 +22,17 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from pallas_bodies import run_body  # noqa: E402
 from test_ops import _edge_entries  # noqa: E402
 from tendermint_tpu.crypto import _edwards as E  # noqa: E402
 from tendermint_tpu.crypto import ed25519 as jed  # noqa: E402
 from tendermint_tpu.ops import pallas_rlc  # noqa: E402
-from tendermint_tpu_torch.ops import rlc  # noqa: E402
+from tendermint_tpu_torch.ops import kernels, rlc  # noqa: E402
 from tendermint_tpu_torch.ops.entry_block import EntryBlock  # noqa: E402
+
+# The plain versions run thousands of small tensor ops: one intra-op
+# thread keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 RLC_SEED = "20261016"
 
@@ -76,24 +83,33 @@ def sixteen():
     """16 signatures in 4 lanes: all valid; one tampered and one wrong
     message; all small-order keys (the cofactored equation accepts them
     for any message); s >= L, a corrupted key, random bytes. Returns
-    (entries, JAX args, port args, JAX interpret-mode lane verdicts)."""
+    (entries, JAX args, port args, JAX lane verdicts, JAX (coords, ok,
+    dig, tbl)), from the three JAX kernel bodies run eagerly."""
     e = _edge_entries()
     entries = [e[i] for i in (0, 1, 2, 3, 4, 6, 5, 7, 10, 11, 12, 13, 9, 8, 14, 17)]
     jax_args, port_args = _prepare_both(entries, 16)
-    lanes = pallas_rlc.verify_rlc_compact(*jax_args, block=4, interpret=True)
-    return entries, jax_args, port_args, lanes
+    coords, ok, dig = run_body(pallas_rlc._k1_rlc_kernel, jax_args[:3],
+                               [rlc.COORD_ROWS, 2 * rlc.M, rlc.DIG_ROWS])
+    (tbl,) = run_body(pallas_rlc._k2_rlc_kernel, [coords], [rlc.TBL_ROWS])
+    (out,) = run_body(pallas_rlc._k3_rlc_kernel, [tbl, dig, coords, ok, jax_args[3]], [1])
+    return entries, jax_args, port_args, out[0].astype(bool), (coords, ok, dig, tbl)
 
 
 def test_lane_verdicts_match_pallas_interpret(sixteen):
-    entries, jax_args, port_args, jax_lanes = sixteen
+    entries, jax_args, port_args, jax_lanes, jax_k12 = sixteen
     for j, p in zip(jax_args, port_args):
         np.testing.assert_array_equal(j, p)
+    a_t, r_t, scal_t, _ = (torch.from_numpy(np.ascontiguousarray(a)) for a in port_args)
+    coords, ok, dig = rlc.k1_rlc_plain(a_t, r_t, scal_t)
+    tbl = rlc.k2_rlc_plain(coords)
+    for name, got, want in zip(("coords", "ok", "dig", "tbl"), (coords, ok, dig, tbl), jax_k12):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
     assert jax_lanes.tolist() == [True, False, True, False]
     assert _lanes_port(port_args).tolist() == jax_lanes.tolist()
 
 
 def test_all_small_order_lane_fast_accepts(sixteen):
-    entries, _, port_args, _ = sixteen
+    entries, _, port_args, _, _ = sixteen
     assert all(E.verify_zip215(*entries[i]) for i in range(8, 12))
     assert _lanes_port(port_args)[2]
     got = rlc.verify_batch_rlc(EntryBlock.from_entries(entries[8:12]), device="cpu")
@@ -162,10 +178,11 @@ def test_wrappers_check_dtype_shape_and_contiguity():
 
 
 def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
-    rlc.reset_launches()
+    kernels.reset_launches()
     args = rlc.prepare_rlc(EntryBlock.from_entries(_signed(4, 13)), 4)
     assert _lanes_port(args).tolist() == [True]
-    assert rlc.LAUNCHES == {"k1_rlc": 0, "k2_rlc": 0, "k3_rlc": 0}
+    assert set(kernels.LAUNCHES) >= {"k1_rlc", "k2_rlc", "k3_rlc"}
+    assert set(kernels.LAUNCHES.values()) == {0}
 
 
 def test_coefficients_are_fresh_per_batch():
