@@ -10,32 +10,42 @@ Phases, in order:
 1. the card: `nvidia-smi` name and power limit, torch's device name;
 2. build: the CUDA kernels of tendermint_tpu_torch/csrc, one nvcc per
    source, all started together, with the build seconds and each
-   kernel's registers and spills (`-Xptxas -v`);
-3. kernels: each of the eight CUDA entries on the card against its plain
+   kernel's registers and spills (`-Xptxas -v`); and the host library
+   (csrc/merlin.cpp, the sr25519 challenges) with the host C++ compiler;
+3. kernels: each of the eleven CUDA entries on the card against its plain
    PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
-   and 2,560 lanes, the per-signature K1, K2 and K3 at 256 and 10,240
-   signatures, and the epoch table build at 16,384 rows, over the ZIP-215
-   edge battery, padding and one tampered signature. Coordinates are
-   compared after canonicalisation, flags, digits and verdicts exactly;
-4. slice: `types.validation.verify_commit` on a 10,000-validator ed25519
-   commit on the card, on each path with the launch counters set to 0
-   just before it and read just after:
-   (a) RLC: five calls on one validator set, the first cold (k1_rlc),
-       the rest warm (k1_rlc_cached, the epoch table built once), with
-       the epoch cache's misses and hits; a tampered signature raises
-       `wrong signature (#i): <HEX>` warm and cold; verify_commit_light
-       runs warm; a commit below 2/3 raises ErrNotEnoughVotingPowerSigned;
-   (b) per-signature (TM_TPU_RLC=0): the valid, tampered and below-2/3
-       commits give the same results, through k1_decompress, k2_table
-       and k3_ladder once each per call;
-5. timing, for each path (RLC cold, RLC warm, per-signature): the
-   end-to-end verify_commit wall clock (warm, median of 20); a
-   torch.profiler trace of 5 more calls, from which each call's host
-   stages (the port's record_function spans), the rest of the call, and
-   the card's busy time and idle share come; peak device memory. Then
-   each kernel's time from CUDA events at the path's shape beside its
-   plain version's time and its bound. The traces are kept in
-   build/traces/.
+   and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
+   10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
+   signatures; and the epoch table build at 16,384 rows; over the
+   ZIP-215 and ristretto edge batteries, padding and one tampered
+   signature. Coordinates are compared after canonicalisation, flags,
+   digits and verdicts exactly, and the verdicts against the oracles;
+4. slice: `types.validation.verify_commit` on a 10,000-validator commit
+   on the card, on each path with the launch counters set to 0 just
+   before it and read just after:
+   (a) RLC, ed25519: five calls on one validator set, the first cold
+       (k1_rlc), the rest warm (k1_rlc_cached, the epoch table built
+       once), with the epoch cache's misses and hits; a tampered
+       signature raises `wrong signature (#i): <HEX>` warm and cold;
+       verify_commit_light runs warm; a commit below 2/3 raises
+       ErrNotEnoughVotingPowerSigned;
+   (b) per-signature (TM_TPU_RLC=0), epoch cache off: the valid,
+       tampered and below-2/3 commits give the same results, through
+       k1_decompress, k2_table and k3_ladder once each per call;
+   (c) per-signature warm (TM_TPU_RLC=0, epoch cache on): three calls on
+       one set, the first through k1_decompress, the others through
+       k1_decompress_cached; the tampered commit is blamed warm;
+   (d) sr25519: a 10,000-validator sr25519 commit through k1r_decode,
+       k2_table and k3r_ladder once each per call: valid, tampered and
+       below 2/3, never noted in the epoch cache;
+5. timing, for each path (RLC cold, RLC warm, per-signature,
+   per-signature warm, sr25519): the end-to-end verify_commit wall clock
+   (warm, median of 20); a torch.profiler trace of 5 more calls, from
+   which each call's host stages (the port's record_function spans), the
+   rest of the call, and the card's busy time and idle share come; peak
+   device memory. Then each kernel's time from CUDA events at the path's
+   shape beside its plain version's time and its bound. The traces are
+   kept in build/traces/.
 
 It prints one JSON line of kernel records, then the `nvidia-smi` line,
 then, last, `{"ok": true, "device": {...}}`. Any failed check exits
@@ -60,9 +70,10 @@ import time
 import numpy as np
 import torch
 
-from tendermint_tpu_torch.crypto import _edwards
-from tendermint_tpu_torch.crypto import ed25519
-from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, rlc, verify
+from tendermint_tpu_torch.crypto import _edwards, _ristretto
+from tendermint_tpu_torch.crypto import ed25519, sr25519
+from tendermint_tpu_torch.ops import epoch_cache, fe, host, kernels, rlc, verify
+from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 from tendermint_tpu_torch.types import validation
 from tendermint_tpu_torch.types.block import (
@@ -92,6 +103,7 @@ BLOCK = BlockID(
 )
 TAMPER_AT = 4321  # signature flipped in the tampered commit
 LANE_SHAPES = (64, 2560)  # RLC kernel shapes; 2,560 lanes = 10,240 signatures
+SR_SHAPES = (64, 10240)  # sr25519 kernel shapes, in signatures
 WARM_CALLS = 5  # verify_commit calls on one set in slice (a): 1 cold, 4 warm
 REPEATS = 20  # warm end-to-end runs (median)
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -107,6 +119,17 @@ PATHS = {
                                  "rlc.d2h", "rlc.expand"),
     "per_signature": COMMIT_STAGES + ("verify.prep", "verify.h2d", "verify.kernels",
                                       "verify.d2h"),
+    "per_signature_warm": COMMIT_STAGES + ("verify.prep", "verify.gather", "verify.h2d",
+                                           "verify.kernels", "verify.d2h"),
+    "sr25519": COMMIT_STAGES + ("sr.prep", "sr.h2d", "sr.kernels", "sr.d2h"),
+}
+# each path: (TM_TPU_RLC, epoch cache depth, the commit's key type)
+PATH_SETUP = {
+    "rlc_cold": (None, 0, "ed25519"),
+    "rlc_warm": (None, epoch_cache.DEFAULT_DEPTH, "ed25519"),
+    "per_signature": ("0", 0, "ed25519"),
+    "per_signature_warm": ("0", epoch_cache.DEFAULT_DEPTH, "ed25519"),
+    "sr25519": (None, epoch_cache.DEFAULT_DEPTH, "sr25519"),
 }
 
 # Bound model of one H100 (SXM, 700 W): 132 SMs, each 64 INT32 lanes a
@@ -119,11 +142,12 @@ HBM_BYTES_PER_S = 3.35e12
 PRODUCTS_MUL = 400
 PRODUCTS_SQ = 210
 # multiply-adds per unit of work (an RLC lane, a table row, a signature),
-# as the headers of csrc/rlc.cu and csrc/verify.cu state them
+# as the headers of csrc/rlc.cu, csrc/verify.cu and csrc/sr25519.cu state them
 PRODUCTS_PER_UNIT = {
     "k1_rlc": 492_400, "k1_rlc_cached": 246_200, "k2_rlc": 203_520,
     "k3_rlc": 1_956_000, "epoch_coords": 61_550,
-    "k1_decompress": 123_100, "k2_table": 50_880, "k3_ladder": 938_400,
+    "k1_decompress": 123_100, "k1_decompress_cached": 61_550, "k2_table": 50_880,
+    "k3_ladder": 938_400, "k1r_decode": 128_740, "k3r_ladder": 926_160,
 }
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
@@ -132,14 +156,17 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:251"),
     "epoch_coords": ("rlc.cu", "tendermint_tpu/ops/epoch_cache.py:292"),
     "k1_decompress": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:239"),
+    "k1_decompress_cached": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:263"),
     "k2_table": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:286"),
     "k3_ladder": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:329"),
+    "k1r_decode": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:75"),
+    "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
 }
 # outputs of each kernel that hold 32-row coordinate slots (compared
 # after canonicalisation; the rest exactly)
 SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (0,), "k2_rlc": (0,), "k3_rlc": (),
-                "epoch_coords": (0,), "k1_decompress": (0,), "k2_table": (0,),
-                "k3_ladder": ()}
+                "epoch_coords": (0,), "k1_decompress": (0,), "k1_decompress_cached": (0,),
+                "k2_table": (0,), "k3_ladder": (), "k1r_decode": (0,), "k3r_ladder": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -203,16 +230,31 @@ def _sign_validator(i: int) -> tuple:
     return _edwards.pubkey_from_seed(seed), ts, _edwards.sign(seed, msg)
 
 
+def _sign_sr_validator(i: int) -> tuple:
+    """_sign_validator with an sr25519 key."""
+    sk = sr25519.PrivKey(hashlib.sha256(b"chip-smoke sr validator %d %d" % (SEED, i)).digest())
+    ts = canonical.Timestamp(T0_SECONDS, 1000 * i + 1)
+    msg = canonical.compose_vote_sign_bytes(_vote_template(), ts)
+    return sk.pub_key().bytes(), ts, sk.sign(msg)
+
+
 def _oracle(entry: tuple) -> bool:
     return _edwards.verify_zip215(*entry)
 
 
-def build_commit(pool) -> tuple:
-    """(ValidatorSet, Commit) of N_VALIDATORS validators, all signing."""
-    signed = pool.map(_sign_validator, range(N_VALIDATORS), chunksize=64)
+def _sr_oracle(entry: tuple) -> bool:
+    return sr25519.verify(*entry)
+
+
+def build_commit(pool, key_type: str = "ed25519") -> tuple:
+    """(ValidatorSet, Commit) of N_VALIDATORS validators of one key type,
+    all signing."""
+    sign, key_cls = {"ed25519": (_sign_validator, ed25519.PubKey),
+                     "sr25519": (_sign_sr_validator, sr25519.PubKey)}[key_type]
+    signed = pool.map(sign, range(N_VALIDATORS), chunksize=64)
     powers = np.random.default_rng(SEED).integers(1, 1000, N_VALIDATORS)
     vals = ValidatorSet.new([
-        Validator.new(ed25519.PubKey(pub), int(p))
+        Validator.new(key_cls(pub), int(p))
         for (pub, _, _), p in zip(signed, powers)
     ])
     by_pub = {pub: (ts, sig) for pub, ts, sig in signed}
@@ -282,6 +324,50 @@ def edge_entries() -> list:
     return out
 
 
+def sr_edge_entries() -> list:
+    """sr25519 entries over every accept and reject branch: valid
+    signatures; a tampered s, a wrong message, no v1 marker, s >= L; keys
+    that are odd, at p + 1, with bit 255 set, with 1 + s^2 = 0, not
+    square, or with an odd t; an R that does not decode; the all-zero
+    identity key (accepted for any message when R = [s]B); random bytes."""
+    rng = random.Random(SEED)
+    out = []
+    for i in range(4):
+        sk = sr25519.gen_priv_key(bytes([i + 1]) * 32)
+        msg = b"sr-edge-%d" % i
+        out.append((sk.pub_key().bytes(), msg, sk.sign(msg)))
+    pk, msg, sig = out[0]
+    out.append((pk, msg, tamper(sig)))
+    out.append((pk, b"other", sig))
+    out.append((pk, msg, sig[:63] + bytes([sig[63] & 0x7F])))
+    out.append((pk, msg, sig[:32] + (_edwards.L + 3 | 1 << 255).to_bytes(32, "little")))
+    p = _edwards.P
+    i = _ristretto.SQRT_M1 if _ristretto.SQRT_M1 % 2 == 0 else p - _ristretto.SQRT_M1
+    # 1 + s^2 = 0 at s = sqrt(-1); s = 8 is not square; s = 2 has an odd t
+    for bad in (1, p + 1, 2**255 + 2, i, 8, 2):
+        out.append((bad.to_bytes(32, "little"), msg, sig))
+    out.append((pk, msg, (8).to_bytes(32, "little") + sig[32:]))
+    s = rng.randrange(0, _edwards.L)
+    r = _ristretto.encode(_ristretto.scalar_mult(s, _ristretto.BASE))
+    out.append((bytes(32), b"identity key", r + (s | 1 << 255).to_bytes(32, "little")))
+    for _ in range(2):
+        out.append((rng.randbytes(32), rng.randbytes(20), rng.randbytes(64)))
+    return out
+
+
+def sr_inputs(commit_ents: list, edge: list, n: int, pool) -> tuple:
+    """An EntryBlock for n sr25519 signatures: the edge battery, commit
+    signatures with one tampered, and 3 padding signatures; and the
+    oracle's verdicts padded to n (padding accepts)."""
+    body = list(commit_ents[: n - 3 - len(edge)])
+    pk, msg, sig = body[len(body) // 2]
+    body[len(body) // 2] = (pk, msg, tamper(sig))
+    per_sig = np.ones(n, dtype=bool)
+    per_sig[: len(edge)] = pool.map(_sr_oracle, edge)
+    per_sig[len(edge) + len(body) // 2] = False
+    return EntryBlock.from_entries(edge + body), per_sig
+
+
 def sig_inputs(commit_ents: list, edge: list, lanes: int, pool) -> tuple:
     """An EntryBlock for `lanes` RLC lanes (lanes * M signatures): the
     edge battery, commit signatures with one tampered, a last lane
@@ -315,6 +401,8 @@ def with_epoch(block: EntryBlock, seed: int) -> tuple:
 
 
 def build_kernels() -> None:
+    t = time.perf_counter()
+    log(f"build: host library {host.build().name} in {time.perf_counter() - t:.2f} s")
     b = kernels.build()
     log(f"build: {b.seconds:.2f} s, {len(kernels.SOURCES)} sources in parallel "
         f"({b.path.name})")
@@ -377,7 +465,7 @@ def _verdicts(out: torch.Tensor) -> np.ndarray:
     return out.cpu().numpy()[0].astype(bool)
 
 
-def kernel_phase(inputs: dict, table_pub: np.ndarray, dev) -> dict:
+def kernel_phase(inputs: dict, sr_in: dict, table_pub: np.ndarray, dev) -> dict:
     """Every kernel against its plain version on the card. Returns per
     kernel the max abs error over its shapes and the plain time at the
     last (the main path's) shape."""
@@ -436,6 +524,38 @@ def kernel_phase(inputs: dict, table_pub: np.ndarray, dev) -> dict:
         check(bool((got == per_sig).all()),
               f"per-signature verdicts at {label} differ from the oracle at "
               f"{np.nonzero(got != per_sig)[0][:8].tolist()}")
+
+        # the warm K1 over the RLC section's shuffled table
+        warm_args = [torch.from_numpy(a).to(dev)
+                     for a in verify.prepare_compact_cached(wblock, n, ep)]
+        coords, ok, sdig, kdig = hold(
+            stats, "k1_decompress_cached", label,
+            lambda: verify.k1_decompress_cached_plain(ctbl, oktbl, *warm_args[:4]),
+            lambda: verify.k1_decompress_cached(ctbl, oktbl, *warm_args[:4]))
+        got = _verdicts(verify.k3_ladder(verify.k2_table(coords), sdig, kdig, coords, ok,
+                                         warm_args[4]))
+        check(bool((got == per_sig).all()),
+              f"warm per-signature verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != per_sig)[0][:8].tolist()}")
+        log(f"kernels: {label}: cold and warm verdicts equal the oracle; "
+            f"{int((~per_sig).sum())} reject")
+
+    for n in SR_SHAPES:
+        block, per_sig = sr_in[n]
+        label = f"{n} sr25519 signatures"
+        args = [torch.from_numpy(a).to(dev) for a in osr.prepare_sr25519(block, n)]
+        coords, ok, sdig, kdig = hold(stats, "k1r_decode", label,
+                                      lambda: osr.k1r_decode_plain(*args[:6]),
+                                      lambda: osr.k1r_decode(*args[:6]))
+        tbl = hold(stats, "k2_table", label, lambda: verify.k2_table_plain(coords),
+                   lambda: verify.k2_table(coords))
+        out = hold(stats, "k3r_ladder", label,
+                   lambda: osr.k3r_ladder_plain(tbl, sdig, kdig, coords, ok, args[6]),
+                   lambda: osr.k3r_ladder(tbl, sdig, kdig, coords, ok, args[6]))
+        got = _verdicts(out)
+        check(bool((got == per_sig).all()),
+              f"sr25519 verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != per_sig)[0][:8].tolist()}")
         log(f"kernels: {label}: verdicts equal the oracle; {int((~per_sig).sum())} reject")
 
     ep = epoch_cache.EpochEntry(b"smoke table", table_pub)
@@ -484,13 +604,13 @@ def _commits(vals, commit) -> tuple:
     return bad, bad_msg, low, low_msg
 
 
-def slice_phase(vals, commit, dev) -> dict:
-    """verify_commit on the card on both paths; returns each kernel's
-    launches in its path's run: the WARM_CALLS RLC calls, and one
-    per-signature call."""
+def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
+    """verify_commit on the card on every path; returns each kernel's
+    launches in its path's run: the WARM_CALLS RLC calls, one
+    per-signature call, one warm per-signature call, one sr25519 call."""
 
-    def vc(c, fn=validation.verify_commit):
-        return lambda: fn(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
+    def vc(c, fn=validation.verify_commit, v=vals):
+        return lambda: fn(CHAIN_ID, v, BLOCK, HEIGHT, c, device=dev)
 
     bad, bad_msg, low, low_msg = _commits(vals, commit)
     launches = {}
@@ -503,7 +623,7 @@ def slice_phase(vals, commit, dev) -> dict:
             before = dict(kernels.LAUNCHES)
             vc(commit)()
             per_call.append(_launched(before))
-        launches.update(kernels.LAUNCHES)
+        launches.update({k: v for k, v in kernels.LAUNCHES.items() if v})
         stats = epoch_cache.stats()
         log(f"slice (a): {WARM_CALLS} verify_commit calls on one set, launches per call "
             f"{per_call}; epoch cache {stats}")
@@ -530,18 +650,18 @@ def slice_phase(vals, commit, dev) -> dict:
         before = dict(kernels.LAUNCHES)
         expect_error(vc(bad), ValueError, bad_msg)
         check(_launched(before).get("k1_rlc") == 1, "the tampered commit did not run cold")
-        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
         log(f"slice (a): tampered signature #{TAMPER_AT} blamed warm and cold; "
             f"verify_commit_light warm {light}; low power rejected")
 
+    want = {"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1}
     with rlc_env("0"):
-        # (b) per-signature
+        # (b) per-signature, cold: the epoch cache off
+        epoch_cache.reset(depth=0)
         kernels.reset_launches()
         vc(commit)()
-        valid = dict(kernels.LAUNCHES)
-        launches.update({k: valid[k] for k in ("k1_decompress", "k2_table", "k3_ladder")})
-        want = {"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1}
-        check(_launched({}) == want, f"the per-signature call launched {valid}")
+        valid = _launched({})
+        check(valid == want, f"the per-signature call launched {valid}")
+        launches.update(valid)
         before = dict(kernels.LAUNCHES)
         expect_error(vc(bad), ValueError, bad_msg)
         bad_launches = _launched(before)
@@ -549,6 +669,45 @@ def slice_phase(vals, commit, dev) -> dict:
         expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
         log(f"slice (b): per-signature valid commit verified, launches {want}; "
             f"tampered #{TAMPER_AT} blamed; low power rejected")
+
+        # (c) per-signature, warm: the second call on a set reads its table
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        kernels.reset_launches()
+        per_call = []
+        for _ in range(3):
+            before = dict(kernels.LAUNCHES)
+            vc(commit)()
+            per_call.append(_launched(before))
+        warm_want = {"k1_decompress_cached": 1, "k2_table": 1, "k3_ladder": 1}
+        check(per_call == [want, dict(warm_want, epoch_coords=1), warm_want],
+              f"three per-signature calls on one set launched {per_call}")
+        launches["k1_decompress_cached"] = kernels.LAUNCHES["k1_decompress_cached"]
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        check(_launched(before) == warm_want, "the tampered commit did not run warm")
+        expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+        log(f"slice (c): per-signature calls on one set launched {per_call}; tampered "
+            f"#{TAMPER_AT} blamed warm; low power rejected")
+
+    with rlc_env(None):
+        # (d) sr25519
+        sr_bad, sr_bad_msg, sr_low, sr_low_msg = _commits(sr_vals, sr_commit)
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        kernels.reset_launches()
+        vc(sr_commit, v=sr_vals)()
+        sr_want = {"k1r_decode": 1, "k2_table": 1, "k3r_ladder": 1}
+        got = _launched({})
+        check(got == sr_want, f"the sr25519 call launched {got}")
+        launches.update({k: got[k] for k in ("k1r_decode", "k3r_ladder")})
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(sr_bad, v=sr_vals), ValueError, sr_bad_msg)
+        check(_launched(before) == sr_want, f"the tampered sr25519 call launched {_launched(before)}")
+        expect_error(vc(sr_low, v=sr_vals), ErrNotEnoughVotingPowerSigned, sr_low_msg)
+        stats = epoch_cache.stats()
+        check((stats["misses"], stats["hits"]) == (0, 0),
+              f"an sr25519 set was noted in the epoch cache: {stats}")
+        log(f"slice (d): sr25519 valid commit verified, launches {sr_want}; tampered "
+            f"#{TAMPER_AT} blamed; low power rejected; the epoch cache untouched")
     return launches
 
 
@@ -589,17 +748,25 @@ def count_products(units: dict) -> dict:
     return counted
 
 
-def _one_unit_thunks(cold, warm, table, sig) -> dict:
+def _one_unit_thunks(cold, warm, table, sig, warm_sig, sr) -> dict:
     """Plain-version thunks over one unit of each kernel's inputs (CPU)."""
     a_t, r_t, scal_t, sok = (t[:, :1].cpu().contiguous() for t in cold)
     ctbl, oktbl, idx, r_rows, scal_rows = (t.cpu() for t in warm)
     pub_t = table[:, :1].cpu().contiguous()
     a, r, s, k, sok1 = (t[:, :1].cpu().contiguous() for t in sig)
+    widx, wr, ws, wk = (t[:1].cpu().contiguous() for t in warm_sig[:4])
+    sr1 = [t[:, :1].cpu().contiguous() for t in sr]
     c1, o1, d1 = rlc.k1_rlc_plain(a_t, r_t, scal_t)
     t1 = rlc.k2_rlc_plain(c1)
     vc, vo, vs, vk = verify.k1_decompress_plain(a, r, s, k)
     vt = verify.k2_table_plain(vc)
+    rc, ro, rs, rk = osr.k1r_decode_plain(*sr1[:6])
+    rt = verify.k2_table_plain(rc)
     return {
+        "k1_decompress_cached": lambda: verify.k1_decompress_cached_plain(
+            ctbl, oktbl, widx, wr, ws, wk),
+        "k1r_decode": lambda: osr.k1r_decode_plain(*sr1[:6]),
+        "k3r_ladder": lambda: osr.k3r_ladder_plain(rt, rs, rk, rc, ro, sr1[6]),
         "k1_rlc": lambda: rlc.k1_rlc_plain(a_t, r_t, scal_t),
         "k1_rlc_cached": lambda: rlc.k1_rlc_cached_plain(
             ctbl, oktbl, idx[: rlc.M].contiguous(), r_rows[: rlc.M].contiguous(),
@@ -682,9 +849,9 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
 
 def time_path(path: str, vals, commit, dev) -> dict:
     """End-to-end times and the stage breakdown of one path."""
-    env = "0" if path == "per_signature" else None
+    env, depth, _ = PATH_SETUP[path]
     with rlc_env(env):
-        epoch_cache.reset(depth=0 if path == "rlc_cold" else epoch_cache.DEFAULT_DEPTH)
+        epoch_cache.reset(depth=depth)
         for _ in range(2):  # the second call of a set is warm
             validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
         torch.cuda.synchronize()
@@ -728,7 +895,8 @@ def time_path(path: str, vals, commit, dev) -> dict:
     }
 
 
-def kernel_timing(vals, block: EntryBlock, dev, sm_clock_hz: float) -> list:
+def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
+                  sm_clock_hz: float) -> list:
     """Each kernel's CUDA-event time on the main path's inputs, beside its
     bound; returns the kernel records without launches and plain times."""
     M = rlc.M
@@ -757,6 +925,16 @@ def kernel_timing(vals, block: EntryBlock, dev, sm_clock_hz: float) -> list:
     vt = verify.k2_table(vc)
     vout = verify.k3_ladder(vt, vs, vk, vc, vo, sig[4])
     check(bool(vout[0, : len(block)].all().item()), "the commit's signatures did not all verify")
+    warm_sig = [torch.from_numpy(a).to(dev) for a in verify.prepare_compact_cached(wblock, n, ep)]
+    wvc, wvo, wvs, wvk = verify.k1_decompress_cached(ctbl, oktbl, *warm_sig[:4])
+
+    n_sr = verify.bucket_for(len(sr_block))
+    sr = [torch.from_numpy(a).to(dev) for a in osr.prepare_sr25519(sr_block, n_sr)]
+    rc, ro, rs, rk = osr.k1r_decode(*sr[:6])
+    rt = verify.k2_table(rc)
+    rout = osr.k3r_ladder(rt, rs, rk, rc, ro, sr[6])
+    check(bool(rout[0, : len(sr_block)].all().item()),
+          "the sr25519 commit's signatures did not all verify")
 
     runs = {
         "k1_rlc": (lambda: rlc.k1_rlc(a_t, r_t, scal_t), (a_t, r_t, scal_t, coords, ok, dig), g),
@@ -770,8 +948,14 @@ def kernel_timing(vals, block: EntryBlock, dev, sm_clock_hz: float) -> list:
         "k2_table": (lambda: verify.k2_table(vc), (vc, vt), n),
         "k3_ladder": (lambda: verify.k3_ladder(vt, vs, vk, vc, vo, sig[4]),
                       (vt, vs, vk, vc, vo, sig[4], vout), n),
+        "k1_decompress_cached": (
+            lambda: verify.k1_decompress_cached(ctbl, oktbl, *warm_sig[:4]),
+            (ctbl, oktbl, *warm_sig[:4], wvc, wvo, wvs, wvk), n),
+        "k1r_decode": (lambda: osr.k1r_decode(*sr[:6]), tuple(sr[:6]) + (rc, ro, rs, rk), n_sr),
+        "k3r_ladder": (lambda: osr.k3r_ladder(rt, rs, rk, rc, ro, sr[6]),
+                       (rt, rs, rk, rc, ro, sr[6], rout), n_sr),
     }
-    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig))
+    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr))
     int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
     records = []
     for name, (fn, tensors, units) in runs.items():
@@ -823,29 +1007,36 @@ def main() -> int:
     # the cores this process may run on, not the host's count
     workers = min(16, len(os.sched_getaffinity(0)))
     with ctx.Pool(workers) as pool:
-        t = time.perf_counter()
-        vals, commit = build_commit(pool)
-        log(f"data: {N_VALIDATORS}-validator commit signed in "
-            f"{time.perf_counter() - t:.1f} s by {workers} processes")
+        sets = {}
+        for key_type in ("ed25519", "sr25519"):
+            t = time.perf_counter()
+            sets[key_type] = build_commit(pool, key_type)
+            log(f"data: {N_VALIDATORS}-validator {key_type} commit signed in "
+                f"{time.perf_counter() - t:.1f} s by {workers} processes")
+        vals, commit = sets["ed25519"]
         ents = commit_entries(commit, vals)
+        sr_ents = commit_entries(sets["sr25519"][1], sets["sr25519"][0])
         edge = edge_entries()
         inputs = {lanes: sig_inputs(ents, edge, lanes, pool) for lanes in LANE_SHAPES}
+        sr_edge = sr_edge_entries()
+        sr_in = {n: sr_inputs(sr_ents, sr_edge, n, pool) for n in SR_SHAPES}
     table_pub = np.concatenate([
         np.frombuffer(b"".join(p for p, _, _ in edge), np.uint8).reshape(-1, 32),
         vals.ed25519_columns()[0],
     ])
 
     t = time.perf_counter()
-    kstats = kernel_phase(inputs, table_pub, dev)
+    kstats = kernel_phase(inputs, sr_in, table_pub, dev)
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    launches = slice_phase(vals, commit, dev)
+    launches = slice_phase(vals, commit, *sets["sr25519"], dev)
     log(f"slice phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    paths = {p: time_path(p, vals, commit, dev) for p in PATHS}
-    records = kernel_timing(vals, EntryBlock.from_entries(ents), dev, sm_clock_hz)
+    paths = {p: time_path(p, *sets[PATH_SETUP[p][2]], dev) for p in PATHS}
+    records = kernel_timing(vals, EntryBlock.from_entries(ents),
+                            EntryBlock.from_entries(sr_ents), dev, sm_clock_hz)
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
     log("paths (median ms): " + ", ".join(
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"

@@ -1,8 +1,9 @@
-"""PubKey <-> proto conversion, ed25519 only.
+"""PubKey <-> proto conversion, ed25519 and sr25519.
 
 Counterpart: tendermint_tpu/crypto/encoding.py (crypto/encoding/codec.go).
-tendermint.crypto.PublicKey is a oneof whose field 1 is the ed25519 key;
-this slice of the port carries no other key type.
+tendermint.crypto.PublicKey is a oneof: field 1 is the ed25519 key,
+field 3 the sr25519 key; the port carries no secp256k1 (field 2) or BLS
+key yet.
 """
 
 from __future__ import annotations
@@ -10,20 +11,22 @@ from __future__ import annotations
 from ..wire.proto import ProtoWriter, decode_message, field_bytes
 from . import PubKey
 from . import ed25519 as _ed25519
+from . import sr25519 as _sr25519
 
-_FIELD_ED25519 = 1
+_FIELDS = {_ed25519.KEY_TYPE: (1, _ed25519.PubKey), _sr25519.KEY_TYPE: (3, _sr25519.PubKey)}
 
 
 def pubkey_to_proto(pk: PubKey) -> bytes:
-    if pk.type() != _ed25519.KEY_TYPE:
+    if pk.type() not in _FIELDS:
         raise ValueError(f"unsupported key type {pk.type()}")
     w = ProtoWriter()
-    w.write_bytes(_FIELD_ED25519, pk.bytes(), always=True)
+    w.write_bytes(_FIELDS[pk.type()][0], pk.bytes(), always=True)
     return w.bytes()
 
 
 def pubkey_from_proto(data: bytes) -> PubKey:
     fields = decode_message(data)
-    if _FIELD_ED25519 in fields:
-        return _ed25519.PubKey(field_bytes(fields, _FIELD_ED25519))
+    for field, cls in _FIELDS.values():
+        if field in fields:
+            return cls(field_bytes(fields, field))
     raise ValueError("unsupported or empty PublicKey oneof")

@@ -21,9 +21,18 @@
 // header compiles its own copy, and the objects link without clashes.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace edw {
+
+// The per-signature kernels (verify.cu, sr25519.cu) run VTHREADS threads
+// a block and ceil(n / VTHREADS) blocks of signatures, times y threads a
+// signature, with the tail masked in the kernel.
+constexpr int VTHREADS = 128;
+
+inline dim3 sig_grid(int n, int y) { return dim3((n + VTHREADS - 1) / VTHREADS, y); }
 
 constexpr int NL = 20;
 constexpr int RADIX = 13;
@@ -374,17 +383,10 @@ __device__ __forceinline__ fe unpack_limbs(const int32_t (&e)[32]) {
   return y;
 }
 
-// ZIP-215 decompression (pallas_verify.decompress): y is carried but not
-// reduced, so a non-canonical y is accepted; sqrt_ratio accepts
-// check == -u; the sign flip uses the canonical x.
-static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
-  const fe one = fe_one();
-  const fe y = carry(unpack_limbs(e));
-  const int32_t sign = e[31] >> 7;
-  const fe yy = sq(y);
-  const fe u = sub(yy, one);
-  const fe v = add(mul(fe_d(), yy), one);
-  // sqrt_ratio(u, v)
+// sqrt_ratio(u, v) (point.sqrt_ratio): r with v r^2 = u, multiplied by
+// sqrt(-1) unless v r^2 = u already; true when v r^2 = u or -u (ZIP-215
+// accepts check == -u as the RFC 8032 sqrt(-1) branch).
+static __device__ __noinline__ bool sqrt_ratio(fe& r_out, const fe u, const fe v) {
   const fe v3 = mul(sq(v), v);
   const fe v7 = mul(sq(v3), v);
   fe r = mul(mul(u, v3), pow22523(mul(u, v7)));
@@ -392,13 +394,83 @@ static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
   const bool ok_pos = eq(check, u);
   const bool ok_neg = is_zero(add(check, u));
   if (!ok_pos) r = mul(r, fe_sqrt_m1());
+  r_out = r;
+  return ok_pos || ok_neg;
+}
+
+// ZIP-215 decompression (pallas_verify.decompress): y is carried but not
+// reduced, so a non-canonical y is accepted; the sign flip uses the
+// canonical x.
+static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
+  const fe one = fe_one();
+  const fe y = carry(unpack_limbs(e));
+  const int32_t sign = e[31] >> 7;
+  const fe yy = sq(y);
+  const fe u = sub(yy, one);
+  const fe v = add(mul(fe_d(), yy), one);
+  fe r;
+  const bool ok = sqrt_ratio(r, u, v);
   fe x = canon(r);
   if ((x.v[0] & 1) != sign) x = neg(x);
   o.x = x;
   o.y = y;
   o.z = one;
   o.t = mul(x, y);
-  return ok_pos || ok_neg;
+  return ok;
+}
+
+// ristretto255 DECODE (pallas_sr25519._ristretto_decode, point.
+// ristretto_decode) of the low 255 bits of e; the host has checked the
+// encoding canonical (s < p) and even, and passes that as ok_host. The
+// parities of x and t are taken from canonical limbs. 1 + s^2 = 0 gives
+// sqrt_ratio(1, 0), which is not square, and y = 0: both reject.
+static __device__ __noinline__ bool ristretto_decode(pt& o, const int32_t (&e)[32],
+                                                     bool ok_host) {
+  const fe one = fe_one();
+  const fe s = carry(unpack_limbs(e));
+  const fe ss = sq(s);
+  const fe u1 = sub(one, ss);  // 1 - s^2
+  const fe u2 = add(one, ss);  // 1 + s^2
+  const fe u2_sqr = sq(u2);
+  const fe v = sub(neg(mul(fe_d(), sq(u1))), u2_sqr);  // -(d u1^2) - u2^2
+  fe invsq;
+  const bool was_square = sqrt_ratio(invsq, one, mul(v, u2_sqr));
+  const fe den_x = mul(invsq, u2);
+  const fe den_y = mul(mul(invsq, den_x), v);
+  fe x = canon(mul(add(s, s), den_x));
+  if (x.v[0] & 1) x = neg(x);  // |x|
+  const fe y = mul(u1, den_y);
+  const fe t = mul(x, y);
+  const bool t_odd = (canon(t).v[0] & 1) != 0;
+  const bool y_zero = is_zero(y);
+  o.x = x;
+  o.y = y;
+  o.z = one;
+  o.t = t;
+  return was_square && !t_odd && !y_zero && ok_host;
+}
+
+// ---- the per-signature ladder (verify.ladder_plain) ---------------------------
+
+// The joint ladder [s]B + [k](-A) of signature i over K2's table (entry e
+// coordinate c at rows (e * 4 + c) * 32): 127 iterations, digit positions
+// 126 down to 0, of a double that skips T, a double that makes it, and a
+// Niels add of entry sdig + 4 kdig that skips T (the next double never
+// reads it). Shared by the ed25519 and sr25519 ladder kernels.
+static __device__ __noinline__ void ladder(pt& acc, const int32_t* __restrict__ tbl,
+                                           const int32_t* __restrict__ sdig,
+                                           const int32_t* __restrict__ kdig, int i,
+                                           int n) {
+  acc = identity_point();
+#pragma unroll 1
+  for (int it = 0; it < 127; ++it) {
+    const int pos = 126 - it;
+    const int j = (pos & 3) * 32 + (pos >> 2);
+    point_double(acc, acc, false);
+    point_double(acc, acc, true);
+    const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
+    point_add_niels(acc, acc, load_point(tbl, e, i, n), false);
+  }
 }
 
 }  // namespace edw

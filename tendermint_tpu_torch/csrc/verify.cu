@@ -2,9 +2,9 @@
 //
 // Counterpart: tendermint_tpu/ops/pallas_verify.py; plain PyTorch
 // versions: tendermint_tpu_torch/ops/verify.py (k1_decompress_plain,
-// k2_table_plain, k3_ladder_plain), which these kernels match limb for
-// limb. Global arrays keep the JAX layout, (rows, n) with the signature
-// last (fe25519.cuh).
+// k1_decompress_cached_plain, k2_table_plain, k3_ladder_plain), which
+// these kernels match limb for limb. Global arrays keep the JAX layout,
+// (rows, n) with the signature last (fe25519.cuh).
 //
 // What bounds them. The work is 32-bit multiply-adds of the limb
 // convolutions: 400 per field multiply, 210 per squaring. Counted from the
@@ -12,15 +12,16 @@
 // signature:
 //   K1  123,100: 2 decompressions (A and R) of 255 squarings + 20
 //       multiplies, most of it pow22523
+//   K1 cached  61,550: the R decompression; A comes from the epoch table
 //   K2  50,880: 2 doubles, 2 triples, 9 cross sums and 16 Niels
 //       conversions for the table [s2]B + [k2](-A)
 //   K3  938,400: 127 iterations of 2 doubles and 1 Niels add, then 6
 //       doubles and the cross-multiplied test
 // against 132 SMs x 64 INT32 lanes per clock at the SM clock nvidia-smi
 // reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 10,240 signatures
-// that is 0.075, 0.031 and 0.58 ms. The bytes each kernel moves (22, 94
-// and 105 MB) take 0.007 to 0.03 ms at 3.35 TB/s, so all three are bound
-// by operations.
+// that is 0.075, 0.038 (cached), 0.031 and 0.58 ms. The bytes each
+// kernel moves (22, 94 and 105 MB) take 0.007 to 0.03 ms at 3.35 TB/s, so
+// all four are bound by operations.
 //
 // What the design does about it: the signatures are the parallelism. K1
 // runs a thread per (signature, point), so A and R decompress in two
@@ -41,8 +42,6 @@
 #include "fe25519.cuh"
 
 namespace edw {
-
-constexpr int VTHREADS = 128;
 
 // K1 — replaces pallas_verify._k1_decompress_kernel (pallas_verify.py:239).
 // Thread (i, p), p = blockIdx.y: p = 0 unpacks the digits of s and
@@ -69,6 +68,49 @@ k1_decompress_kernel(const uint8_t* __restrict__ a_t,
   const bool okp = decompress(P, e);
   ok[(size_t)p * n + i] = okp ? 1 : 0;
   store_point(coords, p, P, i, n);
+}
+
+// K1 for a warm epoch — replaces pallas_verify._k1_decompress_kernel_cached
+// (pallas_verify.py:263). The epoch table (rlc.cu epoch_coords_kernel)
+// holds every validator's decompressed A in (4 * 32, vp) and its flag in
+// (1, vp); idx[i] names signature i's column (padding signatures name
+// column vp - 1, the identity). Thread (i, p): p = 0 unpacks the digits
+// of s from the row-major s_rows (n, 32) and copies A and its flag from
+// the table; p = 1 unpacks the digits of k and decompresses R from
+// r_rows (n, 32). So the JAX pipeline's device gather (4 * 32, n) and its
+// r/s/k transposes do not exist. Bound: operations (the R
+// decompressions); the copy is a few hundred bytes a thread.
+__global__ void __launch_bounds__(VTHREADS)
+k1_decompress_cached_kernel(const int32_t* __restrict__ ctbl,
+                            const int32_t* __restrict__ oktbl,
+                            const int32_t* __restrict__ idx,
+                            const uint8_t* __restrict__ r_rows,
+                            const uint8_t* __restrict__ s_rows,
+                            const uint8_t* __restrict__ k_rows,
+                            int32_t* __restrict__ coords, int32_t* __restrict__ ok,
+                            int32_t* __restrict__ sdig, int32_t* __restrict__ kdig,
+                            int n, int vp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (i >= n) return;
+  store_digits(p == 0 ? sdig : kdig, 0, (p == 0 ? s_rows : k_rows) + (size_t)i * 32, 1,
+               i, n);
+  if (p == 0) {
+    const int col = idx[i];
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c)
+      store_fe(coords, c * 32, load_fe(ctbl, c * 32, col, vp), i, n);
+    ok[i] = oktbl[col];
+    return;
+  }
+  const uint8_t* src = r_rows + (size_t)i * 32;
+  int32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = src[b];
+  pt P;
+  const bool okp = decompress(P, e);
+  ok[(size_t)n + i] = okp ? 1 : 0;
+  store_point(coords, 1, P, i, n);
 }
 
 // K2 — replaces pallas_verify._k2_table_kernel (pallas_verify.py:286).
@@ -107,10 +149,8 @@ k2_table_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
 }
 
 // K3 — replaces pallas_verify._k3_ladder_kernel (pallas_verify.py:329).
-// One thread per signature runs the 127-iteration joint ladder, digit
-// positions 126 down to 0: a double that skips T, a double that makes it,
-// and a Niels add of entry sdig + 4 kdig that skips T (the next double
-// never reads it). Then [8]acc == [8]R by six T-free doubles and a
+// One thread per signature runs the 127-iteration joint ladder
+// (fe25519.cuh ladder). Then [8]acc == [8]R by six T-free doubles and a
 // projective cross-multiplication, ANDed with the two decompression flags
 // and the host s < L flag. Bound: operations (the ladder), sequential
 // within a signature.
@@ -122,16 +162,8 @@ k3_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sd
                  int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  pt acc = identity_point();
-#pragma unroll 1
-  for (int it = 0; it < 127; ++it) {
-    const int pos = 126 - it;
-    const int j = (pos & 3) * 32 + (pos >> 2);
-    point_double(acc, acc, false);
-    point_double(acc, acc, true);
-    const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
-    point_add_niels(acc, acc, load_point(tbl, e, i, n), false);
-  }
+  pt acc;
+  ladder(acc, tbl, sdig, kdig, i, n);
   pt r8 = load_point(coords, 1, i, n);  // R
 #pragma unroll 1
   for (int k = 0; k < 3; ++k) {
@@ -149,11 +181,9 @@ k3_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sd
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of its launch. The grid is ceil(n / VTHREADS) blocks
-// with the tail masked in the kernel.
+// with the tail masked in the kernel (fe25519.cuh sig_grid).
 
-static dim3 sig_grid(int n, int y) {
-  return dim3((n + edw::VTHREADS - 1) / edw::VTHREADS, y);
-}
+using edw::sig_grid;
 
 extern "C" int tm_k1_decompress(const void* a_t, const void* r_t, const void* s_t,
                                 const void* k_t, void* coords, void* ok,
@@ -163,6 +193,19 @@ extern "C" int tm_k1_decompress(const void* a_t, const void* r_t, const void* s_
       (const uint8_t*)a_t, (const uint8_t*)r_t, (const uint8_t*)s_t,
       (const uint8_t*)k_t, (int32_t*)coords, (int32_t*)ok, (int32_t*)sdig,
       (int32_t*)kdig, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_k1_decompress_cached(const void* ctbl, const void* oktbl,
+                                       const void* idx, const void* r_rows,
+                                       const void* s_rows, const void* k_rows,
+                                       void* coords, void* ok, void* sdig, void* kdig,
+                                       int n, int vp, void* stream) {
+  edw::k1_decompress_cached_kernel<<<sig_grid(n, 2), edw::VTHREADS, 0,
+                                    (cudaStream_t)stream>>>(
+      (const int32_t*)ctbl, (const int32_t*)oktbl, (const int32_t*)idx,
+      (const uint8_t*)r_rows, (const uint8_t*)s_rows, (const uint8_t*)k_rows,
+      (int32_t*)coords, (int32_t*)ok, (int32_t*)sdig, (int32_t*)kdig, n, vp);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 """Host side of the device verifier: row packing, challenges, s < L, the
-path switch, and the BatchVerifier the commit path uses.
+path switch, and the BatchVerifiers the commit path uses.
 
 Counterpart: tendermint_tpu/ops/backend.py (_pack_rows, _challenges,
-_s_below_l, _use_rlc, Ed25519DeviceBatchVerifier). The batch path is
+_s_below_l, _use_rlc, Ed25519DeviceBatchVerifier). DeviceBatchVerifier
+holds what the ed25519 verifier here and the sr25519 one
+(ops/mixed.py) share: the reference's add() checks and the
+accumulate-then-verify of one EntryBlock. The ed25519 batch path is
 synchronous, one batch at a time with no async pipeline: the RLC path of
 ops/rlc.py (verify_batch_rlc, which takes a warm validator set's epoch
 table) or, with TM_TPU_RLC=0, the per-signature path of ops/verify.py
@@ -100,30 +103,37 @@ def _host_rows(entries: EntryBlock, bucket: int):
     return pub, r_enc, s_enc, k_enc, s_ok
 
 
-class Ed25519DeviceBatchVerifier(BatchVerifier):
-    """Accumulate-then-verify on `device`. add() mirrors curve25519-voi's
-    BatchVerifier.Add checks (crypto/ed25519/ed25519.go:203-217); verify()
-    returns (all_valid, per_sig_valid) like BatchVerifier.Verify."""
+class DeviceBatchVerifier(BatchVerifier):
+    """Accumulate-then-verify on `device`, for one key type. add() mirrors
+    the reference's BatchVerifier.Add checks (crypto/ed25519/ed25519.go:
+    203-217, crypto/sr25519/batch.go); verify() returns (all_valid,
+    per_sig_valid) like BatchVerifier.Verify. A subclass names its key
+    class and verifies the accumulated EntryBlock in _verify_block."""
+
+    KEY_CLASS: type = PubKey
+    KEY_NAME = ""
+    SIGNATURE_SIZE = 64
 
     def __init__(self, device):
         self.device = device
         self._entries: List[Tuple[bytes, bytes, bytes]] = []
         self._blocks: List[EntryBlock] = []
 
+    def _check_key(self, key) -> None:
+        if not isinstance(key, self.KEY_CLASS):
+            raise TypeError(f"pubkey is not {self.KEY_NAME}")
+
     def add(self, key: PubKey, msg: bytes, sig: bytes) -> None:
-        if not isinstance(key, _ed25519.PubKey):
-            raise TypeError("pubkey is not ed25519")
-        if len(sig) != _ed25519.SIGNATURE_SIZE:
+        self._check_key(key)
+        if len(sig) != self.SIGNATURE_SIZE:
             raise ValueError("invalid signature length")
         self._entries.append((key.bytes(), msg, sig))
 
     def add_block(self, block: EntryBlock, keys=None) -> None:
         """Columnar bulk add; `keys` (the rows' PubKey objects) gets the
         same per-key type check as add()."""
-        if keys is not None and any(
-            not isinstance(k, _ed25519.PubKey) for k in keys
-        ):
-            raise TypeError("pubkey is not ed25519")
+        for k in keys or ():
+            self._check_key(k)
         if len(block):
             # keep submission order: flush interleaved add() entries first
             if self._entries:
@@ -131,19 +141,32 @@ class Ed25519DeviceBatchVerifier(BatchVerifier):
                 self._entries = []
             self._blocks.append(block)
 
+    def _verify_block(self, block: EntryBlock) -> np.ndarray:
+        raise NotImplementedError
+
     def verify(self) -> Tuple[bool, List[bool]]:
         blocks = list(self._blocks)
         if self._entries:
             blocks.append(EntryBlock.from_entries(self._entries))
         block = EntryBlock.concat(blocks)
-        n = len(block)
-        if n == 0:
+        if len(block) == 0:
             return False, []
-        if n < DEVICE_THRESHOLD:
-            valid = [_ed25519.verify_zip215(*e) for e in block.iter_entries()]
-            return all(valid), valid
-        if use_rlc():
-            res = rlc.verify_batch_rlc(block, device=self.device)
-        else:
-            res = per_sig.verify_batch_compact(block, device=self.device)
+        res = np.asarray(self._verify_block(block), dtype=bool)
         return bool(res.all()), res.tolist()
+
+
+class Ed25519DeviceBatchVerifier(DeviceBatchVerifier):
+    """ed25519 on `device`: below DEVICE_THRESHOLD signatures on the host,
+    else the RLC path or, with TM_TPU_RLC=0, the per-signature path."""
+
+    KEY_CLASS = _ed25519.PubKey
+    KEY_NAME = "ed25519"
+    SIGNATURE_SIZE = _ed25519.SIGNATURE_SIZE
+
+    def _verify_block(self, block: EntryBlock) -> np.ndarray:
+        if len(block) < DEVICE_THRESHOLD:
+            return np.array([_ed25519.verify_zip215(*e) for e in block.iter_entries()],
+                            dtype=bool)
+        if use_rlc():
+            return rlc.verify_batch_rlc(block, device=self.device)
+        return per_sig.verify_batch_compact(block, device=self.device)

@@ -7,8 +7,10 @@ decompressed. The cache keys on ValidatorSet.hash(). The first sight of
 a set registers it and returns None: that commit verifies cold. From
 the second sight on the set is warm: types/validation.py attaches the
 set's key (`epoch_key`) and each signature's validator row (`val_idx`)
-to the EntryBlock, and ops/rlc.py's k1_rlc_cached reads A from the
-set's table instead of decompressing it.
+to the EntryBlock, and ops/rlc.py's k1_rlc_cached (or, on the
+per-signature path, ops/verify.py's k1_decompress_cached) reads A from
+the set's table instead of decompressing it. sr25519 sets are never
+noted: they have no ed25519 columns.
 
     coords_tables(device)  (4*32, vp) int32 decompressed extended
                            coordinates in the kernels' 32-row slots and
@@ -76,6 +78,22 @@ def epoch_coords(pub_t):
     ok = torch.empty((1, vp), dtype=torch.int32, device=dev)
     kernels.launch("epoch_coords", pub_t, coords, ok, vp)
     return coords, ok
+
+
+def table_columns(entries, bucket: int, ep: "EpochEntry") -> np.ndarray:
+    """(bucket,) int32 table columns of an EntryBlock's signatures
+    (entries.val_idx), padded with column vp - 1, the identity. A row
+    outside the set is refused: on the card it would be a read out of
+    the table's bounds."""
+    n = len(entries)
+    vidx = entries.val_idx
+    if vidx is None:
+        raise ValueError("a warm batch needs an EntryBlock with val_idx")
+    if n and (int(vidx.min()) < 0 or int(vidx.max()) >= ep.n_vals):
+        raise ValueError(f"val_idx outside the epoch's {ep.n_vals} validators")
+    idx = np.full((bucket,), ep.vp - 1, dtype=np.int32)
+    idx[:n] = vidx
+    return idx
 
 
 # -- the cache ------------------------------------------------------------------

@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("rlc.cu", "verify.cu")
+SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu")
 HEADERS = ("fe25519.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,8 +46,11 @@ _ENTRIES = {
     "k1_rlc_cached": (8, 2),
     "epoch_coords": (3, 1),
     "k1_decompress": (8, 1),
+    "k1_decompress_cached": (10, 2),
     "k2_table": (2, 1),
     "k3_ladder": (7, 1),
+    "k1r_decode": (10, 1),
+    "k3r_ladder": (7, 1),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -108,6 +108,35 @@ def decompress(y_limbs, sign):
     return ok, (x, y, z, t)
 
 
+def ristretto_decode(s_limbs, ok_host):
+    """ristretto255 DECODE (pallas_sr25519._ristretto_decode) of (20, B)
+    limbs of s, the low 255 bits of the encoding; the host has checked it
+    canonical (s < p) and even and passes that as ok_host (1, B). x and t
+    are made canonical before their parity is read. Returns (ok (1, B)
+    bool, (x, y, z, t)); 1 + s^2 = 0 makes sqrt_ratio(1, 0) not square
+    and y = 0, and rejects."""
+    one = fe.from_int(1, s_limbs)
+    s = fe.carry(s_limbs)
+    ss = fe.sq(s)
+    u1 = fe.sub(one, ss)  # 1 - s^2
+    u2 = fe.add(one, ss)  # 1 + s^2
+    u2_sqr = fe.sq(u2)
+    # v = -(D * u1^2) - u2^2
+    v = fe.sub(fe.neg(fe.mul(fe.from_int(_edwards.D, s), fe.sq(u1))), u2_sqr)
+    # invsqrt(v * u2^2): sqrt_ratio(1, x) gives r with x r^2 == 1 when square
+    was_square, invsq = sqrt_ratio(one.expand_as(s), fe.mul(v, u2_sqr))
+    den_x = fe.mul(invsq, u2)
+    den_y = fe.mul(fe.mul(invsq, den_x), v)
+    x = fe.canon(fe.mul(fe.add(s, s), den_x))
+    x = torch.where((x[0:1] & 1) != 0, fe.neg(x), x)  # |x|
+    y = fe.mul(u1, den_y)
+    t = fe.mul(x, y)
+    t_odd = (fe.canon(t)[0:1] & 1) != 0
+    ok = was_square & ~t_odd & ~fe.is_zero(y) & (ok_host != 0)
+    z = one.expand_as(y).clone()
+    return ok, (x, y, z, t)
+
+
 def slot_rows(p: int, c: int) -> slice:
     """Rows of coordinate c of point p (or table entry p) in a global
     array's 32-row slots."""

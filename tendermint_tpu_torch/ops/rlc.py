@@ -421,16 +421,9 @@ def prepare_rlc_cached(entries, bucket: int, ep, z: np.ndarray = None):
 
     Returns (idx (bucket,) int32, r_rows (bucket, 32) uint8, scal_rows
     (g, N_SCAL, 32) uint8, sok_rows (g, M) int32)."""
-    n = len(entries)
-    vidx = entries.val_idx
-    if vidx is None:
-        raise ValueError("prepare_rlc_cached needs an EntryBlock with val_idx")
-    if n and (int(vidx.min()) < 0 or int(vidx.max()) >= ep.n_vals):
-        raise ValueError(f"val_idx outside the epoch's {ep.n_vals} validators")
     g, g_live, live, z = _lanes_and_z(entries, bucket, z)
+    idx = epoch_cache.table_columns(entries, bucket, ep)
     _pub, r_enc, scal, s_ok = _rlc_host_scalars(entries, live, g_live, z)
-    idx = np.full((bucket,), ep.vp - 1, dtype=np.int32)
-    idx[:n] = vidx
     r_rows = np.zeros((bucket, 32), dtype=np.uint8)
     r_rows[:live] = r_enc
     r_rows[live:, 0] = 1

@@ -1,7 +1,8 @@
 """Per-signature ZIP-215 verification — one ladder per signature.
 
 Counterpart: tendermint_tpu/ops/pallas_verify.py (prepare_compact,
-verify_compact and its three kernels) and the per-signature branch of
+verify_compact, prepare_compact_cached, verify_compact_cached and their
+four kernels) and the per-signature branch of
 backend._verify_batch_direct (backend.py:902-919), the path the JAX
 package takes when RLC is off (TM_TPU_RLC=0). Each signature is checked
 on its own:
@@ -14,17 +15,22 @@ signature, so there is no blame pass. Three kernels run per batch, each
 with a CUDA version (csrc/verify.cu) and a plain PyTorch version here:
 
   K1  k1_decompress  digits of s and k; decompression of A and R
+      k1_decompress_cached  the same for a warm validator set: A and its
+                     flag come from the epoch table (ops/epoch_cache.py)
+                     through each signature's table column, only R
+                     decompresses
   K2  k2_table       the 16-entry table [s2]B + [k2](-A), Niels form
   K3  k3_ladder      the 127-iteration ladder of 2 doubles and 1 Niels
                      add, then [8]acc == [8]R, ANDed with the two
                      decompression flags and s < L
 
-Arrays keep the JAX layout: (rows, n) with the signature last. A warm
-validator set's table (ops/epoch_cache.py) is not used on this path yet:
-K1 always decompresses A; the verdicts are the same either way. A
-wrapper runs the plain version for CPU tensors and launches its kernel
-for CUDA tensors, counting launches in kernels.LAUNCHES.
-verify_batch_compact marks its stages (prep, h2d, kernels, d2h) as
+The sr25519 path (ops/sr25519.py) reuses K2 and the ladder. Arrays keep
+the JAX layout: (rows, n) with the signature last; the warm K1 reads its
+per-signature rows row-major, (n, 32), as the host packs them, so the
+JAX pipeline's device gather and transposes do not exist. A wrapper runs
+the plain version for CPU tensors and launches its kernel for CUDA
+tensors, counting launches in kernels.LAUNCHES. verify_batch_compact
+marks its stages (prep, gather on a warm epoch, h2d, kernels, d2h) as
 torch.profiler record_function spans.
 """
 
@@ -35,7 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import _edwards
-from . import fe, kernels, point
+from . import epoch_cache, fe, kernels, point
 
 NL = fe.NLIMBS
 
@@ -59,25 +65,52 @@ _rows = point.slot_rows
 # -- plain versions -----------------------------------------------------------
 
 
-def k1_decompress_plain(a_t, r_t, s_t, k_t):
+def k1_plain(a_t, r_t, s_t, k_t, decode):
     """(32, n) uint8 A, R, s, k bytes -> coords (COORD_ROWS, n) [A, R],
     ok (2, n), sdig (128, n), kdig (128, n) int32; digits in the
-    shift-grouped order."""
+    shift-grouped order. decode((20, 2n) limbs of the low 255 bits,
+    (1, 2n) sign bits) -> (ok (1, 2n) bool, point) runs once over A and R
+    folded along the signature axis: ZIP-215 decompression here, the
+    ristretto decode on the sr25519 path."""
     n = a_t.shape[-1]
     kw = dict(dtype=torch.int32, device=a_t.device)
     sdig = point.unpack_digits2_grouped(s_t.to(torch.int32))
     kdig = point.unpack_digits2_grouped(k_t.to(torch.int32))
     a_y, a_sign = point.unpack_limbs(a_t.to(torch.int32))
     r_y, r_sign = point.unpack_limbs(r_t.to(torch.int32))
-    # one decompression over A and R, folded along the signature axis
-    ok_ar, pts = point.decompress(torch.cat([a_y, r_y], dim=1),
-                                  torch.cat([a_sign, r_sign], dim=1))
+    ok_ar, pts = decode(torch.cat([a_y, r_y], dim=1), torch.cat([a_sign, r_sign], dim=1))
     coords = torch.zeros((COORD_ROWS, n), **kw)
     ok = torch.zeros((2, n), **kw)
     for p in range(2):
         ok[p : p + 1] = ok_ar[:, p * n : (p + 1) * n].to(torch.int32)
         for c in range(4):
             coords[_rows(p, c)] = pts[c][:, p * n : (p + 1) * n]
+    return coords, ok, sdig, kdig
+
+
+def k1_decompress_plain(a_t, r_t, s_t, k_t):
+    """(32, n) uint8 A, R, s, k bytes -> k1_plain's outputs, A and R by
+    ZIP-215 decompression."""
+    return k1_plain(a_t, r_t, s_t, k_t, point.decompress)
+
+
+def k1_decompress_cached_plain(ctbl, oktbl, idx, r_rows, s_rows, k_rows):
+    """K1 for a warm epoch. ctbl (4*32, vp), oktbl (1, vp) int32: the
+    epoch table; idx (n,) int32 each signature's table column; r_rows,
+    s_rows, k_rows (n, 32) uint8, row-major -> k1_decompress_plain's
+    outputs. A and its flag are column idx[i]; only R decompresses."""
+    n = idx.shape[0]
+    kw = dict(dtype=torch.int32, device=idx.device)
+    cols = idx.to(torch.int64)
+    sdig = point.unpack_digits2_grouped(s_rows.T.to(torch.int32))
+    kdig = point.unpack_digits2_grouped(k_rows.T.to(torch.int32))
+    r_y, r_sign = point.unpack_limbs(r_rows.T.to(torch.int32))
+    ok_r, pts = point.decompress(r_y, r_sign)
+    coords = torch.zeros((COORD_ROWS, n), **kw)
+    coords[: epoch_cache.TABLE_ROWS] = ctbl[:, cols]
+    for c in range(4):
+        coords[_rows(1, c)] = pts[c]
+    ok = torch.cat([oktbl[:, cols], ok_r.to(torch.int32)], dim=0)
     return coords, ok, sdig, kdig
 
 
@@ -117,13 +150,15 @@ def k2_table_plain(coords):
     return tbl
 
 
-def k3_ladder_plain(tbl, sdig, kdig, coords, ok, sok):
-    """tbl (TBL_ROWS, n), sdig, kdig (128, n), coords (COORD_ROWS, n),
-    ok (2, n), sok (1, n) -> (1, n) int32 verdicts."""
-    n = sok.shape[-1]
-    dev = sok.device
+def ladder_plain(tbl, sdig, kdig):
+    """The joint ladder [s]B + [k](-A) over K2's table: 127 iterations,
+    digit positions 126 down to 0, of two doubles and a Niels add of
+    entry s2 + 4 k2. Returns the extended accumulator; its T is not
+    produced (the consumers never read it)."""
+    n = sdig.shape[-1]
+    dev = sdig.device
     zero = torch.zeros((NL, n), dtype=torch.int32, device=dev)
-    one = fe.from_int(1, sok) + zero
+    one = fe.from_int(1, sdig) + zero
     acc = (zero, one, one, zero)
     limb = torch.arange(NL, device=dev)[:, None]
     for i in range(127):
@@ -135,6 +170,13 @@ def k3_ladder_plain(tbl, sdig, kdig, coords, ok, sok):
         # direct indexed load of entry e (per signature)
         ent = tuple(tbl.gather(0, ((e[None, :] * 4 + c) * 32) + limb) for c in range(4))
         acc = point.point_add_niels(acc, ent, need_t=False)
+    return acc
+
+
+def k3_ladder_plain(tbl, sdig, kdig, coords, ok, sok):
+    """tbl (TBL_ROWS, n), sdig, kdig (128, n), coords (COORD_ROWS, n),
+    ok (2, n), sok (1, n) -> (1, n) int32 verdicts."""
+    acc = ladder_plain(tbl, sdig, kdig)
     # [8]acc == [8]R by doubles-only projective cross-multiplication
     r8 = tuple(coords[_rows(1, c)] for c in range(4))
     for _ in range(3):
@@ -163,6 +205,29 @@ def k1_decompress(a_t, r_t, s_t, k_t):
     sdig = torch.empty((DIG_ROWS, n), dtype=torch.int32, device=dev)
     kdig = torch.empty((DIG_ROWS, n), dtype=torch.int32, device=dev)
     kernels.launch("k1_decompress", a_t, r_t, s_t, k_t, coords, ok, sdig, kdig, n)
+    return coords, ok, sdig, kdig
+
+
+def k1_decompress_cached(ctbl, oktbl, idx, r_rows, s_rows, k_rows):
+    """K1 for a warm epoch (replaces
+    pallas_verify._k1_decompress_kernel_cached); see
+    k1_decompress_cached_plain."""
+    dev = kernels.device_of(idx)
+    n = idx.shape[0]
+    vp = ctbl.shape[-1]
+    kernels.check_tensor("ctbl", ctbl, (epoch_cache.TABLE_ROWS, vp), torch.int32, dev)
+    kernels.check_tensor("oktbl", oktbl, (1, vp), torch.int32, dev)
+    kernels.check_tensor("idx", idx, (n,), torch.int32, dev)
+    for name, t in (("r_rows", r_rows), ("s_rows", s_rows), ("k_rows", k_rows)):
+        kernels.check_tensor(name, t, (n, 32), torch.uint8, dev)
+    if dev.type == "cpu":
+        return k1_decompress_cached_plain(ctbl, oktbl, idx, r_rows, s_rows, k_rows)
+    coords = torch.empty((COORD_ROWS, n), dtype=torch.int32, device=dev)
+    ok = torch.empty((2, n), dtype=torch.int32, device=dev)
+    sdig = torch.empty((DIG_ROWS, n), dtype=torch.int32, device=dev)
+    kdig = torch.empty((DIG_ROWS, n), dtype=torch.int32, device=dev)
+    kernels.launch("k1_decompress_cached", ctbl, oktbl, idx, r_rows, s_rows, k_rows,
+                   coords, ok, sdig, kdig, n, vp)
     return coords, ok, sdig, kdig
 
 
@@ -218,29 +283,76 @@ def prepare_compact(entries, bucket: int):
     )
 
 
+def prepare_compact_cached(entries, bucket: int, ep):
+    """Warm-epoch prep (pallas_verify.prepare_compact_cached): the host
+    stage of prepare_compact, but the keys ship as table columns
+    (entries.val_idx) and the per-signature rows stay row-major. Padding
+    signatures take column vp - 1 (the identity), R = the identity,
+    s = k = 0 and s_ok = 1.
+
+    Returns (idx (bucket,) int32, r_rows, s_rows, k_rows (bucket, 32)
+    uint8, s_ok_t (1, bucket) int32)."""
+    from .backend import _host_rows
+
+    if len(entries) > bucket:
+        raise ValueError(f"bucket {bucket} is below the batch's {len(entries)} signatures")
+    idx = epoch_cache.table_columns(entries, bucket, ep)
+    _pub, r_enc, s_enc, k_enc, s_ok = _host_rows(entries, bucket)
+    return idx, r_enc, s_enc, k_enc, np.ascontiguousarray(s_ok.astype(np.int32)[None, :])
+
+
+def check_block(n: int) -> None:
+    """Refuse a batch that bucket_for would not size."""
+    if n % BLOCK:
+        raise ValueError(f"batch {n} is not a multiple of BLOCK={BLOCK} (size it with bucket_for)")
+
+
 def verify_compact(a_t, r_t, s_t, k_t, s_ok_t) -> torch.Tensor:
     """K1-K3 over prepare_compact's arrays as tensors on one device;
     returns the (1, n) int32 verdicts there. n is a multiple of BLOCK."""
-    n = a_t.shape[-1]
-    if n % BLOCK:
-        raise ValueError(f"batch {n} is not a multiple of BLOCK={BLOCK} (size it with bucket_for)")
+    check_block(a_t.shape[-1])
     coords, ok, sdig, kdig = k1_decompress(a_t, r_t, s_t, k_t)
+    tbl = k2_table(coords)
+    return k3_ladder(tbl, sdig, kdig, coords, ok, s_ok_t)
+
+
+def verify_compact_cached(ctbl, oktbl, idx, r_rows, s_rows, k_rows, s_ok_t) -> torch.Tensor:
+    """The warm K1, then K2 and K3, over the epoch table and
+    prepare_compact_cached's arrays as tensors on one device; returns the
+    (1, n) int32 verdicts there. n is a multiple of BLOCK."""
+    check_block(idx.shape[0])
+    coords, ok, sdig, kdig = k1_decompress_cached(ctbl, oktbl, idx, r_rows, s_rows, k_rows)
     tbl = k2_table(coords)
     return k3_ladder(tbl, sdig, kdig, coords, ok, s_ok_t)
 
 
 def verify_batch_compact(entries, *, device) -> np.ndarray:
     """EntryBlock of any size -> (n,) bool ZIP-215 verdicts, in chunks of
-    at most BUCKETS[-1] signatures, K1-K3 on `device`."""
+    at most BUCKETS[-1] signatures, K1-K3 on `device`. A block of a warm
+    epoch (ops/epoch_cache.lookup finds its table) takes
+    k1_decompress_cached; any other block, or an evicted epoch, takes
+    k1_decompress."""
+    ep = epoch_cache.lookup(entries)
     out = []
     for i in range(0, len(entries), BUCKETS[-1]):
         chunk = entries[i : i + BUCKETS[-1]]
-        with record_function("verify.prep"):
-            args = prepare_compact(chunk, bucket_for(len(chunk)))
-        with record_function("verify.h2d"):
-            tensors = [torch.from_numpy(a).to(device) for a in args]
-        with record_function("verify.kernels"):
-            res = verify_compact(*tensors)
+        bucket = bucket_for(len(chunk))
+        if ep is None:
+            with record_function("verify.prep"):
+                args = prepare_compact(chunk, bucket)
+            with record_function("verify.h2d"):
+                tensors = [torch.from_numpy(a).to(device) for a in args]
+            with record_function("verify.kernels"):
+                res = verify_compact(*tensors)
+        else:
+            with record_function("verify.prep"):
+                args = prepare_compact_cached(chunk, bucket, ep)
+            with record_function("verify.gather"):  # builds the table once
+                tables = ep.coords_tables(device)
+            with record_function("verify.h2d"):
+                tensors = [torch.from_numpy(a).to(device) for a in args]
+            with record_function("verify.kernels"):
+                res = verify_compact_cached(*tables, *tensors)
         with record_function("verify.d2h"):  # waits for the kernels
             out.append(res.cpu().numpy()[0, : len(chunk)].astype(bool))
     return np.concatenate(out) if out else np.zeros((0,), dtype=bool)

@@ -2,16 +2,18 @@
 
 Counterpart: tendermint_tpu/types/validation.py (types/validation.go).
 verify_commit / verify_commit_light take the batch path through
-crypto.batch, where the port's device verifier packs the commit's
-signatures into RLC lanes on `device`; commits below the batch threshold
-verify one signature at a time on the host. The batch carries its
-validator rows and, once the set has been seen before, the set's epoch
-key (ops/epoch_cache.py), so a warm set's keys come from the device
-table instead of being decompressed again. Error cases, the tally and
+crypto.batch, where the port's device verifier for the proposer's key
+type (ed25519: RLC lanes or per-signature; sr25519: ops/sr25519.py)
+verifies the commit's signatures on `device`; commits below the batch
+threshold verify one signature at a time on the host. An ed25519 batch
+carries its validator rows and, once the set has been seen before, the
+set's epoch key (ops/epoch_cache.py), so a warm set's keys come from
+the device table instead of being decompressed again. Error cases, the tally and
 the blame of the first bad signature are byte-identical to the
 reference's. The batch path's host stages are torch.profiler
-record_function spans ("commit.*" here, "rlc.*" in ops/rlc.py), so one
-profiler trace of a call shows its host stages beside its device time.
+record_function spans ("commit.*" here; "rlc.*", "verify.*" and "sr.*"
+in ops/), so one profiler trace of a call shows its host stages beside
+its device time.
 """
 
 from __future__ import annotations
@@ -162,6 +164,9 @@ def _verify_commit_batch(
         n = len(selected)
         sig = np.frombuffer(b"".join(sigs[i].signature for i in sig_idxs),
                             dtype=np.uint8).reshape(n, 64)
+        # columns exist only for an all-ed25519 set: an sr25519 or mixed
+        # set takes the per-key path below and is never noted in the
+        # epoch cache
         cols = vals.ed25519_columns()
         if cols is not None:
             # every key is ed25519 (JAX validation.py:357-383): gather the
@@ -177,7 +182,7 @@ def _verify_commit_batch(
             if len(pub_b) != 32 * n:
                 # a wrong-size key must fail as per-entry add() does, not
                 # as a reshape error
-                raise TypeError("pubkey is not ed25519")
+                raise TypeError(f"pubkey is not {proposer.pub_key.type()}")
             block = EntryBlock(np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
                                sig, buf, offsets)
     bv.add_block(block, keys=keys)

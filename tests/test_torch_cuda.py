@@ -15,7 +15,9 @@ import torch
 
 from tendermint_tpu_torch.crypto import _edwards
 from tendermint_tpu_torch.crypto import ed25519
+from tendermint_tpu_torch.crypto import sr25519
 from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, rlc, verify
+from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +173,84 @@ def test_warm_verify_batch_launches_the_cached_k1(epoch, cuda):
         assert got.tolist() == [_edwards.verify_zip215(*e) for e in ents]
     finally:
         epoch_cache.reset()
+
+
+def _warm_block(ents, ep, val_idx):
+    block = EntryBlock.from_entries(ents)
+    return EntryBlock(block.pub, block.sig, block.msgs, block.offsets,
+                      val_idx=val_idx, epoch_key=ep.key)
+
+
+def test_k1_decompress_cached_matches_plain(epoch, cuda):
+    ents, ep, val_idx = epoch
+    args = verify.prepare_compact_cached(_warm_block(ents, ep, val_idx), 256, ep)
+    args = [torch.from_numpy(a).to(cuda) for a in args[:4]]
+    tables = ep.coords_tables(cuda)
+    want = verify.k1_decompress_cached_plain(*tables, *args)
+    got = verify.k1_decompress_cached(*tables, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+
+
+def test_warm_per_signature_batch_launches_the_cached_k1(epoch, cuda, monkeypatch):
+    ents, ep, val_idx = epoch
+    epoch_cache.reset(depth=8)
+    try:
+        epoch_cache.cache().note(ep.key, ep.pub_rows[: ep.n_vals])
+        kernels.reset_launches()
+        got = verify.verify_batch_compact(_warm_block(ents, ep, val_idx), device=cuda)
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+            "epoch_coords": 1, "k1_decompress_cached": 1, "k2_table": 1, "k3_ladder": 1}
+        assert got.tolist() == [_edwards.verify_zip215(*e) for e in ents]
+    finally:
+        epoch_cache.reset()
+
+
+def _sr_entries(n: int) -> list:
+    """n sr25519 signatures; #3 tampered, #7 without the v1 marker, #11
+    under the all-zero key (the identity: accepted for any message when
+    R = [s]B), #12 under an odd key encoding, #13 with R = p + 1."""
+    out = []
+    for i in range(n):
+        sk = sr25519.gen_priv_key(hashlib.sha256(b"cuda sr %d" % i).digest())
+        msg = b"cuda-sr-%d" % i
+        out.append((sk.pub_key().bytes(), msg, sk.sign(msg)))
+    pk, msg, sig = out[3]
+    out[3] = (pk, msg, sig[:40] + bytes([sig[40] ^ 0x10]) + sig[41:])
+    pk, msg, sig = out[7]
+    out[7] = (pk, msg, sig[:63] + bytes([sig[63] & 0x7F]))
+    s = 4242
+    r = sr25519.R.encode(sr25519.R.scalar_mult(s, sr25519.R.BASE))
+    out[11] = (bytes(32), b"identity key", r + (s | 1 << 255).to_bytes(32, "little"))
+    out[12] = ((1).to_bytes(32, "little"), out[12][1], out[12][2])
+    out[13] = (out[13][0], out[13][1], (_edwards.P + 1).to_bytes(32, "little") + out[13][2][32:])
+    return out
+
+
+def test_sr25519_kernels_match_plain(cuda):
+    ents = _sr_entries(40)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in osr.prepare_sr25519(EntryBlock.from_entries(ents), 256)]
+    want = osr.k1r_decode_plain(*args[:6])
+    got = osr.k1r_decode(*args[:6])
+    torch.cuda.synchronize()
+    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    tbl = verify.k2_table_plain(want[0])
+    out_p = osr.k3r_ladder_plain(tbl, want[2], want[3], want[0], want[1], args[6])
+    out_k = osr.k3r_ladder(tbl, want[2], want[3], want[0], want[1], args[6])
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p)
+    oracle = [sr25519.verify(*e) for e in ents] + [True] * 216
+    assert out_k.cpu().numpy()[0].astype(bool).tolist() == oracle
+    assert [i for i in range(40) if not oracle[i]] == [3, 7, 12, 13] and oracle[11]
+
+
+def test_sr25519_batch_launches_each_kernel_once(cuda):
+    ents = _sr_entries(20)
+    kernels.reset_launches()
+    got = osr.verify_batch_sr25519(EntryBlock.from_entries(ents), device=cuda)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "k1r_decode": 1, "k2_table": 1, "k3r_ladder": 1}
+    assert got.tolist() == [sr25519.verify(*e) for e in ents]

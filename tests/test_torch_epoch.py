@@ -10,13 +10,19 @@ package's (tendermint_tpu/ops/epoch_cache.py, pallas_rlc.py).
   run eagerly (tests/pallas_bodies.py) limb for limb, at 8 lanes with a
   distinct key in every slot, table rows out of order, padding
   signatures and a padding lane; the warm lane verdicts equal the cold.
+- The per-signature warm path (ops/verify.py): prepare_compact_cached
+  byte-equal to the JAX one; the plain k1_decompress_cached equals the
+  JAX _k1_decompress_kernel_cached body at 32 signatures (a distinct key
+  in every row, table rows out of order, padding); its verdicts equal
+  the cold K1's and the oracle's.
 - ValidatorSet.hash() and ed25519_columns() equal the JAX set's.
 - The LRU: hit, miss and eviction counts, order, the disabled cache, the
   EntryBlock metadata through slices and concat, and the fallback of an
   evicted or unknown epoch to the cold path (tests/test_epoch_cache.py).
 - verify_commit, cold then warm: the same outcome and blame string as
   the JAX package, the first call through k1_rlc, the second through
-  k1_rlc_cached.
+  k1_rlc_cached; with TM_TPU_RLC=0 through k1_decompress, then
+  k1_decompress_cached.
 
 Tolerance: none; every compared value is an integer or a flag.
 """
@@ -37,12 +43,13 @@ from tendermint_tpu.crypto import batch as jbatch  # noqa: E402
 from tendermint_tpu.crypto import ed25519 as jed  # noqa: E402
 from tendermint_tpu.ops import epoch_cache as jepoch  # noqa: E402
 from tendermint_tpu.ops import pallas_rlc  # noqa: E402
+from tendermint_tpu.ops import pallas_verify as pv  # noqa: E402
 from tendermint_tpu.ops.entry_block import EntryBlock as JEntryBlock  # noqa: E402
 from tendermint_tpu.types.validator_set import Validator as JValidator  # noqa: E402
 from tendermint_tpu.types.validator_set import ValidatorSet as JValidatorSet  # noqa: E402
 from tendermint_tpu_torch import convert  # noqa: E402
 from tendermint_tpu_torch.crypto import ed25519 as ped  # noqa: E402
-from tendermint_tpu_torch.ops import epoch_cache, rlc  # noqa: E402
+from tendermint_tpu_torch.ops import epoch_cache, rlc, verify  # noqa: E402
 from tendermint_tpu_torch.ops.entry_block import EntryBlock  # noqa: E402
 from tendermint_tpu_torch.types import validation  # noqa: E402
 from tendermint_tpu_torch.types.block import BlockID  # noqa: E402
@@ -173,6 +180,45 @@ def test_k1_rlc_cached_matches_jax_body_and_the_cold_lanes(warm):
     assert warm_lanes.numpy()[0].astype(bool).tolist() == np.reshape(oracle, (g, M)).all(1).tolist()
 
 
+@pytest.mark.parametrize("n", [26, 0])
+def test_prepare_compact_cached_byte_equal_to_jax(warm, n):
+    entries, col, val_idx, jep, _, _ = warm
+    port, jax = _blocks(entries[:n], val_idx[:n])
+    want = pv.prepare_compact_cached(jax, 32, jep)
+    got = verify.prepare_compact_cached(port, 32, epoch_cache.EpochEntry(b"K" * 32, col))
+    assert len(got) == len(want) == 5
+    for j, p in zip(want, got):
+        assert j.dtype == p.dtype and j.shape == p.shape
+        np.testing.assert_array_equal(j, p)
+    assert (got[0][n:] == jep.vp - 1).all()
+
+
+def test_k1_decompress_cached_matches_jax_body_and_the_cold_k1(warm):
+    """32 signatures: the 26 under distinct keys and 6 padding. The JAX
+    body gets its inputs as the JAX cached pipeline builds them
+    (pallas_verify.py:506-511)."""
+    entries, col, val_idx, _, ctbl, oktbl = warm
+    port, _ = _blocks(entries, val_idx)
+    ep = epoch_cache.EpochEntry(b"K" * 32, col)
+    idx, r_rows, s_rows, k_rows, sok = verify.prepare_compact_cached(port, 32, ep)
+    want = run_body(pv._k1_decompress_kernel_cached,
+                    [ctbl[:, idx], oktbl[:, idx], r_rows.T, s_rows.T, k_rows.T],
+                    [verify.COORD_ROWS, 2, verify.DIG_ROWS, verify.DIG_ROWS])
+    got = verify.k1_decompress_cached(*ep.coords_tables("cpu"),
+                                      *(torch.from_numpy(a) for a in (idx, r_rows, s_rows, k_rows)))
+    for name, gv, w in zip(("coords", "ok", "sdig", "kdig"), got, want):
+        np.testing.assert_array_equal(gv.numpy(), w, err_msg=name)
+    # the same verdicts as the cold K1 on the same signatures
+    cold = [torch.from_numpy(a) for a in verify.prepare_compact(port, 32)]
+    c_coords, c_ok, c_sdig, c_kdig = verify.k1_decompress(*cold[:4])
+    sok = torch.from_numpy(sok)
+    warm_out = verify.k3_ladder(verify.k2_table(got[0]), got[2], got[3], got[0], got[1], sok)
+    cold_out = verify.k3_ladder(verify.k2_table(c_coords), c_sdig, c_kdig, c_coords, c_ok, sok)
+    assert torch.equal(warm_out, cold_out)
+    oracle = [E.verify_zip215(*x) for x in entries] + [True] * 6
+    assert warm_out.numpy()[0].astype(bool).tolist() == oracle
+
+
 def test_val_idx_outside_the_set_is_refused(warm):
     entries, col, val_idx, _, _, _ = warm
     port, _ = _blocks(entries[:4], np.array([0, 1, 2, 40], dtype=np.int32))
@@ -275,38 +321,55 @@ def test_entry_block_metadata_through_slices_and_concat():
                    np.zeros(3, np.int64), val_idx=np.zeros(3, np.int32))
 
 
-def _spy(monkeypatch):
+K1S = {"rlc": ("k1_rlc", "k1_rlc_cached"), "per_sig": ("k1_decompress", "k1_decompress_cached")}
+
+
+def _spy(monkeypatch, path="rlc"):
     calls = []
-    for name in ("k1_rlc", "k1_rlc_cached"):
-        real = getattr(rlc, name)
-        monkeypatch.setattr(rlc, name, lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a))
+    mod = rlc if path == "rlc" else verify
+    for name in K1S[path]:
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a))
     return calls
 
 
-def test_an_evicted_or_unknown_epoch_verifies_cold(warm, monkeypatch):
-    """A block keyed to a set the cache dropped, or never saw, takes the
-    cold K1 and gives the oracle's verdicts (epoch_cache.py:447-463)."""
+def _evicted_or_unknown_goes_cold(warm, path, monkeypatch):
     entries, col, _, _, _, _ = warm
     entries = entries[-8:]  # 7 signed and one key off the curve: 2 lanes
+    batch_fn = rlc.verify_batch_rlc if path == "rlc" else verify.verify_batch_compact
+    cold_k1, warm_k1 = K1S[path]
     vs = ValidatorSet.new([Validator.new(ped.PubKey(p.tobytes()), 10) for p in col])
     rows = np.array([next(i for i, v in enumerate(vs.validators) if v.pub_key.bytes() == p)
                      for p, _, _ in entries], dtype=np.int32)
     epoch_cache.note_valset(vs)
     key = epoch_cache.note_valset(vs)
     assert key == vs.hash()
-    calls = _spy(monkeypatch)
+    calls = _spy(monkeypatch, path)
     oracle = [E.verify_zip215(*x) for x in entries]
     block, _ = _blocks(entries, rows, key)
-    assert rlc.verify_batch_rlc(block, device="cpu").tolist() == oracle
-    assert calls == ["k1_rlc_cached"]
+    assert batch_fn(block, device="cpu").tolist() == oracle
+    assert calls == [warm_k1]
     for i in range(4):  # evict
         epoch_cache.note_valset(_set(3, 20 + i))
     assert epoch_cache.cache().get(key) is None
     unknown, _ = _blocks(entries, rows, b"U" * 32)
     for b in (block, unknown):
         calls.clear()
-        assert rlc.verify_batch_rlc(b, device="cpu").tolist() == oracle
-        assert calls == ["k1_rlc"]
+        assert batch_fn(b, device="cpu").tolist() == oracle
+        assert calls == [cold_k1]
+
+
+def test_an_evicted_or_unknown_epoch_verifies_cold(warm, monkeypatch):
+    """A block keyed to a set the cache dropped, or never saw, takes the
+    cold K1 and gives the oracle's verdicts (epoch_cache.py:447-463)."""
+    _evicted_or_unknown_goes_cold(warm, "rlc", monkeypatch)
+
+
+def test_an_evicted_or_unknown_epoch_verifies_cold_per_signature(warm, monkeypatch):
+    """The same on the per-signature path, at an 8-signature block
+    (verify.BLOCK)."""
+    monkeypatch.setattr(verify, "BLOCK", 8)
+    _evicted_or_unknown_goes_cold(warm, "per_sig", monkeypatch)
 
 
 # -- verify_commit, cold then warm ------------------------------------------------
@@ -345,3 +408,25 @@ def test_commit_cold_then_warm_matches_jax(case, mode, commit64, monkeypatch):
         assert got[0] is None
     else:
         assert got[0][1].startswith("wrong signature (#5): ")
+
+
+@pytest.mark.parametrize("case", ["valid", "tampered"])
+def test_commit_per_signature_cold_then_warm_matches_jax(case, commit64, monkeypatch):
+    """TM_TPU_RLC=0: the first call on a set runs k1_decompress, the
+    second k1_decompress_cached, with the JAX package's outcome both
+    times. The batches run at a 64-signature block (verify.BLOCK)."""
+    monkeypatch.setattr(jbatch, "_device_verifier_factory", None)
+    monkeypatch.setenv("TM_TPU_RLC", "0")
+    monkeypatch.setattr(verify, "BLOCK", 64)
+    vset, bid, commit = commit64
+    if case == "tampered":
+        commit = _tampered(commit, 41)
+    epoch_cache.reset(depth=8)
+    calls = _spy(monkeypatch, "per_sig")
+    want, cold = _both("verify_commit", vset, bid, commit.height, commit)
+    pvals, pcommit = convert.state_from_wire(vset.encode(), commit.encode())
+    warm = _outcome(lambda: validation.verify_commit(
+        CHAIN_ID, pvals, BlockID.decode(bid.encode()), commit.height, pcommit, device="cpu"))
+    assert cold == want and warm == want
+    assert calls == ["k1_decompress", "k1_decompress_cached"]
+    assert want is None if case == "valid" else want[1].startswith("wrong signature (#41): ")

@@ -50,7 +50,10 @@ def test_importing_every_module_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "print(json.dumps([mods, sorted(sys.modules)]))\n"
+        "from tendermint_tpu_torch.ops import host\n"
+        "host.library()\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if l.rstrip().endswith('.so')]\n"
+        "print(json.dumps([mods, sorted(sys.modules), sorted(set(maps))]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -58,16 +61,26 @@ def test_importing_every_module_loads_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    mods, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    mods, loaded, libs = json.loads(out.stdout.strip().splitlines()[-1])
     assert {
         "tendermint_tpu_torch.types.validation",
         "tendermint_tpu_torch.ops.rlc",
         "tendermint_tpu_torch.ops.epoch_cache",
         "tendermint_tpu_torch.ops.verify",
+        "tendermint_tpu_torch.ops.sr25519",
+        "tendermint_tpu_torch.ops.mixed",
+        "tendermint_tpu_torch.ops.host",
         "tendermint_tpu_torch.crypto.merkle",
         "tendermint_tpu_torch.crypto.tmhash",
+        "tendermint_tpu_torch.crypto.sr25519",
+        "tendermint_tpu_torch.crypto._ristretto",
+        "tendermint_tpu_torch.crypto._merlin",
     } <= set(mods)
     assert [m for m in loaded if _forbidden(m)] == []
+    # the host library is the port's own build, never the JAX package's
+    # native extension
+    assert any("/build/host/libtm_host-" in p for p in libs)
+    assert not any("tm_native" in p or "/native/" in p for p in libs)
 
 
 def test_entry_points_default_to_cuda():
@@ -77,21 +90,27 @@ def test_entry_points_default_to_cuda():
     from tendermint_tpu_torch.types import validation
     from tendermint_tpu_torch.types.block import BlockID, Commit
 
+    from tendermint_tpu_torch.crypto import sr25519
+
     pk = ed25519.gen_priv_key(bytes(range(32))).pub_key()
+    sr_pk = sr25519.PubKey(bytes(32))
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         assert batch.create_batch_verifier(pk).device.type == "cuda"
+        assert batch.create_batch_verifier(sr_pk).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        batch.create_batch_verifier(pk)
+    for key in (pk, sr_pk):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batch.create_batch_verifier(key)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         validation.verify_commit("c", None, BlockID(), 1, Commit())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         validation.verify_commit_light("c", None, BlockID(), 1, Commit())
     # the CPU only when asked for
     assert batch.create_batch_verifier(pk, device="cpu").device.type == "cpu"
+    assert batch.create_batch_verifier(sr_pk, device="cpu").device.type == "cpu"
 
 
 def test_unsupported_devices_raise():
