@@ -10,7 +10,8 @@ Phases, in order:
 1. the card: `nvidia-smi` name and power limit, torch's device name;
 2. build: the CUDA kernels of tendermint_tpu_torch/csrc, one nvcc per
    source, all started together, with the build seconds and each
-   kernel's registers and spills (`-Xptxas -v`); and the host library
+   kernel's registers, stack frame and spills (`-Xptxas -v`, also in its
+   kernel record when this run built the library); and the host library
    (csrc/merlin.cpp, the sr25519 challenges) with the host C++ compiler;
 3. kernels: each of the eleven CUDA entries on the card against its plain
    PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
@@ -62,6 +63,7 @@ import json
 import multiprocessing
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -400,18 +402,46 @@ def with_epoch(block: EntryBlock, seed: int) -> tuple:
 # -- build ---------------------------------------------------------------------
 
 
-def build_kernels() -> None:
+def kernel_resources(ptxas: str) -> dict:
+    """Per kernel of KERNELS, from nvcc's -Xptxas -v report: registers a
+    thread, and the stack frame and spill bytes."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"for _ZN3edw\d+(\w+?)_kernelE", line)
+            name = m.group(1) if m and m.group(1) in KERNELS else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if name and m:
+            out.setdefault(name, {}).update(stack_bytes=int(m.group(1)),
+                                            spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    check(sorted(out) == sorted(KERNELS), f"ptxas reported on {sorted(out)}")
+    return out
+
+
+def build_kernels() -> dict:
     t = time.perf_counter()
     log(f"build: host library {host.build().name} in {time.perf_counter() - t:.2f} s")
     b = kernels.build()
     log(f"build: {b.seconds:.2f} s, {len(kernels.SOURCES)} sources in parallel "
         f"({b.path.name})")
+    kernels.library()
+    if not b.seconds:  # a library built before: its ptxas report is not this run's
+        log("build: loaded an existing library; registers and stack frames not reported")
+        return {}
     for line in b.ptxas.splitlines():
         if line.startswith("==") or any(
             k in line for k in ("Compiling entry", "registers", "spill")
         ):
             log("  ptxas: " + line.strip())
-    kernels.library()
+    res = kernel_resources(b.ptxas)
+    log("build: registers and stack frame bytes per kernel: " + ", ".join(
+        f"{k} {v['registers']}/{v['stack_bytes']}" for k, v in res.items()))
+    return res
 
 
 # -- kernel phase --------------------------------------------------------------
@@ -1000,7 +1030,7 @@ def main() -> int:
         f"sm clock now, max: {clocks}")
 
     t = time.perf_counter()
-    build_kernels()
+    resources = build_kernels()
     log(f"build phase: {time.perf_counter() - t:.1f} s")
 
     ctx = multiprocessing.get_context("spawn")
@@ -1045,6 +1075,7 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
+        r.update(resources.get(r["name"], {}))
     log("summary: " + json.dumps(paths))
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -450,13 +450,15 @@ static __device__ __noinline__ bool ristretto_decode(pt& o, const int32_t (&e)[3
   return was_square && !t_odd && !y_zero && ok_host;
 }
 
-// ---- the per-signature ladder (verify.ladder_plain) ---------------------------
+// ---- the one-thread per-signature ladder (verify.ladder_plain) ----------------
 
 // The joint ladder [s]B + [k](-A) of signature i over K2's table (entry e
 // coordinate c at rows (e * 4 + c) * 32): 127 iterations, digit positions
 // 126 down to 0, of a double that skips T, a double that makes it, and a
 // Niels add of entry sdig + 4 kdig that skips T (the next double never
-// reads it). Shared by the ed25519 and sr25519 ladder kernels.
+// reads it). One thread runs a whole ladder; only the sr25519 ladder
+// kernel (sr25519.cu) uses it. The ed25519 ladder kernels share each
+// ladder among four threads (the quad functions below).
 static __device__ __noinline__ void ladder(pt& acc, const int32_t* __restrict__ tbl,
                                            const int32_t* __restrict__ sdig,
                                            const int32_t* __restrict__ kdig, int i,
@@ -471,6 +473,103 @@ static __device__ __noinline__ void ladder(pt& acc, const int32_t* __restrict__ 
     const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
     point_add_niels(acc, acc, load_point(tbl, e, i, n), false);
   }
+}
+
+// ---- the quad ladder: four threads share one ladder --------------------------
+// A quad is four adjacent threads of a warp (lanes 4k .. 4k+3); thread q
+// of the quad holds coordinate q of the shared extended point (X, Y, Z,
+// T), 20 limbs in registers. Every point operation of the ladder is two
+// rounds of four independent field products; in each round thread q
+// computes product q with the unchanged mul/sq above, the quad exchanges
+// the four 20-limb results by __shfl_sync within the quad, and every
+// thread forms E, F, G, H from them by the same add/sub/neg/carry steps as
+// point_double / point_add_niels. So each product is computed once, by one
+// thread of the quad, and every limb of the point equals the one-thread
+// formula's (and the plain versions'). All threads of a warp execute every
+// shuffle: the kernels keep a quad past the end of the batch running on a
+// clamped column and mask only its store.
+
+constexpr unsigned QUAD_ALL = 0xffffffffu;
+
+// Product `s` of the quad (the value of `v` in quad thread s), to every
+// thread of the quad.
+__device__ __forceinline__ fe quad_slot(const fe& v, int s) {
+  fe r;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) r.v[l] = __shfl_sync(QUAD_ALL, v.v[l], s, 4);
+  return r;
+}
+
+__device__ __forceinline__ fe pick(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) r.v[l] = c ? a.v[l] : b.v[l];
+  return r;
+}
+
+// Coordinate q of the identity (0, 1, 1, 0).
+__device__ __forceinline__ fe quad_identity(int q) {
+  return (q == 1 || q == 2) ? fe_one() : fe_zero();
+}
+
+// The Niels coordinate thread q multiplies in an add: (Y-X) * q.y in
+// thread 0, (Y+X) * q.x in 1, Z * q.z in 2, T * q.t in 3.
+__device__ __forceinline__ int niels_coord(int q) { return q < 2 ? q ^ 1 : q; }
+
+// Round 2 of a double or an add: X = EF in thread 0, Y = GH in 1, Z = FG
+// in 2, T = EH in 3 (zero where need_t is false, as point_double does).
+__device__ __forceinline__ fe quad_round2(const fe& e, const fe& f, const fe& g,
+                                          const fe& h, int q, bool need_t) {
+  const fe l = pick(q == 1, g, pick(q == 2, f, e));
+  const fe r = pick(q == 0, f, pick(q == 2, g, h));
+  const fe p = mul(l, r);
+  return (q == 3 && !need_t) ? fe_zero() : p;
+}
+
+// point_double on the quad's point: round 1 is X^2, Y^2, Z^2, (X+Y)^2.
+__device__ __forceinline__ fe quad_double(const fe& c, int q, bool need_t) {
+  const fe x = quad_slot(c, 0), y = quad_slot(c, 1);
+  const fe s = sq(pick(q == 3, add(x, y), c));
+  const fe a = quad_slot(s, 0), b = quad_slot(s, 1);
+  const fe zz = quad_slot(s, 2), d = quad_slot(s, 3);
+  const fe cc = add(zz, zz);
+  const fe e = sub(sub(d, a), b);
+  const fe g = sub(b, a);
+  const fe f = sub(g, cc);
+  const fe h = neg(add(a, b));
+  return quad_round2(e, f, g, h, q, need_t);
+}
+
+// point_add_niels on the quad's point and a Niels entry of which this
+// thread holds coordinate niels_coord(q): round 1 is (Y-X) q.y, (Y+X) q.x,
+// Z q.z, T q.t.
+__device__ __forceinline__ fe quad_add_niels(const fe& c, const fe& ent, int q,
+                                             bool need_t) {
+  fe o;  // threads 0 and 1 swap X and Y
+#pragma unroll
+  for (int l = 0; l < NL; ++l) o.v[l] = __shfl_xor_sync(QUAD_ALL, c.v[l], 1, 4);
+  const fe y = pick(q & 1, c, o), x = pick(q & 1, o, c);
+  const fe p = mul(pick(q == 0, sub(y, x), pick(q == 1, add(y, x), c)), ent);
+  const fe a = quad_slot(p, 0), b = quad_slot(p, 1);
+  const fe zz = quad_slot(p, 2), t = quad_slot(p, 3);
+  const fe d = add(zz, zz);
+  const fe e = sub(b, a), f = sub(d, t), g = add(d, t), h = add(b, a);
+  return quad_round2(e, f, g, h, q, need_t);
+}
+
+// [8]acc == [8]R by T-free doubles and a projective cross-multiplication,
+// each thread holding coordinate q of acc and of R; the answer is that of
+// quad thread 0 (the cross-multiplication runs there).
+__device__ __forceinline__ bool quad_cofactor_eq(fe acc, fe r, int q) {
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    acc = quad_double(acc, q, false);
+    r = quad_double(r, q, false);
+  }
+  const fe ax = quad_slot(acc, 0), ay = quad_slot(acc, 1), az = quad_slot(acc, 2);
+  const fe rx = quad_slot(r, 0), ry = quad_slot(r, 1), rz = quad_slot(r, 2);
+  if (q != 0) return false;
+  return is_zero(sub(mul(ax, rz), mul(rx, az))) && is_zero(sub(mul(ay, rz), mul(ry, az)));
 }
 
 }  // namespace edw

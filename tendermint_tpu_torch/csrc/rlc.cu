@@ -27,17 +27,33 @@
 //
 // What the design does about it: the lanes are the parallelism. K1 runs a
 // thread per (lane, point) and K2 per (lane, table), so their independent
-// work spreads over 8 and 4 times the threads; K3's ladder is sequential
-// within a lane, so it runs one thread per lane: 2,560 threads, 20 blocks
-// of 128, one warp per scheduler on 20 of the 132 SMs. The card is mostly
-// idle during K3 (PERF.md has its time beside the bound). Splitting one
-// lane's ladder over several threads is left to a later change. The
-// table runs a thread per row, once per validator set.
+// work spreads over 8 and 4 times the threads. The table runs a thread per
+// row, once per validator set. K3's ladder is sequential within a lane, so
+// a quad of four threads shares it (fe25519.cuh quad functions): each
+// point operation is two rounds of four independent field products, and
+// thread q of the quad holds coordinate q of the accumulator, computes
+// product q of each round (each product once, in one thread) and loads
+// only the table coordinate it multiplies; the quad exchanges the 20-limb
+// products by warp shuffles and every thread forms E, F, G, H from them.
+// At 2,560 lanes that is 10,240 threads in 320 blocks of 32 (8 lanes a
+// block), 2 or 3 warps on each of the 132 SMs; blocks of 64 took 2.04 ms
+// against 1.76 ms for blocks of 32 (tools/torch_ladder_ab.py, PERF.md).
+// ptxas: 168 registers, 0 bytes of stack frame, no spills, no local loads
+// or stores in its SASS (the one-thread K3 it replaces: 128 registers and
+// a 640-byte stack frame, through which its out-of-line point functions
+// passed the accumulator and each table entry). What bounds K3 now is
+// inferred from a batch sweep, not measured (ncu could not read the
+// card's counters where it was timed): its time stays flat from 640 to
+// 2,560 lanes and doubles at 5,120, which fits each of its 320 warps
+// issuing alone on one of the 528 schedulers, with the other 208 empty
+// (PERF.md has its time beside the bound).
 //
 // Shared design: full unrolling of the limb loops inside a field multiply
-// keeps its 20 + 20 + 39 values in registers; point functions are
-// __noinline__ so that the build stays seconds long and each kernel holds
-// one copy of each formula.
+// keeps its 20 + 20 + 39 values in registers. K1 and K2 call point
+// functions that are __noinline__, so that the build stays seconds long
+// and each kernel holds one copy of each formula; K3's quad functions are
+// inline, with the ladder's loops kept rolled so that its body holds one
+// double and one add.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +65,9 @@ constexpr int M = 4;
 constexpr int N_SCAL = 2 * M;
 constexpr int N_FULL_TABLES = M / 2 + 1;
 constexpr int THREADS = 128;
+// K3 runs a quad of threads per lane, K3_THREADS / 4 lanes a block (the
+// header note says why).
+constexpr int K3_THREADS = 32;
 
 // Entry e of table t: coordinate c at rows ((t * 16 + e) * 4 + c) * 32.
 __device__ __forceinline__ int tbl_row(int t, int e, int c) {
@@ -190,65 +209,60 @@ k2_rlc_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
   }
 }
 
-// One ladder iteration over NT tables: 2 doubles (the first skips T), then
-// one Niels add per table; only the last add skips T, since the next
-// iteration's doubles never read it. The table select is a direct indexed
-// load (pallas_rlc's 16-way masked select was a Mosaic constraint).
-template <int NT>
-__device__ __forceinline__ void ladder_step(pt& acc,
-                                            const int32_t* __restrict__ tbl,
-                                            const int32_t* __restrict__ dig,
-                                            int pos, int lane, int g) {
-  const int j = (pos & 3) * 32 + (pos >> 2);
-  point_double(acc, acc, false);
-  point_double(acc, acc, true);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int idx = dig[(size_t)(2 * t * 128 + j) * g + lane] +
-                    4 * dig[(size_t)((2 * t + 1) * 128 + j) * g + lane];
-    const pt ent{load_fe(tbl, tbl_row(t, idx, 0), lane, g),
-                 load_fe(tbl, tbl_row(t, idx, 1), lane, g),
-                 load_fe(tbl, tbl_row(t, idx, 2), lane, g),
-                 load_fe(tbl, tbl_row(t, idx, 3), lane, g)};
-    point_add_niels(acc, acc, ent, t + 1 < NT);
-  }
+// This thread's coordinate of entry dig(2t) + 4 dig(2t+1) of table t at
+// digit row j: a direct indexed load (pallas_rlc's 16-way masked select
+// was a Mosaic constraint).
+__device__ __forceinline__ fe rlc_entry(const int32_t* __restrict__ tbl,
+                                        const int32_t* __restrict__ dig, int t, int j,
+                                        int c, int lane, int g) {
+  const int e = dig[(size_t)(2 * t * 128 + j) * g + lane] +
+                4 * dig[(size_t)((2 * t + 1) * 128 + j) * g + lane];
+  return load_fe(tbl, tbl_row(t, e, c), lane, g);
 }
 
 // K3 — replaces pallas_rlc._k3_rlc_kernel (pallas_rlc.py:251).
-// One thread per lane runs the 127-iteration joint ladder over the M
-// tables, digit positions 126 down to 0. Positions 126..64 (63 iterations)
-// skip the tables whose two scalars are both z's: z < 2^128, so their
-// digits there are zero and pallas_rlc skips them too (the accumulator's
-// limbs, not only its value, must match). Then [8]acc == [8]R_0 by
-// doubles-only projective cross-multiplication, ANDed with the 2M
-// decompression flags and the M host s < L flags. Bound: operations (the
-// ladder); one lane's ladder is sequential, so lanes are the only
-// parallelism here.
-__global__ void __launch_bounds__(THREADS)
+// A quad of four threads runs one lane's 127-iteration joint ladder over
+// the M tables (fe25519.cuh quad functions), digit positions 126 down to
+// 0: per iteration 2 doubles (the first skips T), then one Niels add per
+// table, of which only the last skips T (the next iteration's doubles
+// never read it). Positions 126..64 (63 iterations) skip the tables whose
+// two scalars are both z's: z < 2^128, so their digits there are zero and
+// pallas_rlc skips them too (the accumulator's limbs, not only its value,
+// must match). Each thread loads only the table coordinate it multiplies,
+// one add ahead of its use. Then [8]acc == [8]R_0, ANDed with the 2M
+// decompression flags and the M host s < L flags, in quad thread 0.
+__global__ void __launch_bounds__(K3_THREADS)
 k3_rlc_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ dig,
               const int32_t* __restrict__ coords, const int32_t* __restrict__ ok,
               const int32_t* __restrict__ sok, int32_t* __restrict__ out,
               int g) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= g) return;
-  pt acc = identity_point();
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K3_THREADS / 4) + (threadIdx.x >> 2);
+  const int lane = quad < g ? quad : g - 1;  // a quad past the end runs masked
+  const int c = niels_coord(q);
+  fe acc = quad_identity(q);
 #pragma unroll 1
-  for (int i = 0; i < 63; ++i)
-    ladder_step<N_FULL_TABLES>(acc, tbl, dig, 126 - i, lane, g);
+  for (int i = 0; i < 127; ++i) {
+    const int pos = 126 - i;
+    const int j = (pos & 3) * 32 + (pos >> 2);
+    const int nt = i < 63 ? N_FULL_TABLES : M;
+    fe ent = rlc_entry(tbl, dig, 0, j, c, lane, g);
 #pragma unroll 1
-  for (int i = 63; i < 127; ++i) ladder_step<M>(acc, tbl, dig, 126 - i, lane, g);
-  pt r8 = load_point(coords, M, lane, g);  // R_0
+    for (int d = 0; d < 2; ++d) acc = quad_double(acc, q, d == 1);
 #pragma unroll 1
-  for (int k = 0; k < 3; ++k) {
-    point_double(acc, acc, false);
-    point_double(r8, r8, false);
+    for (int t = 0; t < nt; ++t) {
+      const fe next = t + 1 < nt ? rlc_entry(tbl, dig, t + 1, j, c, lane, g) : ent;
+      acc = quad_add_niels(acc, ent, q, t + 1 < nt);
+      ent = next;
+    }
   }
-  bool valid = is_zero(sub(mul(acc.x, r8.z), mul(r8.x, acc.z))) &&
-               is_zero(sub(mul(acc.y, r8.z), mul(r8.y, acc.z)));
+  const fe r = load_fe(coords, (M * 4 + q) * 32, lane, g);  // R_0
+  bool valid = quad_cofactor_eq(acc, r, q);
+  if (q != 0 || quad >= g) return;
 #pragma unroll
   for (int p = 0; p < 2 * M; ++p) valid = valid && ok[(size_t)p * g + lane] != 0;
 #pragma unroll
-  for (int j = 0; j < M; ++j) valid = valid && sok[(size_t)j * g + lane] != 0;
+  for (int k = 0; k < M; ++k) valid = valid && sok[(size_t)k * g + lane] != 0;
   out[lane] = valid ? 1 : 0;
 }
 
@@ -257,7 +271,8 @@ k3_rlc_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ dig,
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of its launch. The grid is ceil(g / THREADS) blocks
-// with the tail masked in the kernel.
+// with the tail masked in the kernel; K3's is ceil(4 g / K3_THREADS), a
+// quad a lane, with the tail masked per quad.
 
 static dim3 lane_grid(int g, int y) {
   return dim3((g + edw::THREADS - 1) / edw::THREADS, y);
@@ -303,7 +318,8 @@ extern "C" int tm_k2_rlc(const void* coords, void* tbl, int g, void* stream) {
 extern "C" int tm_k3_rlc(const void* tbl, const void* dig, const void* coords,
                          const void* ok, const void* sok, void* out, int g,
                          void* stream) {
-  edw::k3_rlc_kernel<<<lane_grid(g, 1), edw::THREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((4 * g + edw::K3_THREADS - 1) / edw::K3_THREADS);
+  edw::k3_rlc_kernel<<<grid, edw::K3_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tbl, (const int32_t*)dig, (const int32_t*)coords,
       (const int32_t*)ok, (const int32_t*)sok, (int32_t*)out, g);
   return (int)cudaGetLastError();

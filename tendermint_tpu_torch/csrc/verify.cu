@@ -25,17 +25,30 @@
 //
 // What the design does about it: the signatures are the parallelism. K1
 // runs a thread per (signature, point), so A and R decompress in two
-// threads; K2 and K3 run a thread per signature: at 10,240 signatures, 80
-// blocks of 128, one warp per scheduler on 80 of the 132 SMs. The ladder
-// is sequential within a signature, as in the RLC K3, but there is one
-// ladder per signature instead of one per 4, so four times the threads do
-// about half the work each (PERF.md has the times of both paths).
+// threads; K2 runs a thread per signature. K3's ladder is sequential
+// within a signature, so a quad of four threads shares it, as in the RLC
+// K3 (fe25519.cuh quad functions): thread q holds coordinate q of the
+// accumulator, computes product q of each round of a double or an add,
+// and loads only the table coordinate it multiplies. At 10,240 signatures
+// that is 40,960 threads in 640 blocks of 64 (16 signatures a block).
+// __launch_bounds__(64, 5) caps the registers at 204; ptxas then uses 168,
+// six blocks fit an SM, and all 640 blocks are resident at once (4 or 5 an
+// SM, 8 to 10 warps). Uncapped, ptxas took 205 registers, only 4 blocks
+// fit, and the 112 blocks of a second wave made it 2.30 ms against 2.19
+// (tools/torch_ladder_ab.py, PERF.md). ptxas: 168 registers, 0 bytes of
+// stack frame, no spills, no local loads or stores in its SASS (the
+// one-thread K3 it replaces: 128 registers and a 960-byte stack frame).
+// What bounds K3 now is inferred from a batch sweep, not measured (ncu
+// could not read the card's counters where it was timed): from 10,240
+// signatures up its time grows in step with the batch, which fits a card
+// whose schedulers are all busy issuing integer instructions (PERF.md has
+// its time beside the bound).
 //
-// Shared design: as csrc/rlc.cu; point functions are __noinline__ and
-// come from fe25519.cuh. Table select is a direct indexed load of entry
-// s2 + 4 k2 (pallas_verify's 16-way masked select was a Mosaic
-// constraint); verification handles public data, so nothing here is
-// constant time.
+// Shared design: as csrc/rlc.cu; K1 and K2 call the __noinline__ point
+// functions of fe25519.cuh, K3 its inline quad functions. Table select is
+// a direct indexed load of entry s2 + 4 k2 (pallas_verify's 16-way masked
+// select was a Mosaic constraint); verification handles public data, so
+// nothing here is constant time.
 
 #include <cuda_runtime.h>
 
@@ -148,32 +161,45 @@ k2_table_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
   }
 }
 
+// K3 runs a quad of threads per signature, K3_THREADS / 4 signatures a
+// block, with registers capped for K3_MIN_BLOCKS blocks an SM (the header
+// note says why).
+constexpr int K3_THREADS = 64;
+constexpr int K3_MIN_BLOCKS = 5;
+
 // K3 — replaces pallas_verify._k3_ladder_kernel (pallas_verify.py:329).
-// One thread per signature runs the 127-iteration joint ladder
-// (fe25519.cuh ladder). Then [8]acc == [8]R by six T-free doubles and a
-// projective cross-multiplication, ANDed with the two decompression flags
-// and the host s < L flag. Bound: operations (the ladder), sequential
-// within a signature.
-__global__ void __launch_bounds__(VTHREADS)
+// A quad of four threads runs one signature's 127-iteration joint ladder
+// (fe25519.cuh quad functions): per iteration a double that skips T, a
+// double that makes it, and a Niels add of entry s2 + 4 k2 that skips T.
+// Each thread loads only the table coordinate it multiplies, before the
+// iteration's doubles, so the load is in flight while they run. Then
+// [8]acc == [8]R, ANDed with the two decompression flags and the host
+// s < L flag, in quad thread 0.
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
 k3_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sdig,
                  const int32_t* __restrict__ kdig,
                  const int32_t* __restrict__ coords, const int32_t* __restrict__ ok,
                  const int32_t* __restrict__ sok, int32_t* __restrict__ out,
                  int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  pt acc;
-  ladder(acc, tbl, sdig, kdig, i, n);
-  pt r8 = load_point(coords, 1, i, n);  // R
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K3_THREADS / 4) + (threadIdx.x >> 2);
+  const int i = quad < n ? quad : n - 1;  // a quad past the end runs masked
+  const int c = niels_coord(q);
+  fe acc = quad_identity(q);
 #pragma unroll 1
-  for (int k = 0; k < 3; ++k) {
-    point_double(acc, acc, false);
-    point_double(r8, r8, false);
+  for (int it = 0; it < 127; ++it) {
+    const int pos = 126 - it;
+    const int j = (pos & 3) * 32 + (pos >> 2);
+    const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
+    const fe ent = load_fe(tbl, (e * 4 + c) * 32, i, n);
+#pragma unroll 1
+    for (int d = 0; d < 2; ++d) acc = quad_double(acc, q, d == 1);
+    acc = quad_add_niels(acc, ent, q, false);
   }
-  const bool valid = ok[i] != 0 && ok[(size_t)n + i] != 0 && sok[i] != 0 &&
-                     is_zero(sub(mul(acc.x, r8.z), mul(r8.x, acc.z))) &&
-                     is_zero(sub(mul(acc.y, r8.z), mul(r8.y, acc.z)));
-  out[i] = valid ? 1 : 0;
+  const fe r = load_fe(coords, (4 + q) * 32, i, n);  // R
+  const bool eq8 = quad_cofactor_eq(acc, r, q);
+  if (q != 0 || quad >= n) return;
+  out[i] = (ok[i] != 0 && ok[(size_t)n + i] != 0 && sok[i] != 0 && eq8) ? 1 : 0;
 }
 
 }  // namespace edw
@@ -181,7 +207,8 @@ k3_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sd
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of its launch. The grid is ceil(n / VTHREADS) blocks
-// with the tail masked in the kernel (fe25519.cuh sig_grid).
+// with the tail masked in the kernel (fe25519.cuh sig_grid); K3's is
+// ceil(4 n / K3_THREADS), a quad a signature, with the tail masked per quad.
 
 using edw::sig_grid;
 
@@ -218,7 +245,8 @@ extern "C" int tm_k2_table(const void* coords, void* tbl, int n, void* stream) {
 extern "C" int tm_k3_ladder(const void* tbl, const void* sdig, const void* kdig,
                             const void* coords, const void* ok, const void* sok,
                             void* out, int n, void* stream) {
-  edw::k3_ladder_kernel<<<sig_grid(n, 1), edw::VTHREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((4 * n + edw::K3_THREADS - 1) / edw::K3_THREADS);
+  edw::k3_ladder_kernel<<<grid, edw::K3_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tbl, (const int32_t*)sdig, (const int32_t*)kdig,
       (const int32_t*)coords, (const int32_t*)ok, (const int32_t*)sok,
       (int32_t*)out, n);

@@ -254,3 +254,69 @@ def test_sr25519_batch_launches_each_kernel_once(cuda):
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
         "k1r_decode": 1, "k2_table": 1, "k3r_ladder": 1}
     assert got.tolist() == [sr25519.verify(*e) for e in ents]
+
+
+# -- the quad ladders (k3_rlc, k3_ladder) over rejecting rows and padding --------
+
+
+@pytest.fixture(scope="module")
+def battery():
+    """(entries, oracle verdicts): chip_smoke.py's ZIP-215 edge battery
+    (corrupted and tampered signatures, s >= L, small-order and
+    non-canonical keys, a key off the curve, random bytes) and 140
+    distinct valid signatures."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries() + _entries(160)[20:]
+    return ents, [_edwards.verify_zip215(*e) for e in ents]
+
+
+def _spread(battery, n: int, seed: int) -> tuple:
+    """n entries drawn from the battery, every battery entry first when n
+    allows, in a seeded order: (EntryBlock, oracle verdicts)."""
+    ents, oracle = battery
+    rng = np.random.default_rng(seed)
+    pick = np.concatenate([rng.permutation(len(ents)),
+                           rng.integers(0, len(ents), max(0, n - len(ents)))])[:n]
+    pick = pick[rng.permutation(n)]
+    return EntryBlock.from_entries([ents[i] for i in pick]), np.array(oracle)[pick]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 64, 2560])
+def test_k3_rlc_matches_plain_over_rejects_and_padding(battery, cuda, lanes):
+    """The quad k3_rlc against k3_rlc_plain: every lane's verdict equal.
+    The last live lane holds one signature and three padding slots, and
+    at 64 and 2,560 lanes the last 8 lanes are all padding; 1 and 2 lanes
+    do not fill a block of the kernel."""
+    n = 1 if lanes == 1 else 4 * lanes - (35 if lanes >= 64 else 3)
+    block, oracle = _spread(battery, n, lanes)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in rlc.prepare_rlc(block, 4 * lanes)]
+    coords, ok, dig = rlc.k1_rlc_plain(*args[:3])
+    tbl = rlc.k2_rlc_plain(coords)
+    want = rlc.k3_rlc_plain(tbl, dig, coords, ok, args[3])
+    got = rlc.k3_rlc(tbl, dig, coords, ok, args[3])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    per_sig = np.ones(4 * lanes, dtype=bool)
+    per_sig[:n] = oracle
+    assert got.cpu().numpy()[0].astype(bool).tolist() == per_sig.reshape(lanes, 4).all(1).tolist()
+    if lanes >= 64:
+        assert 0 < int(got.sum()) < lanes
+
+
+@pytest.mark.parametrize("n", [250, 256, 10240])
+def test_k3_ladder_matches_plain_over_rejects_and_padding(battery, cuda, n):
+    """The quad k3_ladder against k3_ladder_plain: every verdict equal,
+    with 6 padding signatures; 250 signatures do not fill a block of the
+    kernel."""
+    block, oracle = _spread(battery, n - 6, n)
+    args = [torch.from_numpy(a).to(cuda) for a in verify.prepare_compact(block, n)]
+    coords, ok, sdig, kdig = verify.k1_decompress_plain(*args[:4])
+    tbl = verify.k2_table_plain(coords)
+    want = verify.k3_ladder_plain(tbl, sdig, kdig, coords, ok, args[4])
+    got = verify.k3_ladder(tbl, sdig, kdig, coords, ok, args[4])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.cpu().numpy()[0].astype(bool).tolist() == oracle.tolist() + [True] * 6
+    assert 0 < int(got.sum()) < n
