@@ -45,8 +45,9 @@ Phases, in order:
    which each call's host stages (the port's record_function spans), the
    rest of the call, and the card's busy time and idle share come; peak
    device memory. Then each kernel's time from CUDA events at the path's
-   shape beside its plain version's time and its bound. The traces are
-   kept in build/traces/.
+   shape beside its plain version's time, its bound and the share of the
+   bound it reaches (`pct_of_bound`). The traces are kept in
+   build/traces/.
 
 It prints one JSON line of kernel records, then the `nvidia-smi` line,
 then, last, `{"ok": true, "device": {...}}`. Any failed check exits
@@ -993,6 +994,7 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
         io_bytes = sum(t.nbytes for t in tensors)
         ops_ms = products[name] * units / int_rate * 1e3
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
         source, replaces = KERNELS[name]
         records.append({
             "name": name,
@@ -1000,7 +1002,8 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
             "source": f"tendermint_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "ms": ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_ms": bound_ms,
+            "pct_of_bound": 100 * bound_ms / ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "products_per_unit": products[name],
@@ -1008,7 +1011,8 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
             "bytes": io_bytes,
         })
         log(f"timing: {name} {ms:.3f} ms over {units} units; bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms ({products[name] * units / 1e9:.3f} G "
+            f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it reached "
+            f"({products[name] * units / 1e9:.3f} G "
             f"multiply-adds -> {ops_ms:.4f} ms, {io_bytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
     return records
 

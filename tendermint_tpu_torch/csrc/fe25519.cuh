@@ -283,21 +283,6 @@ static __device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t
   o.t = need_t ? mul(e, h) : fe_zero();
 }
 
-// Extended accumulator + Niels entry; need_t = false where T is not read.
-static __device__ __noinline__ void point_add_niels(pt& o, const pt& p, const pt& q,
-                                             bool need_t) {
-  const fe a = mul(sub(p.y, p.x), q.y);
-  const fe b = mul(add(p.y, p.x), q.x);
-  const fe c = mul(p.t, q.t);
-  const fe zz = mul(p.z, q.z);
-  const fe d = add(zz, zz);
-  const fe e = sub(b, a), f = sub(d, c), g = add(d, c), h = add(b, a);
-  o.x = mul(e, f);
-  o.y = mul(g, h);
-  o.z = mul(f, g);
-  o.t = need_t ? mul(e, h) : fe_zero();
-}
-
 __device__ __forceinline__ pt point_neg(const pt& p) {
   return pt{neg(p.x), p.y, p.z, neg(p.t)};
 }
@@ -450,44 +435,20 @@ static __device__ __noinline__ bool ristretto_decode(pt& o, const int32_t (&e)[3
   return was_square && !t_odd && !y_zero && ok_host;
 }
 
-// ---- the one-thread per-signature ladder (verify.ladder_plain) ----------------
-
-// The joint ladder [s]B + [k](-A) of signature i over K2's table (entry e
-// coordinate c at rows (e * 4 + c) * 32): 127 iterations, digit positions
-// 126 down to 0, of a double that skips T, a double that makes it, and a
-// Niels add of entry sdig + 4 kdig that skips T (the next double never
-// reads it). One thread runs a whole ladder; only the sr25519 ladder
-// kernel (sr25519.cu) uses it. The ed25519 ladder kernels share each
-// ladder among four threads (the quad functions below).
-static __device__ __noinline__ void ladder(pt& acc, const int32_t* __restrict__ tbl,
-                                           const int32_t* __restrict__ sdig,
-                                           const int32_t* __restrict__ kdig, int i,
-                                           int n) {
-  acc = identity_point();
-#pragma unroll 1
-  for (int it = 0; it < 127; ++it) {
-    const int pos = 126 - it;
-    const int j = (pos & 3) * 32 + (pos >> 2);
-    point_double(acc, acc, false);
-    point_double(acc, acc, true);
-    const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
-    point_add_niels(acc, acc, load_point(tbl, e, i, n), false);
-  }
-}
-
-// ---- the quad ladder: four threads share one ladder --------------------------
+// ---- the quad point functions: four threads share one point ----------------
 // A quad is four adjacent threads of a warp (lanes 4k .. 4k+3); thread q
-// of the quad holds coordinate q of the shared extended point (X, Y, Z,
-// T), 20 limbs in registers. Every point operation of the ladder is two
-// rounds of four independent field products; in each round thread q
-// computes product q with the unchanged mul/sq above, the quad exchanges
-// the four 20-limb results by __shfl_sync within the quad, and every
-// thread forms E, F, G, H from them by the same add/sub/neg/carry steps as
-// point_double / point_add_niels. So each product is computed once, by one
-// thread of the quad, and every limb of the point equals the one-thread
-// formula's (and the plain versions'). All threads of a warp execute every
-// shuffle: the kernels keep a quad past the end of the batch running on a
-// clamped column and mask only its store.
+// of the quad holds coordinate q of a shared extended point (X, Y, Z, T),
+// 20 limbs in registers. Every point operation is two rounds of four
+// independent field products; in each round thread q computes product q
+// with the unchanged mul/sq above, the quad exchanges the four 20-limb
+// results by __shfl_sync within the quad, and every thread forms E, F, G,
+// H from them by the same add/sub/neg/carry steps as point.py's
+// point_double, point_add or point_add_niels. So each product is computed
+// once, by one thread of the quad, and every limb of the point equals the
+// plain version's. The ladder kernels (K3, K3r) and rlc.cu's K2 run on
+// these. All threads of a warp execute every shuffle:
+// the kernels keep a quad past the end of the batch running on a clamped
+// column and mask only its store.
 
 constexpr unsigned QUAD_ALL = 0xffffffffu;
 
@@ -540,14 +501,21 @@ __device__ __forceinline__ fe quad_double(const fe& c, int q, bool need_t) {
   return quad_round2(e, f, g, h, q, need_t);
 }
 
+// X in threads 0 and 1 swapped with Y (the value of `v` in quad thread
+// q ^ 1).
+__device__ __forceinline__ fe quad_partner(const fe& v) {
+  fe r;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) r.v[l] = __shfl_xor_sync(QUAD_ALL, v.v[l], 1, 4);
+  return r;
+}
+
 // point_add_niels on the quad's point and a Niels entry of which this
 // thread holds coordinate niels_coord(q): round 1 is (Y-X) q.y, (Y+X) q.x,
 // Z q.z, T q.t.
 __device__ __forceinline__ fe quad_add_niels(const fe& c, const fe& ent, int q,
                                              bool need_t) {
-  fe o;  // threads 0 and 1 swap X and Y
-#pragma unroll
-  for (int l = 0; l < NL; ++l) o.v[l] = __shfl_xor_sync(QUAD_ALL, c.v[l], 1, 4);
+  const fe o = quad_partner(c);
   const fe y = pick(q & 1, c, o), x = pick(q & 1, o, c);
   const fe p = mul(pick(q == 0, sub(y, x), pick(q == 1, add(y, x), c)), ent);
   const fe a = quad_slot(p, 0), b = quad_slot(p, 1);
@@ -555,6 +523,32 @@ __device__ __forceinline__ fe quad_add_niels(const fe& c, const fe& ent, int q,
   const fe d = add(zz, zz);
   const fe e = sub(b, a), f = sub(d, t), g = add(d, t), h = add(b, a);
   return quad_round2(e, f, g, h, q, need_t);
+}
+
+// point_add on the quad's points c and d (this thread holds coordinate q
+// of each): round 1 is (Y-X)(Y'-X'), (Y+X)(Y'+X'), Z Z' and (T 2d) T',
+// the last as mul(mul(T, 2d), T') in thread 3, point_add's order.
+__device__ __forceinline__ fe quad_add(const fe& c, const fe& d, int q) {
+  const fe oc = quad_partner(c), od = quad_partner(d);
+  const fe y = pick(q & 1, c, oc), x = pick(q & 1, oc, c);
+  const fe y2 = pick(q & 1, d, od), x2 = pick(q & 1, od, d);
+  const fe l = pick(q == 0, sub(y, x), pick(q == 1, add(y, x), c));
+  const fe r = pick(q == 0, sub(y2, x2), pick(q == 1, add(y2, x2), d));
+  const fe p = mul(q == 3 ? mul(l, fe_d2()) : l, r);
+  const fe a = quad_slot(p, 0), b = quad_slot(p, 1);
+  const fe zz = quad_slot(p, 2), t = quad_slot(p, 3);
+  const fe dd = add(zz, zz);
+  const fe e = sub(b, a), f = sub(dd, t), g = add(dd, t), h = add(b, a);
+  return quad_round2(e, f, g, h, q, true);
+}
+
+// to_niels on the quad's point: thread 0 forms Y+X, 1 Y-X, 2 keeps Z and
+// 3 forms T 2d, so thread q holds Niels coordinate q.
+__device__ __forceinline__ fe quad_to_niels(const fe& c, int q) {
+  const fe o = quad_partner(c);
+  const fe y = pick(q & 1, c, o), x = pick(q & 1, o, c);
+  if (q == 3) return mul(c, fe_d2());
+  return pick(q == 0, add(y, x), pick(q == 1, sub(y, x), c));
 }
 
 // [8]acc == [8]R by T-free doubles and a projective cross-multiplication,
@@ -570,6 +564,23 @@ __device__ __forceinline__ bool quad_cofactor_eq(fe acc, fe r, int q) {
   const fe rx = quad_slot(r, 0), ry = quad_slot(r, 1), rz = quad_slot(r, 2);
   if (q != 0) return false;
   return is_zero(sub(mul(ax, rz), mul(rx, az))) && is_zero(sub(mul(ay, rz), mul(ry, az)));
+}
+
+// The coordinate of R (z = 1) that thread q multiplies in the ristretto
+// test: y in threads 0 and 2, x in 1 and 3.
+__device__ __forceinline__ int ristretto_coord(int q) { return (q & 1) ^ 1; }
+
+// acc == R in the ristretto group (sr25519.k3r_ladder_plain): X yR == Y xR
+// or Y yR == X xR, with no [8] doubles. Thread q holds coordinate q of acc
+// and coordinate ristretto_coord(q) of R and forms one cross product, X yR,
+// Y xR, Y yR or X xR; the answer is that of quad thread 0.
+__device__ __forceinline__ bool quad_ristretto_eq(const fe& acc, const fe& r, int q) {
+  const fe x = quad_slot(acc, 0), y = quad_slot(acc, 1);
+  const fe p = mul(pick(q == 0 || q == 3, x, y), r);
+  const fe p0 = quad_slot(p, 0), p1 = quad_slot(p, 1);
+  const fe p2 = quad_slot(p, 2), p3 = quad_slot(p, 3);
+  if (q != 0) return false;
+  return is_zero(sub(p0, p1)) || is_zero(sub(p2, p3));
 }
 
 }  // namespace edw

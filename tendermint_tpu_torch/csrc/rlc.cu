@@ -26,15 +26,23 @@
 // take 0.003 to 0.03 ms at 3.35 TB/s, so all are bound by operations.
 //
 // What the design does about it: the lanes are the parallelism. K1 runs a
-// thread per (lane, point) and K2 per (lane, table), so their independent
-// work spreads over 8 and 4 times the threads. The table runs a thread per
-// row, once per validator set. K3's ladder is sequential within a lane, so
-// a quad of four threads shares it (fe25519.cuh quad functions): each
-// point operation is two rounds of four independent field products, and
-// thread q of the quad holds coordinate q of the accumulator, computes
-// product q of each round (each product once, in one thread) and loads
-// only the table coordinate it multiplies; the quad exchanges the 20-limb
-// products by warp shuffles and every thread forms E, F, G, H from them.
+// thread per (lane, point), so its independent work spreads over 8 times
+// the threads. The table runs a thread per row, once per validator set.
+// K2 runs a quad of four threads per (lane, table) on the quad point
+// functions: at 2,560 lanes 40,960 threads in 640 blocks of 64, with
+// __launch_bounds__(64, 5) holding it to 168 registers, so that 10 warps
+// fit an SM and the grid is one wave; uncapped it took 230 registers, 8
+// warps an SM, and 0.21 ms against 0.14 (tools/torch_ladder_ab.py,
+// PERF.md). Its points stay in registers: points passed to out-of-line
+// functions, and point arrays indexed at run time, live in a stack frame
+// (2,880 bytes in a one-thread K2, which took 0.50 ms). K3's ladder is
+// sequential within a lane, so a quad of four threads shares it
+// (fe25519.cuh quad functions): each point operation is two rounds of
+// four independent field products, and thread q of the quad holds
+// coordinate q of the accumulator, computes product q of each round (each
+// product once, in one thread) and loads only the table coordinate it
+// multiplies; the quad exchanges the 20-limb products by warp shuffles
+// and every thread forms E, F, G, H from them.
 // At 2,560 lanes that is 10,240 threads in 320 blocks of 32 (8 lanes a
 // block), 2 or 3 warps on each of the 132 SMs; blocks of 64 took 2.04 ms
 // against 1.76 ms for blocks of 32 (tools/torch_ladder_ab.py, PERF.md).
@@ -49,11 +57,11 @@
 // (PERF.md has its time beside the bound).
 //
 // Shared design: full unrolling of the limb loops inside a field multiply
-// keeps its 20 + 20 + 39 values in registers. K1 and K2 call point
-// functions that are __noinline__, so that the build stays seconds long
-// and each kernel holds one copy of each formula; K3's quad functions are
-// inline, with the ladder's loops kept rolled so that its body holds one
-// double and one add.
+// keeps its 20 + 20 + 39 values in registers. K1 and the table call the
+// __noinline__ decompression, so that the build stays seconds long and
+// each kernel holds one copy of each formula; the quad functions of K2
+// and K3 are inline, with their loops kept rolled so that K3's body holds
+// one double and one add, and K2's one add and one conversion.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +73,10 @@ constexpr int M = 4;
 constexpr int N_SCAL = 2 * M;
 constexpr int N_FULL_TABLES = M / 2 + 1;
 constexpr int THREADS = 128;
+// K2 runs a quad of threads per (lane, table), K2_THREADS / 4 lanes a
+// block, with registers capped for K2_MIN_BLOCKS blocks an SM.
+constexpr int K2_THREADS = 64;
+constexpr int K2_MIN_BLOCKS = 5;
 // K3 runs a quad of threads per lane, K3_THREADS / 4 lanes a block (the
 // header note says why).
 constexpr int K3_THREADS = 32;
@@ -162,50 +174,56 @@ epoch_coords_kernel(const uint8_t* __restrict__ pub_t, int32_t* __restrict__ coo
   store_point(coords, 0, P, row, vp);
 }
 
-// The point of scalar q: B for S (q = 0), -A_{q-1} for u (1 <= q <= M),
-// -R_{q-M} for z (q > M).
-__device__ __forceinline__ pt point_of(const int32_t* __restrict__ coords,
-                                       int q, int lane, int g) {
-  if (q == 0) return base_point();
-  return point_neg(load_point(coords, q <= M ? q - 1 : q, lane, g));
+// Coordinate c of the point of scalar s: B for S (s = 0), -A_{s-1} for u
+// (1 <= s <= M), -R_{s-M} for z (s > M).
+__device__ __forceinline__ fe coord_of(const int32_t* __restrict__ coords, int s,
+                                       int c, int lane, int g) {
+  if (s == 0) {
+    const pt b = base_point();
+    return pick(c == 0, b.x, pick(c == 1, b.y, pick(c == 2, b.z, b.t)));
+  }
+  const fe v = load_fe(coords, ((s <= M ? s - 1 : s) * 4 + c) * 32, lane, g);
+  return (c == 0 || c == 3) ? neg(v) : v;
 }
 
 // K2 — replaces pallas_rlc._k2_rlc_kernel (pallas_rlc.py:177).
-// Thread (lane, t), t = blockIdx.y in 0..M-1, builds table t: entry
-// lo + 4 hi = [lo]P_t + [hi]Q_t (lo, hi in 0..3) for the points of
-// scalars (2t, 2t+1), stored in Niels form. Bound: operations (13 point
-// additions and doublings, 16 conversions per table); the M tables of a
-// lane are spread over M threads.
-__global__ void __launch_bounds__(THREADS)
+// A quad of four threads per (lane, t), t = blockIdx.y in 0..M-1, builds
+// table t: entry lo + 4 hi = [lo]P_t + [hi]Q_t (lo, hi in 0..3) for the
+// points of scalars (2t, 2t+1), stored in Niels form; thread q holds
+// coordinate q of every point and stores coordinate q of every entry.
+// The rows O, P, 2P, 3P stay in named registers; hi walks outermost,
+// with the column [hi]Q made as it is reached (2Q by a double, 3Q = 2Q +
+// Q with Q loaded again rather than held, which keeps the kernel at the
+// 168 registers of its cap with no spills), so no point array is indexed
+// at run time. Bound: operations (13 point additions and doublings, 16
+// conversions per table).
+__global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
 k2_rlc_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
               int g) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K2_THREADS / 4) + (threadIdx.x >> 2);
+  const int lane = quad < g ? quad : g - 1;  // a quad past the end runs masked
   const int t = blockIdx.y;
-  if (lane >= g) return;
-  pt rows[4], cols[4];  // [O, P, 2P, 3P] and [O, Q, 2Q, 3Q]
-  rows[0] = identity_point();
-  cols[0] = identity_point();
-  rows[1] = point_of(coords, 2 * t, lane, g);
-  cols[1] = point_of(coords, 2 * t + 1, lane, g);
-  point_double(rows[2], rows[1], true);
-  point_double(cols[2], cols[1], true);
-  point_add(rows[3], rows[2], rows[1]);
-  point_add(cols[3], cols[2], cols[1]);
+  const fe o = quad_identity(q);
+  const fe p1 = coord_of(coords, 2 * t, q, lane, g);
+  const fe p2 = quad_double(p1, q, true);
+  const fe p3 = quad_add(p2, p1, q);
+  fe col = o;  // [hi]Q
 #pragma unroll 1
-  for (int e = 0; e < 16; ++e) {
-    const int lo = e & 3, hi = e >> 2;
-    pt ent;
-    if (hi == 0)
-      ent = rows[lo];
-    else if (lo == 0)
-      ent = cols[hi];
-    else
-      point_add(ent, rows[lo], cols[hi]);
-    to_niels(ent, ent);
-    store_fe(tbl, tbl_row(t, e, 0), ent.x, lane, g);
-    store_fe(tbl, tbl_row(t, e, 1), ent.y, lane, g);
-    store_fe(tbl, tbl_row(t, e, 2), ent.z, lane, g);
-    store_fe(tbl, tbl_row(t, e, 3), ent.t, lane, g);
+  for (int hi = 0; hi < 4; ++hi) {
+    if (hi == 1)
+      col = coord_of(coords, 2 * t + 1, q, lane, g);
+    else if (hi == 2)
+      col = quad_double(col, q, true);
+    else if (hi == 3)
+      col = quad_add(col, coord_of(coords, 2 * t + 1, q, lane, g), q);
+#pragma unroll 1
+    for (int lo = 0; lo < 4; ++lo) {
+      const fe row = pick(lo == 1, p1, pick(lo == 2, p2, pick(lo == 3, p3, o)));
+      const fe ent = hi == 0 ? row : lo == 0 ? col : quad_add(row, col, q);
+      const fe nl = quad_to_niels(ent, q);
+      if (quad < g) store_fe(tbl, tbl_row(t, lo + 4 * hi, q), nl, lane, g);
+    }
   }
 }
 
@@ -271,8 +289,9 @@ k3_rlc_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ dig,
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of its launch. The grid is ceil(g / THREADS) blocks
-// with the tail masked in the kernel; K3's is ceil(4 g / K3_THREADS), a
-// quad a lane, with the tail masked per quad.
+// with the tail masked in the kernel; K2's and K3's are ceil(4 g /
+// K2_THREADS) and ceil(4 g / K3_THREADS), a quad a lane (K2's times M
+// tables), with the tail masked per quad.
 
 static dim3 lane_grid(int g, int y) {
   return dim3((g + edw::THREADS - 1) / edw::THREADS, y);
@@ -309,9 +328,9 @@ extern "C" int tm_epoch_coords(const void* pub_t, void* coords, void* ok, int vp
 }
 
 extern "C" int tm_k2_rlc(const void* coords, void* tbl, int g, void* stream) {
-  edw::k2_rlc_kernel<<<lane_grid(g, edw::M), edw::THREADS, 0,
-                      (cudaStream_t)stream>>>((const int32_t*)coords,
-                                              (int32_t*)tbl, g);
+  const dim3 grid((4 * g + edw::K2_THREADS - 1) / edw::K2_THREADS, edw::M);
+  edw::k2_rlc_kernel<<<grid, edw::K2_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)coords, (int32_t*)tbl, g);
   return (int)cudaGetLastError();
 }
 

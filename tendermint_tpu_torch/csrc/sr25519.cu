@@ -23,10 +23,21 @@
 //
 // What the design does about it: as verify.cu, the signatures are the
 // parallelism. K1r runs a thread per (signature, point), so A and R decode
-// in two threads; K3r runs a thread per signature over the shared ladder
-// (fe25519.cuh ladder). The final test is exact ristretto equality
+// in two threads; K3r runs a quad of four threads per signature over the
+// shared ladder, as verify.cu's K3 does (fe25519.cuh quad functions):
+// thread q holds coordinate q of the accumulator, computes product q of
+// each round and loads only the table coordinate it multiplies, before
+// the iteration's doubles. The final test is exact ristretto equality
 // against R (z = 1): X yR == Y xR or Y yR == X xR, with no [8] doubles,
-// since ristretto points have no cofactor component to clear.
+// since ristretto points have no cofactor component to clear; each quad
+// thread forms one of its four cross products. At 10,240 signatures that
+// is 40,960 threads in 640 blocks of 64, registers capped for 5 blocks an
+// SM so that the grid is one wave (verify.cu's K3 settled the same
+// shape by a sweep). ptxas: 128 registers, 0 bytes of stack frame, no
+// local loads or stores in its SASS. The accumulator stays in registers:
+// passed to out-of-line point functions, it and each table entry went
+// through a 640-byte stack frame, and a one-thread K3r took 10.38 ms
+// against 2.08 (tools/torch_ladder_ab.py, PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -60,35 +71,52 @@ k1r_decode_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r
   store_point(coords, p, P, i, n);
 }
 
+// K3r runs a quad of threads per signature, K3R_THREADS / 4 signatures a
+// block, with registers capped for K3R_MIN_BLOCKS blocks an SM.
+constexpr int K3R_THREADS = 64;
+constexpr int K3R_MIN_BLOCKS = 5;
+
 // K3r — replaces pallas_sr25519._k3r_ladder_kernel (pallas_sr25519.py:98).
-// One thread per signature runs the joint ladder acc = [s]B + [k](-A)
-// over K2's table, then tests acc == R in the ristretto group, ANDed with
-// the two decode flags and the host flag sok (s < L and the schnorrkel
-// marker bit). Bound: operations (the ladder), sequential within a
-// signature.
-__global__ void __launch_bounds__(VTHREADS)
+// A quad of four threads runs one signature's joint ladder
+// acc = [s]B + [k](-A) over K2's table: 127 iterations, digit positions
+// 126 down to 0, of a double that skips T, a double that makes it, and a
+// Niels add of entry sdig + 4 kdig that skips T. Then acc == R in the
+// ristretto group, ANDed with the two decode flags and the host flag sok
+// (s < L and the schnorrkel marker bit), in quad thread 0. Bound:
+// operations (the ladder), sequential within a signature.
+__global__ void __launch_bounds__(K3R_THREADS, K3R_MIN_BLOCKS)
 k3r_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sdig,
                   const int32_t* __restrict__ kdig,
                   const int32_t* __restrict__ coords, const int32_t* __restrict__ ok,
                   const int32_t* __restrict__ sok, int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  pt acc;
-  ladder(acc, tbl, sdig, kdig, i, n);
-  const fe rx = load_fe(coords, 4 * 32, i, n);
-  const fe ry = load_fe(coords, 5 * 32, i, n);
-  const bool eq1 = is_zero(sub(mul(acc.x, ry), mul(acc.y, rx)));
-  const bool eq2 = is_zero(sub(mul(acc.y, ry), mul(acc.x, rx)));
-  const bool valid =
-      ok[i] != 0 && ok[(size_t)n + i] != 0 && sok[i] != 0 && (eq1 || eq2);
-  out[i] = valid ? 1 : 0;
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K3R_THREADS / 4) + (threadIdx.x >> 2);
+  const int i = quad < n ? quad : n - 1;  // a quad past the end runs masked
+  const int c = niels_coord(q);
+  fe acc = quad_identity(q);
+#pragma unroll 1
+  for (int it = 0; it < 127; ++it) {
+    const int pos = 126 - it;
+    const int j = (pos & 3) * 32 + (pos >> 2);
+    const int e = sdig[(size_t)j * n + i] + 4 * kdig[(size_t)j * n + i];
+    const fe ent = load_fe(tbl, (e * 4 + c) * 32, i, n);
+#pragma unroll 1
+    for (int d = 0; d < 2; ++d) acc = quad_double(acc, q, d == 1);
+    acc = quad_add_niels(acc, ent, q, false);
+  }
+  const fe r = load_fe(coords, (4 + ristretto_coord(q)) * 32, i, n);  // R's x or y
+  const bool eq = quad_ristretto_eq(acc, r, q);
+  if (q != 0 || quad >= n) return;
+  out[i] = (ok[i] != 0 && ok[(size_t)n + i] != 0 && sok[i] != 0 && eq) ? 1 : 0;
 }
 
 }  // namespace edw
 
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() of its launch.
+// cudaGetLastError() of its launch. K1r's grid is sig_grid (fe25519.cuh);
+// K3r's is ceil(4 n / K3R_THREADS), a quad a signature, with the tail
+// masked per quad.
 
 using edw::sig_grid;
 
@@ -106,7 +134,8 @@ extern "C" int tm_k1r_decode(const void* a_t, const void* r_t, const void* s_t,
 extern "C" int tm_k3r_ladder(const void* tbl, const void* sdig, const void* kdig,
                              const void* coords, const void* ok, const void* sok,
                              void* out, int n, void* stream) {
-  edw::k3r_ladder_kernel<<<sig_grid(n, 1), edw::VTHREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((4 * n + edw::K3R_THREADS - 1) / edw::K3R_THREADS);
+  edw::k3r_ladder_kernel<<<grid, edw::K3R_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tbl, (const int32_t*)sdig, (const int32_t*)kdig,
       (const int32_t*)coords, (const int32_t*)ok, (const int32_t*)sok, (int32_t*)out, n);
   return (int)cudaGetLastError();

@@ -63,11 +63,17 @@ def k3r_ladder_plain(tbl, sdig, kdig, coords, ok, sok):
     acc = [s]B + [k](-A), then acc == R in the ristretto group. R decodes
     with z = 1, so the projective cross-multiplications need no zR."""
     acc = verify.ladder_plain(tbl, sdig, kdig)
-    rx, ry = coords[_rows(1, 0)], coords[_rows(1, 1)]
+    eq = ristretto_eq(acc, coords[_rows(1, 0)], coords[_rows(1, 1)])
+    valid = (ok[0:1] != 0) & (ok[1:2] != 0) & (sok[0:1] != 0) & eq
+    return valid.to(torch.int32)
+
+
+def ristretto_eq(acc, rx, ry):
+    """acc == R in the ristretto group, for R = (rx, ry) with z = 1:
+    X yR == Y xR or Y yR == X xR (bool, like fe.is_zero)."""
     eq1 = fe.is_zero(fe.sub(fe.mul(acc[0], ry), fe.mul(acc[1], rx)))
     eq2 = fe.is_zero(fe.sub(fe.mul(acc[1], ry), fe.mul(acc[0], rx)))
-    valid = (ok[0:1] != 0) & (ok[1:2] != 0) & (sok[0:1] != 0) & (eq1 | eq2)
-    return valid.to(torch.int32)
+    return eq1 | eq2
 
 
 # -- kernel wrappers ----------------------------------------------------------

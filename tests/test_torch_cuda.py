@@ -320,3 +320,63 @@ def test_k3_ladder_matches_plain_over_rejects_and_padding(battery, cuda, n):
     assert torch.equal(got, want)
     assert got.cpu().numpy()[0].astype(bool).tolist() == oracle.tolist() + [True] * 6
     assert 0 < int(got.sum()) < n
+
+
+# -- the quad k2_rlc and k3r_ladder ------------------------------------------------
+
+
+def _garbage_pool(shape, dev) -> None:
+    """Leave a block of the caching allocator that torch.empty of `shape`
+    will reuse filled with -1, so a row the kernel never writes shows."""
+    torch.full(shape, -1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 64, 2560])
+def test_k2_rlc_matches_plain_on_every_row(battery, cuda, lanes):
+    """The quad k2_rlc against k2_rlc_plain: every raw limb of every slot,
+    rows 20..31 of each included (k2_rlc allocates its output with
+    torch.empty). The coordinates come from the ZIP-215 battery through
+    k1_rlc_plain, padding slots and lanes included; 1 and 2 lanes do not
+    fill a block of the kernel."""
+    n = 1 if lanes == 1 else 4 * lanes - (35 if lanes >= 64 else 3)
+    block, _ = _spread(battery, n, lanes + 1)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in rlc.prepare_rlc(block, 4 * lanes)]
+    coords = rlc.k1_rlc_plain(*args[:3])[0]
+    want = rlc.k2_rlc_plain(coords)
+    _garbage_pool(want.shape, cuda)
+    got = rlc.k2_rlc(coords)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def sr_battery():
+    """(entries, oracle verdicts): chip_smoke.py's ristretto edge battery
+    (tampered s, wrong message, no marker, s >= L, keys and R that do not
+    decode, the identity key, random bytes) and 60 distinct signatures of
+    _sr_entries, which hold their own tampered and rejecting rows."""
+    import chip_smoke
+
+    ents = chip_smoke.sr_edge_entries() + _sr_entries(60)
+    return ents, [sr25519.verify(*e) for e in ents]
+
+
+@pytest.mark.parametrize("n", [1, 250, 256, 10240])
+def test_k3r_ladder_matches_plain_over_rejects_and_padding(sr_battery, cuda, n):
+    """The quad k3r_ladder against k3r_ladder_plain: every verdict equal,
+    with 6 padding signatures (the all-zero identity, every flag 1) where
+    n > 1; 1 and 250 signatures do not fill a block of the kernel."""
+    live = 1 if n == 1 else n - 6
+    block, oracle = _spread(sr_battery, live, n)
+    args = [torch.from_numpy(a).to(cuda) for a in osr.prepare_sr25519(block, n)]
+    coords, ok, sdig, kdig = osr.k1r_decode_plain(*args[:6])
+    tbl = verify.k2_table_plain(coords)
+    want = osr.k3r_ladder_plain(tbl, sdig, kdig, coords, ok, args[6])
+    got = osr.k3r_ladder(tbl, sdig, kdig, coords, ok, args[6])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.cpu().numpy()[0].astype(bool).tolist() == oracle.tolist() + [True] * (n - live)
+    if n > 1:
+        assert 0 < int(got.sum()) < n
