@@ -19,8 +19,10 @@ Phases, in order:
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
-   signature. Coordinates are compared after canonicalisation, flags,
-   digits and verdicts exactly, and the verdicts against the oracles;
+   signature. Coordinates are compared after canonicalisation (the raw
+   limbs of k2_table's table and k1_decompress_cached's coordinates,
+   rows 20..31 of each slot included), flags, digits and verdicts
+   exactly, and the verdicts against the oracles;
 4. slice: `types.validation.verify_commit` on a 10,000-validator commit
    on the card, on each path with the launch counters set to 0 just
    before it and read just after:
@@ -165,11 +167,12 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1r_decode": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:75"),
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
 }
-# outputs of each kernel that hold 32-row coordinate slots (compared
-# after canonicalisation; the rest exactly)
+# outputs of each kernel that hold 32-row coordinate slots compared after
+# canonicalisation; the rest, and every output of k2_table and
+# k1_decompress_cached, raw
 SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (0,), "k2_rlc": (0,), "k3_rlc": (),
-                "epoch_coords": (0,), "k1_decompress": (0,), "k1_decompress_cached": (0,),
-                "k2_table": (0,), "k3_ladder": (), "k1r_decode": (0,), "k3r_ladder": ()}
+                "epoch_coords": (0,), "k1_decompress": (0,), "k1_decompress_cached": (),
+                "k2_table": (), "k3_ladder": (), "k1r_decode": (0,), "k3r_ladder": ()}
 
 
 class SmokeFailure(RuntimeError):

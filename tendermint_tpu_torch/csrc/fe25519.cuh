@@ -98,10 +98,6 @@ __device__ __forceinline__ pt base_point() {
                 6367, 2391, 2278, 5415, 5531, 3788, 6027, 6270, 471, 207}}};
 }
 
-__device__ __forceinline__ pt identity_point() {
-  return pt{fe_zero(), fe_one(), fe_one(), fe_zero()};
-}
-
 // ---- field (fe.py) ----------------------------------------------------------
 
 // One parallel carry pass; limb 19's carry wraps to limb 0 times 608.
@@ -223,7 +219,9 @@ __device__ __forceinline__ fe cond_sub_p(const fe& x) {
   return c < 0 ? x : t;
 }
 
-static __device__ __noinline__ fe canon(const fe x0) {
+// canon_body is the canonical reduction; canon is its out-of-line copy,
+// which the one-thread decompressions call.
+__device__ __forceinline__ fe canon_body(const fe x0) {
   fe x = carry(x0);
   const fe p8 = fe_8p();
 #pragma unroll
@@ -235,66 +233,23 @@ static __device__ __noinline__ fe canon(const fe x0) {
   return cond_sub_p(x);
 }
 
-__device__ __forceinline__ bool is_zero(const fe& x) {
-  const fe c = canon(x);
+static __device__ __noinline__ fe canon(const fe x0) { return canon_body(x0); }
+
+// c (canonical limbs) == 0.
+__device__ __forceinline__ bool all_zero(const fe& c) {
   bool z = true;
 #pragma unroll
   for (int i = 0; i < NL; ++i) z = z && (c.v[i] == 0);
   return z;
 }
 
+__device__ __forceinline__ bool is_zero(const fe& x) { return all_zero(canon(x)); }
+
 __device__ __forceinline__ bool eq(const fe& a, const fe& b) {
   fe d;
 #pragma unroll
   for (int i = 0; i < NL; ++i) d.v[i] = a.v[i] - b.v[i];
   return is_zero(d);
-}
-
-// ---- points (point.py) ------------------------------------------------------
-// Each writes its result only after reading every input, so `o` may alias
-// an input.
-
-static __device__ __noinline__ void point_add(pt& o, const pt& p, const pt& q) {
-  const fe a = mul(sub(p.y, p.x), sub(q.y, q.x));
-  const fe b = mul(add(p.y, p.x), add(q.y, q.x));
-  const fe c = mul(mul(p.t, fe_d2()), q.t);
-  const fe zz = mul(p.z, q.z);
-  const fe d = add(zz, zz);
-  const fe e = sub(b, a), f = sub(d, c), g = add(d, c), h = add(b, a);
-  o.x = mul(e, f);
-  o.y = mul(g, h);
-  o.z = mul(f, g);
-  o.t = mul(e, h);
-}
-
-// Doubling never reads T; need_t = false skips producing it.
-static __device__ __noinline__ void point_double(pt& o, const pt& p, bool need_t) {
-  const fe a = sq(p.x);
-  const fe b = sq(p.y);
-  const fe zz = sq(p.z);
-  const fe c = add(zz, zz);
-  const fe e = sub(sub(sq(add(p.x, p.y)), a), b);
-  const fe g = sub(b, a);
-  const fe f = sub(g, c);
-  const fe h = neg(add(a, b));
-  o.x = mul(e, f);
-  o.y = mul(g, h);
-  o.z = mul(f, g);
-  o.t = need_t ? mul(e, h) : fe_zero();
-}
-
-__device__ __forceinline__ pt point_neg(const pt& p) {
-  return pt{neg(p.x), p.y, p.z, neg(p.t)};
-}
-
-static __device__ __noinline__ void to_niels(pt& o, const pt& p) {
-  const fe yplusx = add(p.y, p.x);
-  const fe yminusx = sub(p.y, p.x);
-  const fe t2d = mul(p.t, fe_d2());
-  o.x = yplusx;
-  o.y = yminusx;
-  o.z = p.z;
-  o.t = t2d;
 }
 
 // ---- global layout ------------------------------------------------------------
@@ -316,15 +271,6 @@ __device__ __forceinline__ fe load_fe(const int32_t* __restrict__ base,
 #pragma unroll
   for (int l = 0; l < NL; ++l) x.v[l] = base[(size_t)(row + l) * g + col];
   return x;
-}
-
-// Point p of a coords array: coordinate c at rows (p * 4 + c) * 32.
-__device__ __forceinline__ pt load_point(const int32_t* __restrict__ coords,
-                                         int p, int col, int g) {
-  return pt{load_fe(coords, (p * 4 + 0) * 32, col, g),
-            load_fe(coords, (p * 4 + 1) * 32, col, g),
-            load_fe(coords, (p * 4 + 2) * 32, col, g),
-            load_fe(coords, (p * 4 + 3) * 32, col, g)};
 }
 
 __device__ __forceinline__ void store_point(int32_t* __restrict__ coords,
@@ -581,6 +527,286 @@ __device__ __forceinline__ bool quad_ristretto_eq(const fe& acc, const fe& r, in
   const fe p2 = quad_slot(p, 2), p3 = quad_slot(p, 3);
   if (q != 0) return false;
   return is_zero(sub(p0, p1)) || is_zero(sub(p2, p3));
+}
+
+// ---- the limb-split field product: a quad shares one product ----------------
+// A decompression is one field element's exponentiation, so the quad
+// point functions above, which split a point's coordinates, cannot share
+// it; these split the work of each field product instead. The quad holds
+// one element, thread q rotated by 5q limbs (r.v[m] = limb (m + 5q) mod
+// 20), so thread 0 holds it in order (split_u hands that to the quad).
+//
+// A multiply a b: thread q forms limbs 5q .. 5q + 4. Limb i = 5q + j takes
+// convolution columns i (products a_k b_{i-k}, k <= i) and 20 + i (k > i),
+// 20 products together, so 100 products a thread. a_k comes from thread 0
+// by a shuffle as it is needed; b_{(i-k) mod 20} is the thread's own
+// b.r[(j - k) mod 20], an index fixed at compile time; and k = 5t + s <= i
+// iff t < q or t == q and s <= j, so one running sum over k in order, read
+// at (t = q, s = j), gives column i, and the rest column 20 + i.
+//
+// A squaring takes each symmetric product once, as sq does: 55 products a
+// thread, not 100. Thread q's product r_m1 r_m2 is a_{m1+5q} a_{m2+5q}
+// and lands in limb m1 + m2 + 10q: threads 0 and 2 form limbs 0..9,
+// threads 1 and 3 limbs 10..19, and the pair (q, q ^ 2) sees the same
+// products shifted by 10 limbs. So each thread takes one pair {m1, m2} of
+// every orbit {P, P + 10} (sq_rep), doubled where its own two limbs
+// differ and the orbit holds two pairs (sq_coeff), and sorts it by
+// whether the limbs it multiplies sum to i or 20 + i for its q (sq_mask,
+// one of at most three classes a limb); the pair adds their sums with one
+// exchange of five limbs' two columns, and thread q keeps limbs 5b .. 5b
+// + 4, b = q with its two bits swapped. (With one rotation a thread, the
+// symmetric products of four threads cannot each keep five adjacent
+// limbs: r_m1 r_m2 always lands 10q limbs on, an even shift.)
+//
+// Then wrap_fold and the three carry passes run on the thread's five
+// limbs; the limbs they take from below (column 20 + (first limb) - 1,
+// and the three limbs below before the carries, from which the three
+// carry-ins follow) come from the thread below in one round of four
+// shuffles (the thread with limb 0 takes limb 19's carries times 608),
+// and the quad gathers the result rotated by 20 shuffles. Every product
+// and sum is the int32 one that mul and sq form, and int32 sums do not
+// depend on their order, so every limb equals the one-thread result.
+// carry, canon, add, sub and the other one-thread functions run on the
+// element in order in all four threads with no shuffle. All threads of a
+// warp execute every shuffle, so a product is never taken under a branch
+// that differs between quads: the callers form both sides and pick.
+
+constexpr int QB = NL / 4;  // limbs a thread keeps
+
+// u (in order, the same in every thread of the quad) rotated by 5q limbs
+// (one-thread selects).
+__device__ __forceinline__ fe split_rot(const fe& u, int q) {
+  fe r;
+#pragma unroll
+  for (int m = 0; m < NL; ++m) {
+    int32_t v = u.v[m];
+#pragma unroll
+    for (int t = 1; t < 4; ++t) v = q == t ? u.v[(m + QB * t) % NL] : v;
+    r.v[m] = v;
+  }
+  return r;
+}
+
+// The quad's element in order, to every thread (thread 0's r).
+__device__ __forceinline__ fe split_u(const fe& r) {
+  fe u;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) u.v[l] = __shfl_sync(QUAD_ALL, r.v[l], 0, 4);
+  return u;
+}
+
+// The thread of the quad that keeps limbs 5b .. 5b + 4 of a product (sym:
+// a squaring's, b's two bits swapped; the map is its own inverse, so it
+// also gives a thread's b).
+__device__ __forceinline__ int split_keeper(int b, bool sym) {
+  return sym ? ((b & 1) << 1) | (b >> 1) : b;
+}
+
+// Columns i (lo) and 20 + i (hi) of this thread's five limbs -> the
+// product, rotated, in every thread of the quad: wrap_fold, carry, gather.
+__device__ __forceinline__ fe split_finish(const int32_t (&lo)[QB], const int32_t (&hi)[QB],
+                                           int q, bool sym) {
+  const int b = split_keeper(q, sym);
+  const int below = split_keeper((b + 3) & 3, sym);
+  // column 19 + i is column 20 + (i - 1), from below for the first limb
+  // (limb 0 receives column 39, which is 0)
+  int32_t x[QB];
+#pragma unroll
+  for (int j = 1; j < QB; ++j)
+    x[j] = lo[j] + TOP_WRAP * (hi[j] & MASK) + TOP_WRAP * (hi[j - 1] >> RADIX);
+  const int32_t fold_in = __shfl_sync(QUAD_ALL, hi[QB - 1] >> RADIX, below, 4);
+  const int32_t xm3 = __shfl_sync(QUAD_ALL, x[QB - 3], below, 4);
+  const int32_t xm2 = __shfl_sync(QUAD_ALL, x[QB - 2], below, 4);
+  const int32_t xm1 = __shfl_sync(QUAD_ALL, x[QB - 1], below, 4);
+  x[0] = lo[0] + TOP_WRAP * (hi[0] & MASK) + TOP_WRAP * fold_in;
+  // carry(): three carry_pass. The two limbs below after the first pass,
+  // and the limb below after the second, as the thread below forms them,
+  // give the carry-ins of the second and third.
+  const int32_t p1m1 = (xm1 & MASK) + (xm2 >> RADIX);
+  const int32_t p1m2 = (xm2 & MASK) + (xm3 >> RADIX);
+  const int32_t p2m1 = (p1m1 & MASK) + (p1m2 >> RADIX);
+  const int32_t wrap = b == 0 ? TOP_WRAP : 1;
+  const int32_t c_in[3] = {xm1 >> RADIX, p1m1 >> RADIX, p2m1 >> RADIX};
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    int32_t o[QB];
+    o[0] = (x[0] & MASK) + c_in[pass] * wrap;
+#pragma unroll
+    for (int j = 1; j < QB; ++j) o[j] = (x[j] & MASK) + (x[j - 1] >> RADIX);
+#pragma unroll
+    for (int j = 0; j < QB; ++j) x[j] = o[j];
+  }
+  fe r;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int j = 0; j < QB; ++j)
+      r.v[QB * t + j] = __shfl_sync(QUAD_ALL, x[j], split_keeper((q + t) & 3, sym), 4);
+  }
+  return r;
+}
+
+// a * b (mul), rotated; only thread 0's a is read, so a may also be an
+// element in order in every thread.
+__device__ __forceinline__ fe split_mul(const fe& a, const fe& br, int q) {
+  int32_t run[QB], lo[QB], hi[QB];
+#pragma unroll
+  for (int j = 0; j < QB; ++j) run[j] = lo[j] = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int s = 0; s < QB; ++s) {
+      const int k = QB * t + s;
+      const int32_t ak = __shfl_sync(QUAD_ALL, a.v[k], 0, 4);
+#pragma unroll
+      for (int j = 0; j < QB; ++j) {
+        run[j] += ak * br.v[(j - k + NL) % NL];
+        if (s == j) lo[j] = t == q ? run[j] : lo[j];  // column i
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < QB; ++j) hi[j] = run[j] - lo[j];  // column 20 + i (0 for i = 19)
+  return split_finish(lo, hi, q, false);
+}
+
+// A squaring's product r_m1 r_{(j - m1) mod 20} for limb 10 (q & 1) + j:
+// whether this thread takes it (sq_rep), its factor (sq_coeff) and the
+// threads q for which it falls in column i rather than 20 + i (sq_mask,
+// bit q).
+__device__ constexpr int sq_m2(int j, int m1) { return (j - m1 + 2 * NL) % NL; }
+
+__device__ constexpr bool sq_rep(int j, int m1) {
+  const int m2 = sq_m2(j, m1);
+  const int a = (m1 + 10) % NL, b = (m2 + 10) % NL;
+  const int p0 = a < b ? a : b, p1 = a < b ? b : a;
+  return m1 <= m2 && (m1 < p0 || (m1 == p0 && m2 <= p1));
+}
+
+__device__ constexpr int sq_coeff(int j, int m1) {
+  const int m2 = sq_m2(j, m1);
+  const int a = (m1 + 10) % NL, b = (m2 + 10) % NL;
+  return (m1 == m2 || (a < b ? a : b) == m1) ? 1 : 2;
+}
+
+__device__ constexpr int sq_mask(int j, int m1) {
+  const int m2 = sq_m2(j, m1);
+  int mask = 0;
+  for (int q = 0; q < 4; ++q) {
+    if ((m1 + 5 * q) % NL + (m2 + 5 * q) % NL == 10 * (q & 1) + j) mask |= 1 << q;
+  }
+  return mask;
+}
+
+// sq: the same coefficients as mul(a, a), by symmetric products (header
+// note).
+__device__ __forceinline__ fe split_sq(const fe& ar, int q) {
+  fe d;
+#pragma unroll
+  for (int m = 0; m < NL; ++m) d.v[m] = ar.v[m] + ar.v[m];
+  int32_t lo[2 * QB], hi[2 * QB];
+#pragma unroll
+  for (int j = 0; j < 2 * QB; ++j) {
+    int32_t acc[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[c] = 0;
+#pragma unroll
+    for (int m1 = 0; m1 < NL; ++m1) {
+      if (!sq_rep(j, m1)) continue;
+      const int m2 = sq_m2(j, m1);
+      acc[sq_mask(j, m1)] += ar.v[m1] * (sq_coeff(j, m1) == 2 ? d.v[m2] : ar.v[m2]);
+    }
+    int32_t l = 0, all = acc[0];
+#pragma unroll
+    for (int c = 1; c < 16; ++c) {
+      all += acc[c];
+      l += ((c >> q) & 1) ? acc[c] : 0;
+    }
+    lo[j] = l;
+    hi[j] = all - l;
+  }
+  // the pair (q, q ^ 2) adds its halves; thread q keeps limbs 5g .. 5g + 4
+  // of its ten, g = q >> 1
+  const bool g = (q >> 1) != 0;
+  int32_t lo5[QB], hi5[QB];
+#pragma unroll
+  for (int j = 0; j < QB; ++j) {
+    lo5[j] = (g ? lo[QB + j] : lo[j]) + __shfl_xor_sync(QUAD_ALL, g ? lo[j] : lo[QB + j], 2, 4);
+    hi5[j] = (g ? hi[QB + j] : hi[j]) + __shfl_xor_sync(QUAD_ALL, g ? hi[j] : hi[QB + j], 2, 4);
+  }
+  return split_finish(lo5, hi5, q, true);
+}
+
+__device__ __forceinline__ fe split_sqn(fe a, int n, int q) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) a = split_sq(a, q);
+  return a;
+}
+
+// pow22523's chain on the quad.
+__device__ __forceinline__ fe split_pow22523(const fe& z, int q) {
+  const fe x2 = split_sq(z, q);
+  const fe x9 = split_mul(split_sqn(x2, 2, q), z, q);
+  const fe x11 = split_mul(x9, x2, q);
+  const fe x31 = split_mul(split_sq(x11, q), x9, q);
+  const fe xa = split_mul(split_sqn(x31, 5, q), x31, q);
+  const fe xb = split_mul(split_sqn(xa, 10, q), xa, q);
+  const fe xc = split_mul(split_sqn(xb, 20, q), xb, q);
+  const fe xd = split_mul(split_sqn(xc, 10, q), xa, q);
+  const fe xe = split_mul(split_sqn(xd, 50, q), xd, q);
+  const fe xf = split_mul(split_sqn(xe, 100, q), xe, q);
+  const fe xg = split_mul(split_sqn(xf, 50, q), xd, q);
+  return split_mul(split_sqn(xg, 2, q), z, q);
+}
+
+// y = carry(unpack_limbs(e)) of the 32 bytes at src, and the sign bit.
+__device__ __forceinline__ fe load_y(const uint8_t* __restrict__ src, int32_t& sign) {
+  int32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = src[b];
+  sign = e[31] >> 7;
+  return carry(unpack_limbs(e));
+}
+
+// decompress (ZIP-215) of the 32 bytes at src on the quad: X, Y, T in
+// order in every thread (Z = 1), the same limbs as the one-thread
+// decompress, whose sqrt_ratio(u, v) it inlines. So that only pow22523's
+// own values are live across its chain, the values sqrt_ratio needs after
+// the chain (u, v, u v^3, y) are formed again from the bytes after it:
+// five products more. The sqrt(-1) product is formed unconditionally and
+// picked.
+__device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out,
+                                                 const uint8_t* __restrict__ src, int q) {
+  int32_t sign;
+  fe w;
+  {  // (u v^7)^((p - 5) / 8) with u = y^2 - 1, v = d y^2 + 1
+    const fe yy = split_sq(split_rot(load_y(src, sign), q), q);
+    const fe u = sub(split_u(yy), fe_one());
+    const fe v = split_rot(add(split_u(split_mul(fe_d(), yy, q)), fe_one()), q);
+    const fe v3 = split_mul(split_sq(v, q), v, q);
+    const fe v7 = split_mul(split_sq(v3, q), v, q);
+    w = split_pow22523(split_mul(u, v7, q), q);
+  }
+  const fe y = load_y(src, sign);
+  const fe yr = split_rot(y, q);
+  const fe yy = split_sq(yr, q);
+  const fe u = sub(split_u(yy), fe_one());
+  const fe v = split_rot(add(split_u(split_mul(fe_d(), yy, q)), fe_one()), q);
+  const fe v3 = split_mul(split_sq(v, q), v, q);
+  const fe r = split_mul(split_mul(u, v3, q), w, q);
+  const fe check = split_u(split_mul(v, split_sq(r, q), q));
+  fe d;  // eq(check, u)
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d.v[i] = check.v[i] - u.v[i];
+  const bool ok_pos = all_zero(canon_body(d));
+  const bool ok_neg = all_zero(canon_body(add(check, u)));
+  const fe ri = split_mul(fe_sqrt_m1(), r, q);
+  const fe xc = canon_body(split_u(pick(ok_pos, r, ri)));
+  const fe x = pick((xc.v[0] & 1) != sign, neg(xc), xc);
+  x_out = x;
+  y_out = y;
+  t_out = split_u(split_mul(x, yr, q));
+  return ok_pos || ok_neg;
 }
 
 }  // namespace edw

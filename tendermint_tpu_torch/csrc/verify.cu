@@ -25,7 +25,25 @@
 //
 // What the design does about it: the signatures are the parallelism. K1
 // runs a thread per (signature, point), so A and R decompress in two
-// threads; K2 runs a thread per signature. K3's ladder is sequential
+// threads. The warm K1 has only R to decompress, and one decompression
+// per thread left the card mostly idle (320 warps on 528 schedulers at
+// 10,240 signatures, each walking pow22523's chain of 255 squarings
+// alone, 0.23 ms): it runs a quad of four threads per signature on the
+// limb-split field product of fe25519.cuh, in which thread q forms limbs
+// 5q .. 5q + 4 of each product (55 products a squaring, 100 a multiply),
+// so 1,280 warps share the chains: 0.17 ms. Its registers are capped for
+// one wave, as K3's below (168, no spill; uncapped it took 196 and ran in
+// two waves, 0.20 ms), and the values sqrt_ratio needs after pow22523 are
+// formed again after it, so that only the chain's own values are live
+// across it. Its time grows with the batch from 5,120 signatures (0.12,
+// 0.17, 0.28 ms at 5,120, 10,240 and 20,480), so the card's schedulers,
+// not one chain's latency (0.09 ms at 2,560), bound it (inferred; no
+// profiler reads the card), and no one part of a product holds most of
+// it: without the gathers, the carries' exchange or the pair's exchange
+// it ran 6%, 3% and 11% faster (tools/torch_ladder_ab.py, PERF.md). A
+// pair of threads a signature, and gathers through shared memory,
+// measured no faster. K2 runs a quad per signature on the quad point
+// functions, as rlc.cu's K2. K3's ladder is sequential
 // within a signature, so a quad of four threads shares it, as in the RLC
 // K3 (fe25519.cuh quad functions): thread q holds coordinate q of the
 // accumulator, computes product q of each round of a double or an add,
@@ -44,11 +62,12 @@
 // whose schedulers are all busy issuing integer instructions (PERF.md has
 // its time beside the bound).
 //
-// Shared design: as csrc/rlc.cu; K1 and K2 call the __noinline__ point
-// functions of fe25519.cuh, K3 its inline quad functions. Table select is
-// a direct indexed load of entry s2 + 4 k2 (pallas_verify's 16-way masked
-// select was a Mosaic constraint); verification handles public data, so
-// nothing here is constant time.
+// Shared design: as csrc/rlc.cu; the cold K1 calls the __noinline__
+// decompress of fe25519.cuh, the warm K1 its inline split functions, K2
+// and K3 its inline quad functions. Table select is a direct indexed load
+// of entry s2 + 4 k2 (pallas_verify's 16-way masked select was a Mosaic
+// constraint); verification handles public data, so nothing here is
+// constant time.
 
 #include <cuda_runtime.h>
 
@@ -83,17 +102,26 @@ k1_decompress_kernel(const uint8_t* __restrict__ a_t,
   store_point(coords, p, P, i, n);
 }
 
+// The warm K1 runs a quad of threads per signature, K1C_THREADS / 4
+// signatures a block, with registers capped for K1C_MIN_BLOCKS blocks an
+// SM (the header note says why).
+constexpr int K1C_THREADS = 64;
+constexpr int K1C_MIN_BLOCKS = 5;
+
 // K1 for a warm epoch — replaces pallas_verify._k1_decompress_kernel_cached
 // (pallas_verify.py:263). The epoch table (rlc.cu epoch_coords_kernel)
 // holds every validator's decompressed A in (4 * 32, vp) and its flag in
 // (1, vp); idx[i] names signature i's column (padding signatures name
-// column vp - 1, the identity). Thread (i, p): p = 0 unpacks the digits
-// of s from the row-major s_rows (n, 32) and copies A and its flag from
-// the table; p = 1 unpacks the digits of k and decompresses R from
-// r_rows (n, 32). So the JAX pipeline's device gather (4 * 32, n) and its
-// r/s/k transposes do not exist. Bound: operations (the R
+// column vp - 1, the identity). A quad per signature: thread q copies
+// coordinate q of A from the table, unpacks the digits of bytes 8q .. 8q
+// + 7 of s and of k (row-major s_rows and k_rows, (n, 32)), and the quad
+// decompresses R from r_rows (n, 32) together on the limb-split field
+// product (fe25519.cuh), thread q storing coordinate q of it; quad thread
+// 0 writes both flags. So the JAX pipeline's device gather (4 * 32, n)
+// and its r/s/k transposes do not exist. A quad past the end runs on a
+// clamped signature with its stores masked. Bound: operations (the R
 // decompressions); the copy is a few hundred bytes a thread.
-__global__ void __launch_bounds__(VTHREADS)
+__global__ void __launch_bounds__(K1C_THREADS, K1C_MIN_BLOCKS)
 k1_decompress_cached_kernel(const int32_t* __restrict__ ctbl,
                             const int32_t* __restrict__ oktbl,
                             const int32_t* __restrict__ idx,
@@ -103,61 +131,86 @@ k1_decompress_cached_kernel(const int32_t* __restrict__ ctbl,
                             int32_t* __restrict__ coords, int32_t* __restrict__ ok,
                             int32_t* __restrict__ sdig, int32_t* __restrict__ kdig,
                             int n, int vp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (i >= n) return;
-  store_digits(p == 0 ? sdig : kdig, 0, (p == 0 ? s_rows : k_rows) + (size_t)i * 32, 1,
-               i, n);
-  if (p == 0) {
-    const int col = idx[i];
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c)
-      store_fe(coords, c * 32, load_fe(ctbl, c * 32, col, vp), i, n);
-    ok[i] = oktbl[col];
-    return;
-  }
-  const uint8_t* src = r_rows + (size_t)i * 32;
-  int32_t e[32];
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K1C_THREADS / 4) + (threadIdx.x >> 2);
+  const bool live = quad < n;
+  const int i = live ? quad : n - 1;
+  const int col = idx[i];
+  if (live) {
 #pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = src[b];
-  pt P;
-  const bool okp = decompress(P, e);
-  ok[(size_t)n + i] = okp ? 1 : 0;
-  store_point(coords, 1, P, i, n);
+    for (int b = 0; b < 8; ++b) {
+      const int by = 8 * q + b;
+      const int32_t sb = s_rows[(size_t)i * 32 + by], kb = k_rows[(size_t)i * 32 + by];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        sdig[(size_t)(d * 32 + by) * n + i] = (sb >> (2 * d)) & 3;
+        kdig[(size_t)(d * 32 + by) * n + i] = (kb >> (2 * d)) & 3;
+      }
+    }
+    store_fe(coords, q * 32, load_fe(ctbl, q * 32, col, vp), i, n);
+  }
+  fe x, y, t;
+  const bool okr = split_decompress(x, y, t, r_rows + (size_t)i * 32, q);
+  if (!live) return;
+  store_fe(coords, (4 + q) * 32, pick(q == 0, x, pick(q == 1, y, pick(q == 2, fe_one(), t))), i,
+           n);
+  if (q == 0) {
+    ok[i] = oktbl[col];
+    ok[(size_t)n + i] = okr ? 1 : 0;
+  }
+}
+
+// K2 runs a quad of threads per signature, K2_THREADS / 4 signatures a
+// block, with registers capped for K2_MIN_BLOCKS blocks an SM (rlc.cu's K2
+// settled the same shape by a sweep; ptxas: 168 registers, 0 bytes of
+// stack, where the one-thread K2 it replaces had a 2,880-byte frame).
+constexpr int K2_THREADS = 64;
+constexpr int K2_MIN_BLOCKS = 5;
+
+// Coordinate c of -A, point 0 of coords.
+__device__ __forceinline__ fe neg_a_coord(const int32_t* __restrict__ coords, int c, int i,
+                                          int n) {
+  const fe v = load_fe(coords, c * 32, i, n);
+  return (c == 0 || c == 3) ? neg(v) : v;
 }
 
 // K2 — replaces pallas_verify._k2_table_kernel (pallas_verify.py:286).
-// One thread per signature builds the 16-entry table: entry s2 + 4 k2
-// (s2, k2 in 0..3) = [s2]B + [k2](-A), stored in Niels form at rows
-// (e * 4 + c) * 32. 2B and 3B are computed per thread by the same
-// formulas as the JAX body, so every entry matches it limb for limb.
-// Bound: operations (13 point additions and doublings, 16 conversions).
-__global__ void __launch_bounds__(VTHREADS)
-k2_table_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl,
-                int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  pt brow[4], acol[4];  // [O, B, 2B, 3B] and [O, -A, -2A, -3A]
-  brow[0] = identity_point();
-  acol[0] = identity_point();
-  brow[1] = base_point();
-  acol[1] = point_neg(load_point(coords, 0, i, n));
-  point_double(brow[2], brow[1], true);
-  point_double(acol[2], acol[1], true);
-  point_add(brow[3], brow[2], brow[1]);
-  point_add(acol[3], acol[2], acol[1]);
+// A quad of four threads per signature builds the 16-entry table: entry
+// s2 + 4 k2 (s2, k2 in 0..3) = [s2]B + [k2](-A), stored in Niels form at
+// rows (e * 4 + c) * 32; thread q holds coordinate q of every point
+// (fe25519.cuh quad functions) and stores coordinate q of every entry.
+// As rlc.cu's K2 with the row P = B and the column Q = -A: the rows O, B,
+// 2B, 3B stay in named registers (2B and 3B by the same double and add as
+// the plain version, so every limb matches it), k2 walks outermost, and
+// the column [k2](-A) is made as it is reached, -A loaded again for 3(-A)
+// = 2(-A) + (-A). Bound: operations (13 point additions and doublings,
+// 16 conversions per signature).
+__global__ void __launch_bounds__(K2_THREADS, K2_MIN_BLOCKS)
+k2_table_kernel(const int32_t* __restrict__ coords, int32_t* __restrict__ tbl, int n) {
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K2_THREADS / 4) + (threadIdx.x >> 2);
+  const int i = quad < n ? quad : n - 1;  // a quad past the end runs masked
+  const pt b = base_point();
+  const fe o = quad_identity(q);
+  const fe p1 = pick(q == 0, b.x, pick(q == 1, b.y, pick(q == 2, b.z, b.t)));
+  const fe p2 = quad_double(p1, q, true);
+  const fe p3 = quad_add(p2, p1, q);
+  fe col = o;  // [k2](-A)
 #pragma unroll 1
-  for (int e = 0; e < 16; ++e) {
-    const int s2 = e & 3, k2 = e >> 2;
-    pt ent;
-    if (k2 == 0)
-      ent = brow[s2];
-    else if (s2 == 0)
-      ent = acol[k2];
-    else
-      point_add(ent, brow[s2], acol[k2]);
-    to_niels(ent, ent);
-    store_point(tbl, e, ent, i, n);
+  for (int k2 = 0; k2 < 4; ++k2) {
+    if (k2 == 1)
+      col = neg_a_coord(coords, q, i, n);
+    else if (k2 == 2)
+      col = quad_double(col, q, true);
+    else if (k2 == 3)
+      col = quad_add(col, neg_a_coord(coords, q, i, n), q);
+#pragma unroll 1
+    for (int s2 = 0; s2 < 4; ++s2) {
+      const fe row = pick(s2 == 1, p1, pick(s2 == 2, p2, pick(s2 == 3, p3, o)));
+      const fe ent = k2 == 0 ? row : s2 == 0 ? col : quad_add(row, col, q);
+      const fe nl = quad_to_niels(ent, q);
+      if (quad < n) store_fe(tbl, ((s2 + 4 * k2) * 4 + q) * 32, nl, i, n);
+    }
   }
 }
 
@@ -206,9 +259,12 @@ k3_ladder_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ sd
 
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() of its launch. The grid is ceil(n / VTHREADS) blocks
-// with the tail masked in the kernel (fe25519.cuh sig_grid); K3's is
-// ceil(4 n / K3_THREADS), a quad a signature, with the tail masked per quad.
+// cudaGetLastError() of its launch. The cold K1's grid is ceil(n /
+// VTHREADS) blocks, a thread per (signature, point), with the tail masked
+// in the kernel (fe25519.cuh sig_grid); the warm K1's is ceil(4 n /
+// K1C_THREADS), K2's ceil(4 n / K2_THREADS) and K3's ceil(4 n /
+// K3_THREADS), a quad of threads a signature, with the tail masked per
+// quad.
 
 using edw::sig_grid;
 
@@ -228,8 +284,8 @@ extern "C" int tm_k1_decompress_cached(const void* ctbl, const void* oktbl,
                                        const void* s_rows, const void* k_rows,
                                        void* coords, void* ok, void* sdig, void* kdig,
                                        int n, int vp, void* stream) {
-  edw::k1_decompress_cached_kernel<<<sig_grid(n, 2), edw::VTHREADS, 0,
-                                    (cudaStream_t)stream>>>(
+  const dim3 grid((4 * n + edw::K1C_THREADS - 1) / edw::K1C_THREADS);
+  edw::k1_decompress_cached_kernel<<<grid, edw::K1C_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ctbl, (const int32_t*)oktbl, (const int32_t*)idx,
       (const uint8_t*)r_rows, (const uint8_t*)s_rows, (const uint8_t*)k_rows,
       (int32_t*)coords, (int32_t*)ok, (int32_t*)sdig, (int32_t*)kdig, n, vp);
@@ -237,7 +293,8 @@ extern "C" int tm_k1_decompress_cached(const void* ctbl, const void* oktbl,
 }
 
 extern "C" int tm_k2_table(const void* coords, void* tbl, int n, void* stream) {
-  edw::k2_table_kernel<<<sig_grid(n, 1), edw::VTHREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((4 * n + edw::K2_THREADS - 1) / edw::K2_THREADS);
+  edw::k2_table_kernel<<<grid, edw::K2_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)coords, (int32_t*)tbl, n);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ torch sees no CUDA device they skip, decided inside the `cuda` fixture.
 Run them on the card with `python -m pytest tests/test_torch_cuda.py`.
 
 Tolerance: none. Coordinates are compared after canonicalisation (and
-are expected equal limb for limb), flags, digits and verdicts exactly.
+are expected equal limb for limb), flags, digits and verdicts exactly;
+the quad k2_rlc's and k2_table's tables and k1_decompress_cached's
+outputs raw, every row of every slot.
 """
 
 import hashlib
@@ -325,11 +327,13 @@ def test_k3_ladder_matches_plain_over_rejects_and_padding(battery, cuda, n):
 # -- the quad k2_rlc and k3r_ladder ------------------------------------------------
 
 
-def _garbage_pool(shape, dev) -> None:
-    """Leave a block of the caching allocator that torch.empty of `shape`
-    will reuse filled with -1, so a row the kernel never writes shows."""
-    torch.full(shape, -1, dtype=torch.int32, device=dev)
+def _garbage_pool(dev, *shapes) -> None:
+    """Leave blocks of the caching allocator that torch.empty of `shapes`,
+    in that order, will reuse filled with -1, so a row the kernel never
+    writes shows. The blocks are held together, then freed."""
+    bufs = [torch.full(s, -1, dtype=torch.int32, device=dev) for s in shapes]
     torch.cuda.synchronize()
+    del bufs
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 64, 2560])
@@ -345,7 +349,7 @@ def test_k2_rlc_matches_plain_on_every_row(battery, cuda, lanes):
             for a in rlc.prepare_rlc(block, 4 * lanes)]
     coords = rlc.k1_rlc_plain(*args[:3])[0]
     want = rlc.k2_rlc_plain(coords)
-    _garbage_pool(want.shape, cuda)
+    _garbage_pool(cuda, want.shape)
     got = rlc.k2_rlc(coords)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -380,3 +384,51 @@ def test_k3r_ladder_matches_plain_over_rejects_and_padding(sr_battery, cuda, n):
     assert got.cpu().numpy()[0].astype(bool).tolist() == oracle.tolist() + [True] * (n - live)
     if n > 1:
         assert 0 < int(got.sum()) < n
+
+
+# -- the quad k2_table and the split-product k1_decompress_cached --------------
+
+
+@pytest.mark.parametrize("n", [1, 250, 10240])
+def test_k2_table_matches_plain_on_every_row(battery, cuda, n):
+    """The quad k2_table against k2_table_plain: every raw limb of every
+    slot, rows 20..31 included (k2_table allocates with torch.empty). The
+    coordinates come from the ZIP-215 battery through k1_decompress_plain,
+    with 6 padding signatures where n > 1; 1 and 250 signatures do not
+    fill a block of the kernel."""
+    live = 1 if n == 1 else n - 6
+    block, _ = _spread(battery, live, n + 2)
+    args = [torch.from_numpy(a).to(cuda) for a in verify.prepare_compact(block, n)]
+    coords = verify.k1_decompress_plain(*args[:4])[0]
+    want = verify.k2_table_plain(coords)
+    _garbage_pool(cuda, want.shape)
+    got = verify.k2_table(coords)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 250, 10240])
+def test_k1_decompress_cached_matches_plain_on_raw_limbs(battery, cuda, n):
+    """The split-product k1_decompress_cached against its plain version
+    on raw limbs: A's and R's coordinate slots (rows 20..31 included),
+    both flags and the digits of s and k, with every output allocated on
+    -1-filled memory. Over the ZIP-215 battery (non-canonical y, the
+    sqrt(-1) branch, encodings that do not decompress) in an epoch whose
+    table columns are out of order, with 6 padding signatures on column
+    vp - 1 where n > 1; 1 and 250 signatures leave quads of the last
+    block past the end."""
+    import chip_smoke
+
+    live = 1 if n == 1 else n - 6
+    block, _ = _spread(battery, live, n + 3)
+    wblock, ep = chip_smoke.with_epoch(block, n)
+    args = [torch.from_numpy(a).to(cuda) for a in verify.prepare_compact_cached(wblock, n, ep)]
+    tables = ep.coords_tables(cuda)
+    want = verify.k1_decompress_cached_plain(*tables, *args[:4])
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = verify.k1_decompress_cached(*tables, *args[:4])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert 0 < int(want[1].sum()) < 2 * n

@@ -1,26 +1,39 @@
-"""The quad point functions and the quad kernels on the CPU.
+"""The quad point functions, the limb-split field product and the kernels
+built on them, on the CPU.
 
 csrc/fe25519.cuh's quad functions (quad_double, quad_add_niels,
 quad_add, quad_to_niels, quad_cofactor_eq, quad_ristretto_eq) let four
 threads of a warp share one point: thread q holds coordinate q of the
 point, computes product q of each round with mul/sq, and the quad swaps
-the 20-limb products by __shfl_sync. CUDA code runs only on the card,
-where tests/test_torch_cuda.py holds the whole kernels to their plain
-versions. Here the header itself is compiled for the host with the
-system C++ compiler, against a small stand-in for the CUDA runtime in
-which every CUDA thread of one warp is an OS thread and a shuffle meets
-at a barrier, so the kernels' split of the products, the coordinate each
-thread loads and the exchanges are checked on every run against the
-plain point functions (ops/point.py, themselves held to the JAX
-package's by test_torch_point.py). The same stand-in, with a launcher
-that starts each warp of a block's threads, runs the whole k2_rlc and
-k3r_ladder kernels of csrc/rlc.cu and csrc/sr25519.cu at a few lanes and
-signatures against their plain versions.
+the 20-limb products by __shfl_sync. Its split functions (split_mul,
+split_sq, split_pow22523) let a quad share one field product: each
+thread forms five of the 20 limbs, and the quad exchanges carries and
+gathers the limbs by shuffles.
+CUDA code runs only on the card, where tests/test_torch_cuda.py holds the
+whole kernels to their plain versions. Here the header itself is
+compiled for the host with the system C++ compiler, against a small
+stand-in for the CUDA runtime in which every CUDA thread of one warp is
+a fiber and a shuffle waits until every thread of the warp reached it, so the
+kernels' split of the products, the coordinate each thread loads and the
+exchanges are checked on every run against the plain functions
+(ops/point.py and ops/fe.py, themselves held to the JAX package's by
+test_torch_point.py and test_torch_fe.py). The same stand-in, with a
+launcher that starts each warp of a block's threads, runs the whole
+k2_rlc and k3r_ladder kernels of csrc/rlc.cu and csrc/sr25519.cu and the
+k2_table and k1_decompress_cached kernels of csrc/verify.cu at a few
+lanes and signatures against their plain versions. A thread that
+returns while others wait at a shuffle marks its warp broken: a shuffle
+that not every thread reached, which hangs the card, fails the test here
+at once instead of hanging it.
 
 Inputs: seeded random limbs in [0, 2^13), eight points (one warp of
-eight quads); the kernels at 3 lanes of random limbs and at 20 sr25519
-signatures (chip_smoke.py's ristretto edge battery and 2 padding rows).
-Tolerance: none; every limb of every coordinate is equal.
+eight quads); for the split functions, seeded random limbs over the
+carried range [-1216, 2^13 + 1216] with whole elements at either end;
+the kernels at 1 and 3 lanes or signatures of random limbs, at 20
+sr25519 signatures (chip_smoke.py's ristretto edge battery and 2 padding
+rows) and over chip_smoke.py's ZIP-215 edge battery with padding.
+Tolerance: none; every limb of every output is equal, rows 20..31 of
+each slot included.
 """
 
 import ctypes
@@ -32,7 +45,7 @@ import pytest
 import torch
 
 from tendermint_tpu_torch.crypto import _edwards
-from tendermint_tpu_torch.ops import fe, kernels, point, rlc, verify
+from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, point, rlc, verify
 from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 
@@ -40,11 +53,20 @@ torch.set_num_threads(1)
 
 B = 8  # points: one warp of eight quads
 
-# The CUDA runtime as far as fe25519.cuh uses it, for the host.
+# The CUDA runtime as far as the kernels use it, for the host. A warp's
+# 32 threads run as fibers (ucontext) on one OS thread, and a shuffle
+# switches to the next fiber: once every thread of the warp has reached
+# the shuffle, all of them go on. A thread that returns while others wait
+# at a shuffle marks the warp broken, and from then on no thread of it
+# waits: a shuffle not every thread reaches, which hangs the card, ends
+# the launch at once, and the launcher reports it. One warp takes one
+# core, whatever the load on the machine, and nothing spins.
 SHIM = r"""
 #pragma once
-#include <barrier>
 #include <cstdint>
+#include <functional>
+#include <memory>
+#include <ucontext.h>
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -53,15 +75,68 @@ SHIM = r"""
 #define __restrict__ __restrict
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
-struct EmuWarp { std::barrier<> bar{32}; int32_t vals[32]; };
+struct EmuWarp {
+  static constexpr size_t kStack = 1 << 18;
+  enum { kReady, kAtShuffle, kReturned };
+  ucontext_t sched, ctx[32];
+  int state[32] = {};
+  unsigned nshfl[32] = {};
+  bool broken = false;
+  int32_t vals[2][32];
+  std::function<void(int)> body;
+};
 inline thread_local EmuWarp* tl_warp;
 inline thread_local int tl_lane;
+inline void emu_fiber() {
+  EmuWarp& w = *tl_warp;
+  const int lane = tl_lane;
+  w.body(lane);
+  w.state[lane] = EmuWarp::kReturned;
+}
+// Runs body(lane) for the 32 lanes of one warp, lane l as thread
+// tid0 + l of its block; 1 where the warp broke, else 0.
+template <class F> int emu_warp(F body, unsigned tid0 = 0) {
+  EmuWarp w;
+  w.body = body;
+  std::unique_ptr<char[]> stacks(new char[32 * EmuWarp::kStack]);
+  for (int l = 0; l < 32; ++l) {
+    getcontext(&w.ctx[l]);
+    w.ctx[l].uc_stack.ss_sp = stacks.get() + l * EmuWarp::kStack;
+    w.ctx[l].uc_stack.ss_size = EmuWarp::kStack;
+    w.ctx[l].uc_link = &w.sched;
+    makecontext(&w.ctx[l], emu_fiber, 0);
+  }
+  tl_warp = &w;
+  for (;;) {
+    int waiting = 0, returned = 0;
+    for (int l = 0; l < 32; ++l) {
+      if (w.state[l] == EmuWarp::kReady) {
+        tl_lane = l;
+        threadIdx = dim3(tid0 + l);
+        swapcontext(&w.sched, &w.ctx[l]);
+      }
+      waiting += w.state[l] == EmuWarp::kAtShuffle;
+      returned += w.state[l] == EmuWarp::kReturned;
+    }
+    if (returned == 32) break;
+    if (waiting < 32) w.broken = true;
+    for (int l = 0; l < 32; ++l)
+      if (w.state[l] == EmuWarp::kAtShuffle) w.state[l] = EmuWarp::kReady;
+  }
+  return w.broken ? 1 : 0;
+}
+// Shuffles alternate between two value buffers: a thread writes a buffer
+// again only after every thread has reached the shuffle in between, and
+// so has read it.
 inline int emu_shfl(int v, int src) {
-  tl_warp->vals[tl_lane] = v;
-  tl_warp->bar.arrive_and_wait();
-  const int r = tl_warp->vals[src];
-  tl_warp->bar.arrive_and_wait();
-  return r;
+  EmuWarp& w = *tl_warp;
+  const int lane = tl_lane;
+  if (w.broken) return v;
+  int32_t* vals = w.vals[w.nshfl[lane]++ & 1];
+  vals[lane] = v;
+  w.state[lane] = EmuWarp::kAtShuffle;
+  swapcontext(&w.ctx[lane], &w.sched);
+  return w.broken ? v : vals[src];
 }
 inline int __shfl_sync(unsigned, int v, int src, int width) {
   return emu_shfl(v, (tl_lane & ~(width - 1)) + (src & (width - 1)));
@@ -73,10 +148,13 @@ inline int __shfl_xor_sync(unsigned, int v, int m, int width) {
 
 # op 0: quad_double, 1: quad_add_niels, 2: quad_cofactor_eq, 3: quad_add,
 # 4: quad_to_niels, 5: quad_ristretto_eq over (4, 20, b) arrays; thread
-# 4k + q works on coordinate q of point k.
+# 4k + q works on coordinate q of point k. emu_split: op 0 split_mul, 1
+# split_sq, 2 split_pow22523 on one warp of eight quads, quad k on column
+# k of (20, 8) arrays; thread q of the quad writes the result in order
+# (split_u) and as it holds it (rotated by 5q limbs) to out (4, 2, 20, 8).
+# Each returns 1 where a warp broke (a shuffle not every thread reached),
+# else 0.
 HARNESS = r"""
-#include <thread>
-#include <vector>
 #include "fe25519.cuh"
 using namespace edw;
 static fe load(const int32_t* p, int c, int k, int b) {
@@ -84,14 +162,9 @@ static fe load(const int32_t* p, int c, int k, int b) {
   for (int l = 0; l < NL; ++l) x.v[l] = p[(c * NL + l) * b + k];
   return x;
 }
-extern "C" void emu_quad(int op, int need_t, const int32_t* pts, const int32_t* ents,
-                         int32_t* out, int b) {
-  EmuWarp warp;
-  std::vector<std::thread> threads;
-  for (int tid = 0; tid < 4 * b; ++tid)
-    threads.emplace_back([=, &warp] {
-      tl_warp = &warp;
-      tl_lane = tid;
+extern "C" int emu_quad(int op, int need_t, const int32_t* pts, const int32_t* ents,
+                        int32_t* out, int b) {
+  return emu_warp([=](int tid) {
       const int q = tid & 3, k = tid >> 2;
       const fe c = load(pts, q, k, b);
       if (op == 2 || op == 5) {
@@ -106,46 +179,82 @@ extern "C" void emu_quad(int op, int need_t, const int32_t* pts, const int32_t* 
                              : quad_to_niels(c, q);
       for (int l = 0; l < NL; ++l) out[(q * NL + l) * b + k] = r.v[l];
     });
-  for (auto& t : threads) t.join();
+}
+extern "C" int emu_split(int op, const int32_t* a, const int32_t* b, int32_t* out) {
+  return emu_warp([=](int tid) {
+      const int q = tid & 3, k = tid >> 2;
+      const fe x = load(a, 0, k, 8), y = load(b, 0, k, 8);
+      const fe r = op == 0 ? split_mul(x, split_rot(y, q), q)
+                   : op == 1 ? split_sq(split_rot(x, q), q)
+                             : split_pow22523(split_rot(x, q), q);
+      const fe u = split_u(r);
+      for (int l = 0; l < NL; ++l) {
+        out[((q * 2 + 0) * NL + l) * 8 + k] = u.v[l];
+        out[((q * 2 + 1) * NL + l) * 8 + k] = r.v[l];
+      }
+    });
+}
+// A warp whose lane 5 leaves before the quad's shuffle: the stand-in must
+// report it.
+extern "C" int emu_stray_lane() {
+  return emu_warp([](int tid) {
+    if (tid != 5) quad_slot(fe_one(), 0);
+  });
 }
 """
 
-# The kernels of rlc.cu and sr25519.cu (each cut above its C interface,
-# whose <<<>>> launches are CUDA syntax), launched warp by warp: the 32
-# threads of a warp run together, one warp after another.
+# The kernels of rlc.cu and sr25519.cu, and in a library of its own (its
+# constants share names with rlc.cu's) those of verify.cu, each cut above
+# its C interface, whose <<<>>> launches are CUDA syntax, launched warp by
+# warp: the 32 threads of a warp run together, one warp after another.
+# Each launcher returns 1 where a warp broke, else 0.
+LAUNCH = r"""
+using namespace edw;
+template <class F> static int launch(dim3 grid, int threads, F body) {
+  int broken = 0;
+  blockDim = dim3(threads);
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      blockIdx = dim3(bx, by);
+      for (int w = 0; w < threads / 32; ++w)
+        broken |= emu_warp([=](int) { body(); }, w * 32);
+    }
+  return broken;
+}
+"""
+
 KERNEL_HARNESS = r"""
-#include <thread>
-#include <vector>
 #include "rlc_body.cu"
 #include "sr25519_body.cu"
-using namespace edw;
-template <class F> static void launch(dim3 grid, int threads, F body) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx)
-      for (int w = 0; w < threads / 32; ++w) {
-        EmuWarp warp;
-        std::vector<std::thread> ts;
-        for (int l = 0; l < 32; ++l)
-          ts.emplace_back([=, &warp] {
-            tl_warp = &warp;
-            tl_lane = l;
-            threadIdx = dim3(w * 32 + l);
-            blockIdx = dim3(bx, by);
-            blockDim = dim3(threads);
-            body();
-          });
-        for (auto& t : ts) t.join();
-      }
+""" + LAUNCH + r"""
+extern "C" int emu_k2_rlc(const int32_t* coords, int32_t* tbl, int g) {
+  return launch(dim3((4 * g + K2_THREADS - 1) / K2_THREADS, M), K2_THREADS,
+                [=] { k2_rlc_kernel(coords, tbl, g); });
 }
-extern "C" void emu_k2_rlc(const int32_t* coords, int32_t* tbl, int g) {
-  launch(dim3((4 * g + K2_THREADS - 1) / K2_THREADS, M), K2_THREADS,
-         [=] { k2_rlc_kernel(coords, tbl, g); });
+extern "C" int emu_k3r_ladder(const int32_t* tbl, const int32_t* sdig, const int32_t* kdig,
+                              const int32_t* coords, const int32_t* ok, const int32_t* sok,
+                              int32_t* out, int n) {
+  return launch(dim3((4 * n + K3R_THREADS - 1) / K3R_THREADS), K3R_THREADS,
+                [=] { k3r_ladder_kernel(tbl, sdig, kdig, coords, ok, sok, out, n); });
 }
-extern "C" void emu_k3r_ladder(const int32_t* tbl, const int32_t* sdig, const int32_t* kdig,
-                               const int32_t* coords, const int32_t* ok, const int32_t* sok,
-                               int32_t* out, int n) {
-  launch(dim3((4 * n + K3R_THREADS - 1) / K3R_THREADS), K3R_THREADS,
-         [=] { k3r_ladder_kernel(tbl, sdig, kdig, coords, ok, sok, out, n); });
+"""
+
+VERIFY_HARNESS = r"""
+#include "verify_body.cu"
+""" + LAUNCH + r"""
+extern "C" int emu_k2_table(const int32_t* coords, int32_t* tbl, int n) {
+  return launch(dim3((4 * n + K2_THREADS - 1) / K2_THREADS), K2_THREADS,
+                [=] { k2_table_kernel(coords, tbl, n); });
+}
+extern "C" int emu_k1_decompress_cached(const int32_t* ctbl, const int32_t* oktbl,
+                                        const int32_t* idx, const uint8_t* r_rows,
+                                        const uint8_t* s_rows, const uint8_t* k_rows,
+                                        int32_t* coords, int32_t* ok, int32_t* sdig,
+                                        int32_t* kdig, int n, int vp) {
+  return launch(dim3((4 * n + K1C_THREADS - 1) / K1C_THREADS), K1C_THREADS, [=] {
+    k1_decompress_cached_kernel(ctbl, oktbl, idx, r_rows, s_rows, k_rows, coords, ok, sdig,
+                                kdig, n, vp);
+  });
 }
 """
 
@@ -169,24 +278,42 @@ def _emu_dir(tmp_path_factory, name):
 
 
 @pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def emu_lib(tmp_path_factory):
     cxx, d = _emu_dir(tmp_path_factory, "quad_emu")
     (d / "harness.cpp").write_text(HARNESS)
-    fn = _compile(cxx, d, "harness.cpp", "libquad_emu.so").emu_quad
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    return fn
+    lib = _compile(cxx, d, "harness.cpp", "libquad_emu.so")
+    lib.emu_quad.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.emu_split.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emu(emu_lib):
+    return emu_lib.emu_quad
+
+
+def _kernel_lib(tmp_path_factory, name, sources, harness):
+    cxx, d = _emu_dir(tmp_path_factory, name)
+    for src in sources:
+        text = (kernels.CSRC / f"{src}.cu").read_text()
+        (d / f"{src}_body.cu").write_text(text.split("// ---- C interface")[0])
+    (d / "harness.cpp").write_text(harness)
+    return _compile(cxx, d, "harness.cpp", f"lib{name}.so")
 
 
 @pytest.fixture(scope="module")
 def emu_kernels(tmp_path_factory):
-    cxx, d = _emu_dir(tmp_path_factory, "kernel_emu")
-    for name in ("rlc", "sr25519"):
-        text = (kernels.CSRC / f"{name}.cu").read_text()
-        (d / f"{name}_body.cu").write_text(text.split("// ---- C interface")[0])
-    (d / "harness.cpp").write_text(KERNEL_HARNESS)
-    lib = _compile(cxx, d, "harness.cpp", "libkernel_emu.so")
+    lib = _kernel_lib(tmp_path_factory, "kernel_emu", ("rlc", "sr25519"), KERNEL_HARNESS)
     lib.emu_k2_rlc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.emu_k3r_ladder.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emu_verify(tmp_path_factory):
+    lib = _kernel_lib(tmp_path_factory, "verify_emu", ("verify",), VERIFY_HARNESS)
+    lib.emu_k2_table.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.emu_k1_decompress_cached.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
     return lib
 
 
@@ -200,7 +327,7 @@ def _run(emu, op: int, need_t: bool, p, q=None):
     pts = torch.stack(p).contiguous()
     ents = torch.stack(q).contiguous() if q is not None else torch.zeros_like(pts)
     out = torch.full((4, fe.NLIMBS, B), -1, dtype=torch.int32)
-    emu(op, int(need_t), pts.data_ptr(), ents.data_ptr(), out.data_ptr(), B)
+    assert emu(op, int(need_t), pts.data_ptr(), ents.data_ptr(), out.data_ptr(), B) == 0
     return out
 
 
@@ -282,7 +409,7 @@ def test_k2_rlc_kernel_equals_plain(emu_kernels, lanes):
     coords = torch.from_numpy(rng.integers(0, 1 << 13, (rlc.COORD_ROWS, lanes), dtype=np.int32))
     want = rlc.k2_rlc_plain(coords)
     got = torch.full_like(want, -1)
-    emu_kernels.emu_k2_rlc(coords.data_ptr(), got.data_ptr(), lanes)
+    assert emu_kernels.emu_k2_rlc(coords.data_ptr(), got.data_ptr(), lanes) == 0
     assert torch.equal(got, want)
 
 
@@ -303,5 +430,124 @@ def test_k3r_ladder_kernel_equals_plain(emu_kernels):
     assert 0 < int(want.sum()) < n and want[0, -2:].tolist() == [1, 1]
     ins = [x.contiguous() for x in (tbl, sdig, kdig, coords, ok, args[6])]
     got = torch.full_like(want, -1)
-    emu_kernels.emu_k3r_ladder(*(x.data_ptr() for x in ins), got.data_ptr(), n)
+    assert emu_kernels.emu_k3r_ladder(*(x.data_ptr() for x in ins), got.data_ptr(), n) == 0
     assert torch.equal(got, want)
+
+
+# -- the limb-split field product and the verify.cu kernels -------------------
+
+LO, HI = -1216, (1 << 13) + 1216  # the carried range's ends
+
+
+def _split_inputs(seed: int, g: int):
+    """(20, g) int32 a and b: random limbs over [LO, HI], with column 0 of
+    a all LO, column 1 all HI and column 2 alternating."""
+    rng = np.random.default_rng(seed)
+    a, b = (rng.integers(LO, HI + 1, (fe.NLIMBS, g), dtype=np.int32) for _ in range(2))
+    a[:, 0], a[:, 1] = LO, HI
+    a[:, 2] = np.where(np.arange(fe.NLIMBS) % 2 == 0, LO, HI)
+    b[:, 1] = HI
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def _split_run(emu_lib, op: int, a, b):
+    """emu_split's output as (4, 2, 20, 8): thread q's u and r."""
+    out = torch.full((4, 2, fe.NLIMBS, 8), -1, dtype=torch.int32)
+    assert emu_lib.emu_split(op, a.contiguous().data_ptr(), b.contiguous().data_ptr(),
+                             out.data_ptr()) == 0
+    return out
+
+
+def _assert_split(out, want):
+    """Every thread q of every quad holds want rotated by 5q limbs, and
+    receives it in order from split_u."""
+    for q in range(4):
+        assert torch.equal(out[q, 0], want)
+        assert torch.equal(out[q, 1], torch.roll(want, -5 * q, dims=0))
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_split_mul_equals_fe_mul(emu_lib, seed):
+    a, b = _split_inputs(seed, 8)
+    _assert_split(_split_run(emu_lib, 0, a, b), fe.mul(a, b))
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_split_sq_equals_fe_sq(emu_lib, seed):
+    a, b = _split_inputs(seed, 8)
+    _assert_split(_split_run(emu_lib, 1, a, b), fe.sq(a))
+
+
+@pytest.mark.parametrize("seed", [31, 32])
+def test_quad_pow22523_equals_fe_pow22523(emu_lib, seed):
+    a, b = _split_inputs(seed, 8)
+    _assert_split(_split_run(emu_lib, 2, a, b), fe.pow22523(a))
+
+
+def test_stand_in_reports_a_shuffle_not_every_thread_reaches(emu_lib):
+    """A warp in which one thread leaves before a shuffle: on the card
+    that is undefined (a hang, at worst); the stand-in stops waiting as
+    soon as no thread is left to reach the shuffle, and reports the warp
+    broken."""
+    assert emu_lib.emu_stray_lane() == 1
+
+
+def _k2_table(emu_verify, coords):
+    n = coords.shape[-1]
+    got = torch.full((verify.TBL_ROWS, n), -1, dtype=torch.int32)
+    assert emu_verify.emu_k2_table(coords.contiguous().data_ptr(), got.data_ptr(), n) == 0
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_k2_table_kernel_equals_plain(emu_verify, n):
+    """The whole quad k2_table kernel against k2_table_plain on random
+    coordinates, every row of the table: the limbs and the zero rows
+    20..31 of each slot (the output starts as -1, as torch.empty may
+    leave it). 1 and 3 signatures leave most quads of the block past the
+    end."""
+    rng = np.random.default_rng(40 + n)
+    coords = torch.from_numpy(rng.integers(0, 1 << 13, (verify.COORD_ROWS, n), dtype=np.int32))
+    assert torch.equal(_k2_table(emu_verify, coords), verify.k2_table_plain(coords))
+
+
+def test_k2_table_kernel_on_k1r_coordinates(emu_verify):
+    """k2_table on the sr25519 path's input: K1r's coordinates over
+    chip_smoke.py's ristretto edge battery and 2 padding rows."""
+    import chip_smoke
+
+    ents = chip_smoke.sr_edge_entries()
+    n = len(ents) + 2
+    args = [torch.from_numpy(a) for a in osr.prepare_sr25519(EntryBlock.from_entries(ents), n)]
+    coords = osr.k1r_decode_plain(*args[:6])[0]
+    assert torch.equal(_k2_table(emu_verify, coords), verify.k2_table_plain(coords))
+
+
+def test_k1_decompress_cached_kernel_equals_plain(emu_verify):
+    """The whole k1_decompress_cached kernel (a quad per signature on the
+    split field product) against its plain version over chip_smoke.py's
+    ZIP-215 edge battery (non-canonical y, the sqrt(-1) branch, keys and
+    R that do not decompress) and 4 padding signatures on column vp - 1,
+    with the table's columns out of order: every output raw, rows 20..31
+    of each coordinate slot included, each output starting as -1. The
+    count leaves quads of the last warp past the end."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries()
+    n = len(ents) + 4
+    assert n % 8
+    block, ep = chip_smoke.with_epoch(EntryBlock.from_entries(ents), 7)
+    idx, r_rows, s_rows, k_rows, _ = (torch.from_numpy(a)
+                                      for a in verify.prepare_compact_cached(block, n, ep))
+    assert idx[-1] == ep.vp - 1 and idx[: len(ents)].tolist() != sorted(idx[: len(ents)].tolist())
+    ctbl, oktbl = epoch_cache.epoch_coords_plain(
+        torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)))
+    want = verify.k1_decompress_cached_plain(ctbl, oktbl, idx, r_rows, s_rows, k_rows)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    ins = [x.contiguous() for x in (ctbl, oktbl, idx, r_rows, s_rows, k_rows)]
+    assert emu_verify.emu_k1_decompress_cached(
+        *(x.data_ptr() for x in ins), *(g.data_ptr() for g in got), n, ep.vp) == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ok_r = want[1][1, : len(ents)].tolist()
+    assert 0 in ok_r and 1 in ok_r

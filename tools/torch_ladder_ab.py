@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's three ladder kernels and its two K2 table builds on one
-CUDA card, for comparing two checkouts (or two builds of one) on one
-machine.
+"""Time the port's eleven kernels on one CUDA card, for comparing two
+checkouts (or two builds of one) on one machine.
 
     python tools/torch_ladder_ab.py [--root DIR] [--sweep]
 
@@ -9,24 +8,30 @@ imports tendermint_tpu_torch from DIR (default: this checkout), builds
 its kernel library with nvcc, and prints one JSON line with:
 
 - the card (`nvidia-smi` name and power limit);
-- per timed kernel, ptxas' registers, stack frame and spill bytes (read
-  by this checkout's `chip_smoke.kernel_resources`), and the SASS
-  instruction, local load (LDL) and local store (STL) counts from
-  `cuobjdump -sass`;
-- the CUDA-event time of k3_rlc and k2_rlc at 2,560 lanes and of
-  k3_ladder, k3r_ladder, k2_table and k1_decompress at 10,240
-  signatures (the 10,000-validator commit's shapes), median of --rounds
-  rounds of --reps launches each;
+- per kernel, ptxas' registers, stack frame and spill bytes (read by this
+  checkout's `chip_smoke.kernel_resources`), and the SASS instruction,
+  local load (LDL) and local store (STL) counts from `cuobjdump -sass`;
+- the CUDA-event time of every kernel at the 10,000-validator commit's
+  shapes: k1_rlc, k1_rlc_cached, k2_rlc and k3_rlc at 2,560 lanes, the
+  per-signature and sr25519 kernels at 10,240 signatures, epoch_coords
+  at 16,384 table rows; median of --rounds rounds of --reps launches;
+- whether k2_table and k1_decompress_cached equal their plain versions
+  on these inputs, every raw limb (`equal`): a variant timed from a copy
+  is built and run by nothing else in the call, so this says whether a
+  faster variant is also a right one;
 - with --sweep, the same times of k3_rlc and k2_rlc over 640 to 10,240
-  lanes and of k3_ladder over 2,560 to 40,960 signatures: a time that
-  grows in step with the batch says the card is full, a flat one that
-  the warps' own latency bounds it.
+  lanes and of k3_ladder and k1_decompress_cached over 2,560 to 40,960
+  signatures: a time that grows in step with the batch says the card is
+  full, a flat one that the warps' own latency bounds it.
 
-The inputs are seeded random limbs and digits in range, not signatures:
-a ladder's or a table build's work does not depend on the data, only a
-ladder's table reads do, and the verdicts are not read. To compare a parent with a change, run
-parent, change, change, parent on one machine; to compare block sizes,
-edit the kernels' constants in copies and pass each with --root.
+The inputs are seeded random limbs, digits and bytes in range, not
+signatures: a ladder's or a table build's work does not depend on the
+data, only a ladder's table reads do, and the verdicts are not read; a
+decompression of random bytes runs the same chain whether or not they
+encode a point. To compare a parent with a change, run parent, change,
+change, parent on one machine; to compare block sizes or other
+variants, edit the kernels' constants or code in copies and pass each
+with --root.
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ from pathlib import Path
 
 LANES = 2560
 SIGS = 10240
+TABLE_ROWS = 16384
 SWEEP_LANES = (640, 1280, 2560, 5120, 10240)
 SWEEP_SIGS = (2560, 5120, 10240, 20480, 40960)
-TIMED = ("k3_rlc", "k3_ladder", "k3r_ladder", "k2_rlc", "k2_table", "k1_decompress")
+TIMED = ("k1_rlc", "k1_rlc_cached", "k2_rlc", "k3_rlc", "epoch_coords", "k1_decompress",
+         "k1_decompress_cached", "k2_table", "k3_ladder", "k1r_decode", "k3r_ladder")
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -78,7 +85,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
-    from tendermint_tpu_torch.ops import kernels, rlc, verify
+    from tendermint_tpu_torch.ops import epoch_cache, kernels, rlc, verify
     from tendermint_tpu_torch.ops import sr25519 as osr
 
     if not torch.cuda.is_available():
@@ -106,6 +113,9 @@ def main() -> int:
     def octets(cols):
         return torch.randint(0, 256, (32, cols), generator=gen, dtype=torch.uint8).to(dev)
 
+    def rows(n):
+        return torch.randint(0, 256, (n, 32), generator=gen, dtype=torch.uint8).to(dev)
+
     def ones(rows, cols):
         return torch.ones((rows, cols), dtype=torch.int32, device=dev)
 
@@ -120,13 +130,38 @@ def main() -> int:
 
     r_in, v_in = rlc_in(LANES), sig_in(SIGS)
     k1_in = [octets(SIGS) for _ in range(4)]
+    lane_a, lane_rt = (torch.cat([octets(LANES) for _ in range(rlc.M)]) for _ in range(2))
+    scal = torch.randint(0, 256, (rlc.N_SCAL * 32, LANES), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    pub_t = octets(TABLE_ROWS)
+    ctbl, oktbl = limbs(epoch_cache.TABLE_ROWS, TABLE_ROWS), ones(1, TABLE_ROWS)
+    ctbl.view(4, 32, TABLE_ROWS)[:, 20:] = 0  # a table's rows 20..31 are 0
+    lane_idx = torch.randint(0, TABLE_ROWS, (LANES * rlc.M,), generator=gen,
+                             dtype=torch.int32).to(dev)
+    lane_r = torch.randint(0, 256, (LANES * rlc.M, 32), generator=gen, dtype=torch.uint8).to(dev)
+    lane_scal = torch.randint(0, 256, (LANES, rlc.N_SCAL, 32), generator=gen,
+                              dtype=torch.uint8).to(dev)
+    sig_idx = torch.randint(0, TABLE_ROWS, (SIGS,), generator=gen, dtype=torch.int32).to(dev)
+    warm_in = (ctbl, oktbl, sig_idx, rows(SIGS), rows(SIGS), rows(SIGS))
+    sr_in = [octets(SIGS) for _ in range(4)] + [ones(1, SIGS), ones(1, SIGS)]
     runs = {
-        "k3_rlc": lambda: rlc.k3_rlc(*r_in),
-        "k3_ladder": lambda: verify.k3_ladder(*v_in),
-        "k3r_ladder": lambda: osr.k3r_ladder(*v_in),
+        "k1_rlc": lambda: rlc.k1_rlc(lane_a, lane_rt, scal),
+        "k1_rlc_cached": lambda: rlc.k1_rlc_cached(ctbl, oktbl, lane_idx, lane_r, lane_scal),
         "k2_rlc": lambda: rlc.k2_rlc(r_in[2]),
-        "k2_table": lambda: verify.k2_table(v_in[3]),
+        "k3_rlc": lambda: rlc.k3_rlc(*r_in),
+        "epoch_coords": lambda: epoch_cache.epoch_coords(pub_t),
         "k1_decompress": lambda: verify.k1_decompress(*k1_in),
+        "k1_decompress_cached": lambda: verify.k1_decompress_cached(*warm_in),
+        "k2_table": lambda: verify.k2_table(v_in[3]),
+        "k3_ladder": lambda: verify.k3_ladder(*v_in),
+        "k1r_decode": lambda: osr.k1r_decode(*sr_in),
+        "k3r_ladder": lambda: osr.k3r_ladder(*v_in),
+    }
+    equal = {
+        "k2_table": torch.equal(runs["k2_table"](), verify.k2_table_plain(v_in[3])),
+        "k1_decompress_cached": all(
+            torch.equal(g, w) for g, w in zip(runs["k1_decompress_cached"](),
+                                              verify.k1_decompress_cached_plain(*warm_in))),
     }
 
     def event_ms(fn):
@@ -147,6 +182,11 @@ def main() -> int:
             runs[f"k2_rlc@{g}"] = (lambda a: lambda: rlc.k2_rlc(a))(limbs(rlc.COORD_ROWS, g))
         for n in SWEEP_SIGS:
             runs[f"k3_ladder@{n}"] = (lambda a: lambda: verify.k3_ladder(*a))(sig_in(n))
+            warm = (ctbl, oktbl, torch.randint(0, TABLE_ROWS, (n,), generator=gen,
+                                               dtype=torch.int32).to(dev),
+                    rows(n), rows(n), rows(n))
+            runs[f"k1_decompress_cached@{n}"] = (
+                lambda a: lambda: verify.k1_decompress_cached(*a))(warm)
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
@@ -157,6 +197,7 @@ def main() -> int:
         "build_s": build.seconds,
         "ms": {k: statistics.median(v) for k, v in times.items()},
         "ms_rounds": times,
+        "equal": equal,
         "ptxas": {k: v for k, v in smoke.kernel_resources(build.ptxas).items() if k in TIMED},
         "sass": _sass(build.path),
     }), flush=True)
