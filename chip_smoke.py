@@ -20,9 +20,10 @@ Phases, in order:
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
    signature. Coordinates are compared after canonicalisation (the raw
-   limbs of k2_table's table and k1_decompress_cached's coordinates,
-   rows 20..31 of each slot included), flags, digits and verdicts
-   exactly, and the verdicts against the oracles;
+   limbs of k2_table's table and of the coordinates of k1_rlc_cached,
+   k1_decompress_cached and k1r_decode, rows 20..31 of each slot
+   included), flags, digits and verdicts exactly, and the verdicts
+   against the oracles;
 4. slice: `types.validation.verify_commit` on a 10,000-validator commit
    on the card, on each path with the launch counters set to 0 just
    before it and read just after:
@@ -168,11 +169,11 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
-# canonicalisation; the rest, and every output of k2_table and
-# k1_decompress_cached, raw
-SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (0,), "k2_rlc": (0,), "k3_rlc": (),
+# canonicalisation; the rest, and every output of k2_table, k1_rlc_cached,
+# k1_decompress_cached and k1r_decode, raw
+SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
                 "epoch_coords": (0,), "k1_decompress": (0,), "k1_decompress_cached": (),
-                "k2_table": (), "k3_ladder": (), "k1r_decode": (0,), "k3r_ladder": ()}
+                "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": ()}
 
 
 class SmokeFailure(RuntimeError):

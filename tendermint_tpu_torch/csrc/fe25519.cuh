@@ -181,8 +181,9 @@ __device__ __forceinline__ fe sqn(fe a, int n) {
   return a;
 }
 
-// z^(2^252 - 3), ref10 addition chain.
-static __device__ __noinline__ fe pow22523(const fe z) {
+// z^(2^252 - 3), ref10 addition chain. pow22523_body is the chain;
+// pow22523 is its out-of-line copy, which sqrt_ratio calls.
+__device__ __forceinline__ fe pow22523_body(const fe z) {
   const fe x2 = sq(z);
   const fe x9 = mul(z, sqn(x2, 2));
   const fe x11 = mul(x2, x9);
@@ -196,6 +197,8 @@ static __device__ __noinline__ fe pow22523(const fe z) {
   const fe xg = mul(sqn(xf, 50), xd);
   return mul(sqn(xg, 2), z);
 }
+
+static __device__ __noinline__ fe pow22523(const fe z) { return pow22523_body(z); }
 
 // Fold bits >= 2^255 (2^255 = 19 mod p).
 __device__ __forceinline__ fe fold255(const fe& x) {
@@ -244,13 +247,6 @@ __device__ __forceinline__ bool all_zero(const fe& c) {
 }
 
 __device__ __forceinline__ bool is_zero(const fe& x) { return all_zero(canon(x)); }
-
-__device__ __forceinline__ bool eq(const fe& a, const fe& b) {
-  fe d;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) d.v[i] = a.v[i] - b.v[i];
-  return is_zero(d);
-}
 
 // ---- global layout ------------------------------------------------------------
 // Global arrays are (rows, g) with the batch column last: thread j works
@@ -316,17 +312,30 @@ __device__ __forceinline__ fe unpack_limbs(const int32_t (&e)[32]) {
 
 // sqrt_ratio(u, v) (point.sqrt_ratio): r with v r^2 = u, multiplied by
 // sqrt(-1) unless v r^2 = u already; true when v r^2 = u or -u (ZIP-215
-// accepts check == -u as the RFC 8032 sqrt(-1) branch).
-static __device__ __noinline__ bool sqrt_ratio(fe& r_out, const fe u, const fe v) {
+// accepts check == -u as the RFC 8032 sqrt(-1) branch). sqrt_ratio_body
+// runs pow22523's chain and the canonical reductions inline where Inline
+// is true (ristretto_decode) and through their out-of-line copies where it
+// is false; sqrt_ratio, which decompress calls, is its out-of-line copy.
+template <bool Inline>
+__device__ __forceinline__ bool sqrt_ratio_body(fe& r_out, const fe u, const fe v) {
   const fe v3 = mul(sq(v), v);
   const fe v7 = mul(sq(v3), v);
-  fe r = mul(mul(u, v3), pow22523(mul(u, v7)));
+  const fe uv7 = mul(u, v7);
+  fe r = mul(mul(u, v3), Inline ? pow22523_body(uv7) : pow22523(uv7));
   const fe check = mul(v, sq(r));
-  const bool ok_pos = eq(check, u);
-  const bool ok_neg = is_zero(add(check, u));
+  fe d;  // check - u, then check + u
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d.v[i] = check.v[i] - u.v[i];
+  const bool ok_pos = all_zero(Inline ? canon_body(d) : canon(d));
+  d = add(check, u);
+  const bool ok_neg = all_zero(Inline ? canon_body(d) : canon(d));
   if (!ok_pos) r = mul(r, fe_sqrt_m1());
   r_out = r;
   return ok_pos || ok_neg;
+}
+
+static __device__ __noinline__ bool sqrt_ratio(fe& r_out, const fe u, const fe v) {
+  return sqrt_ratio_body<false>(r_out, u, v);
 }
 
 // ZIP-215 decompression (pallas_verify.decompress): y is carried but not
@@ -354,9 +363,10 @@ static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
 // ristretto_decode) of the low 255 bits of e; the host has checked the
 // encoding canonical (s < p) and even, and passes that as ok_host. The
 // parities of x and t are taken from canonical limbs. 1 + s^2 = 0 gives
-// sqrt_ratio(1, 0), which is not square, and y = 0: both reject.
-static __device__ __noinline__ bool ristretto_decode(pt& o, const int32_t (&e)[32],
-                                                     bool ok_host) {
+// sqrt_ratio(1, 0), which is not square, and y = 0: both reject. It runs
+// inline, pow22523's chain and the canonical reductions too, so that no
+// call passes an 80-byte value through a stack frame in its caller (K1r).
+__device__ __forceinline__ bool ristretto_decode(pt& o, const int32_t (&e)[32], bool ok_host) {
   const fe one = fe_one();
   const fe s = carry(unpack_limbs(e));
   const fe ss = sq(s);
@@ -365,15 +375,15 @@ static __device__ __noinline__ bool ristretto_decode(pt& o, const int32_t (&e)[3
   const fe u2_sqr = sq(u2);
   const fe v = sub(neg(mul(fe_d(), sq(u1))), u2_sqr);  // -(d u1^2) - u2^2
   fe invsq;
-  const bool was_square = sqrt_ratio(invsq, one, mul(v, u2_sqr));
+  const bool was_square = sqrt_ratio_body<true>(invsq, one, mul(v, u2_sqr));
   const fe den_x = mul(invsq, u2);
   const fe den_y = mul(mul(invsq, den_x), v);
-  fe x = canon(mul(add(s, s), den_x));
+  fe x = canon_body(mul(add(s, s), den_x));
   if (x.v[0] & 1) x = neg(x);  // |x|
   const fe y = mul(u1, den_y);
   const fe t = mul(x, y);
-  const bool t_odd = (canon(t).v[0] & 1) != 0;
-  const bool y_zero = is_zero(y);
+  const bool t_odd = (canon_body(t).v[0] & 1) != 0;
+  const bool y_zero = all_zero(canon_body(y));
   o.x = x;
   o.y = y;
   o.z = one;
@@ -570,6 +580,14 @@ __device__ __forceinline__ bool quad_ristretto_eq(const fe& acc, const fe& r, in
 // element in order in all four threads with no shuffle. All threads of a
 // warp execute every shuffle, so a product is never taken under a branch
 // that differs between quads: the callers form both sides and pick.
+//
+// The warm K1s (verify.cu, rlc.cu) decompress on these, a quad a point:
+// 10,240 decompressions in 0.16 ms against a bound of 0.038, where one
+// thread a decompression took 0.23 (H100 80GB HBM3, 700 W; PERF.md). The
+// split pays where the decompressions alone leave schedulers empty: at
+// 20,480 ristretto decodes (sr25519.cu's K1r) a quad a decode took 0.28
+// ms, and the same split on a pair of threads (10 limbs a thread) 0.27,
+// against 0.24 for one thread a decode with the chain inline.
 
 constexpr int QB = NL / 4;  // limbs a thread keeps
 
@@ -768,45 +786,71 @@ __device__ __forceinline__ fe load_y(const uint8_t* __restrict__ src, int32_t& s
   return carry(unpack_limbs(e));
 }
 
-// decompress (ZIP-215) of the 32 bytes at src on the quad: X, Y, T in
-// order in every thread (Z = 1), the same limbs as the one-thread
-// decompress, whose sqrt_ratio(u, v) it inlines. So that only pow22523's
-// own values are live across its chain, the values sqrt_ratio needs after
-// the chain (u, v, u v^3, y) are formed again from the bytes after it:
-// five products more. The sqrt(-1) product is formed unconditionally and
+// sqrt_ratio(u, v) on the quad: r, in order in every thread, with v r^2
+// = u, multiplied by sqrt(-1) unless v r^2 = u already; true when v r^2 =
+// u or -u; the same limbs as the one-thread sqrt_ratio. uv(u, vr) forms u
+// in order and v rotated; it runs twice, before pow22523's chain and after
+// it, so that only the chain's own values are live across the chain (the
+// caller's uv forms again, after the chain, what the caller needs then: a
+// few products more). The sqrt(-1) product is formed unconditionally and
 // picked.
-__device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out,
-                                                 const uint8_t* __restrict__ src, int q) {
-  int32_t sign;
+template <class UV>
+__device__ __forceinline__ bool split_sqrt_ratio(fe& r_out, const UV& uv, int q) {
   fe w;
-  {  // (u v^7)^((p - 5) / 8) with u = y^2 - 1, v = d y^2 + 1
-    const fe yy = split_sq(split_rot(load_y(src, sign), q), q);
-    const fe u = sub(split_u(yy), fe_one());
-    const fe v = split_rot(add(split_u(split_mul(fe_d(), yy, q)), fe_one()), q);
+  {  // (u v^7)^((p - 5) / 8)
+    fe u, v;
+    uv(u, v);
     const fe v3 = split_mul(split_sq(v, q), v, q);
     const fe v7 = split_mul(split_sq(v3, q), v, q);
     w = split_pow22523(split_mul(u, v7, q), q);
   }
-  const fe y = load_y(src, sign);
-  const fe yr = split_rot(y, q);
-  const fe yy = split_sq(yr, q);
-  const fe u = sub(split_u(yy), fe_one());
-  const fe v = split_rot(add(split_u(split_mul(fe_d(), yy, q)), fe_one()), q);
+  fe u, v;
+  uv(u, v);
   const fe v3 = split_mul(split_sq(v, q), v, q);
   const fe r = split_mul(split_mul(u, v3, q), w, q);
   const fe check = split_u(split_mul(v, split_sq(r, q), q));
-  fe d;  // eq(check, u)
+  fe d;  // check - u
 #pragma unroll
   for (int i = 0; i < NL; ++i) d.v[i] = check.v[i] - u.v[i];
   const bool ok_pos = all_zero(canon_body(d));
   const bool ok_neg = all_zero(canon_body(add(check, u)));
   const fe ri = split_mul(fe_sqrt_m1(), r, q);
-  const fe xc = canon_body(split_u(pick(ok_pos, r, ri)));
+  r_out = split_u(pick(ok_pos, r, ri));
+  return ok_pos || ok_neg;
+}
+
+// decompress's u = y^2 - 1 and v = d y^2 + 1 (rotated) for
+// split_sqrt_ratio, from the 32 bytes at src; y, its rotation and the
+// sign bit land in the caller's y, yr and sign.
+struct split_decompress_uv {
+  const uint8_t* __restrict__ src;
+  int q;
+  fe& y;
+  fe& yr;
+  int32_t& sign;
+  __device__ __forceinline__ void operator()(fe& u, fe& v) const {
+    y = load_y(src, sign);
+    yr = split_rot(y, q);
+    const fe yy = split_sq(yr, q);
+    u = sub(split_u(yy), fe_one());
+    v = split_rot(add(split_u(split_mul(fe_d(), yy, q)), fe_one()), q);
+  }
+};
+
+// decompress (ZIP-215) of the 32 bytes at src on the quad: X, Y, T in
+// order in every thread (Z = 1), the same limbs as the one-thread
+// decompress.
+__device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out,
+                                                 const uint8_t* __restrict__ src, int q) {
+  int32_t sign;
+  fe y, yr, r;
+  const bool ok = split_sqrt_ratio(r, split_decompress_uv{src, q, y, yr, sign}, q);
+  const fe xc = canon_body(r);
   const fe x = pick((xc.v[0] & 1) != sign, neg(xc), xc);
   x_out = x;
   y_out = y;
   t_out = split_u(split_mul(x, yr, q));
-  return ok_pos || ok_neg;
+  return ok;
 }
 
 }  // namespace edw

@@ -28,6 +28,19 @@
 // What the design does about it: the lanes are the parallelism. K1 runs a
 // thread per (lane, point), so its independent work spreads over 8 times
 // the threads. The table runs a thread per row, once per validator set.
+// The warm K1 has only the M R decompressions to do, and one
+// decompression a thread left the card mostly idle (320 warps on 528
+// schedulers at 2,560 lanes, each walking pow22523's chain alone, 0.23
+// ms): it runs a quad of four threads per (lane, slot) on the limb-split
+// field product of fe25519.cuh, as verify.cu's warm K1 does, so that at
+// 2,560 lanes 40,960 threads in blocks of 64 share the chains, with
+// __launch_bounds__(64, 5) holding it to 168 registers for one wave: 0.16
+// ms against its bound of 0.038, 164 registers, 0 bytes of stack
+// (tools/torch_ladder_ab.py, PERF.md). From 2,560 lanes up its time grows
+// almost in step with the batch (0.091, 0.114, 0.164, 0.293 and 0.599 ms
+// at 640 to 10,240 lanes), as the per-signature warm K1's does, so the
+// split's own instructions on full schedulers hold it (inferred; no
+// profiler reads the card's counters).
 // K2 runs a quad of four threads per (lane, table) on the quad point
 // functions: at 2,560 lanes 40,960 threads in 640 blocks of 64, with
 // __launch_bounds__(64, 5) holding it to 168 registers, so that 10 warps
@@ -59,9 +72,10 @@
 // Shared design: full unrolling of the limb loops inside a field multiply
 // keeps its 20 + 20 + 39 values in registers. K1 and the table call the
 // __noinline__ decompression, so that the build stays seconds long and
-// each kernel holds one copy of each formula; the quad functions of K2
-// and K3 are inline, with their loops kept rolled so that K3's body holds
-// one double and one add, and K2's one add and one conversion.
+// each kernel holds one copy of each formula; the warm K1's split
+// functions and the quad functions of K2 and K3 are inline, with their
+// loops kept rolled so that K3's body holds one double and one add, and
+// K2's one add and one conversion.
 
 #include <cuda_runtime.h>
 
@@ -112,18 +126,28 @@ k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
   store_point(coords, p, P, lane, g);
 }
 
+// The warm K1 runs a quad of threads per (lane, slot), K1C_THREADS / 4
+// lanes a block, with registers capped for K1C_MIN_BLOCKS blocks an SM (the
+// header note says why).
+constexpr int K1C_THREADS = 64;
+constexpr int K1C_MIN_BLOCKS = 5;
+
 // K1 for a warm epoch — replaces pallas_rlc._k1_rlc_kernel_cached
 // (pallas_rlc.py:139). The epoch table (epoch_coords below) holds every
 // validator's decompressed A; idx (signature-major, i = lane * M + slot)
 // names each signature's column, and padding signatures name column
-// vp - 1, the identity. Thread (lane, p) unpacks the digits of scalar p
-// from the row-major scal_rows (g, 2M, 32) and, for p < M, copies A_p's
-// coordinates and flag from table column idx[lane * M + p]; for p >= M it
-// decompresses R_{p-M} from the row-major r_rows (g * M, 32). So the
-// gathered (M * 4 * 32, g) array of the JAX pipeline is never built, and
-// the slot-major transposes are the kernel's own reads. Bound: operations
-// (the M R decompressions); the copies are a few hundred bytes a thread.
-__global__ void __launch_bounds__(THREADS)
+// vp - 1, the identity. A quad per (lane, slot j), j = blockIdx.y, with
+// adjacent quads on adjacent lanes: thread q copies coordinate q of A_j
+// from table column idx[lane * M + j], unpacks the digits of bytes 8q ..
+// 8q + 7 of scalars j and M + j from the row-major scal_rows (g, 2M, 32),
+// and the quad decompresses R_j from the row-major r_rows (g * M, 32)
+// together on the limb-split field product (fe25519.cuh), thread q storing
+// coordinate q of it; quad thread 0 writes both flags. So the gathered
+// (M * 4 * 32, g) array of the JAX pipeline is never built, and the
+// slot-major transposes are the kernel's own reads. A quad past the end
+// runs on a clamped lane with its stores masked. Bound: operations (the M
+// R decompressions); the copy is a few hundred bytes a thread.
+__global__ void __launch_bounds__(K1C_THREADS, K1C_MIN_BLOCKS)
 k1_rlc_cached_kernel(const int32_t* __restrict__ ctbl,
                      const int32_t* __restrict__ oktbl,
                      const int32_t* __restrict__ idx,
@@ -131,27 +155,36 @@ k1_rlc_cached_kernel(const int32_t* __restrict__ ctbl,
                      const uint8_t* __restrict__ scal_rows,
                      int32_t* __restrict__ coords, int32_t* __restrict__ ok,
                      int32_t* __restrict__ dig, int g, int vp) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (lane >= g) return;
-  store_digits(dig, p * 128, scal_rows + ((size_t)lane * N_SCAL + p) * 32, 1,
-               lane, g);
-  if (p < M) {
-    const int col = idx[(size_t)lane * M + p];
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c)
-      store_fe(coords, (p * 4 + c) * 32, load_fe(ctbl, c * 32, col, vp), lane, g);
-    ok[(size_t)p * g + lane] = oktbl[col];
-    return;
-  }
-  const uint8_t* src = r_rows + ((size_t)lane * M + (p - M)) * 32;
-  int32_t e[32];
+  const int q = threadIdx.x & 3;
+  const int quad = blockIdx.x * (K1C_THREADS / 4) + (threadIdx.x >> 2);
+  const int j = blockIdx.y;
+  const bool live = quad < g;
+  const int lane = live ? quad : g - 1;
+  const size_t sig = (size_t)lane * M + j;
+  const int col = idx[sig];
+  if (live) {
+    const uint8_t* sj = scal_rows + ((size_t)lane * N_SCAL + j) * 32;
 #pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = src[b];
-  pt P;
-  const bool okp = decompress(P, e);
-  ok[(size_t)p * g + lane] = okp ? 1 : 0;
-  store_point(coords, p, P, lane, g);
+    for (int b = 0; b < 8; ++b) {
+      const int by = 8 * q + b;
+      const int32_t lo = sj[by], hi = sj[M * 32 + by];  // scalars j and M + j
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        dig[(size_t)(j * 128 + d * 32 + by) * g + lane] = (lo >> (2 * d)) & 3;
+        dig[(size_t)((M + j) * 128 + d * 32 + by) * g + lane] = (hi >> (2 * d)) & 3;
+      }
+    }
+    store_fe(coords, (j * 4 + q) * 32, load_fe(ctbl, q * 32, col, vp), lane, g);
+  }
+  fe x, y, t;
+  const bool okr = split_decompress(x, y, t, r_rows + sig * 32, q);
+  if (!live) return;
+  store_fe(coords, ((M + j) * 4 + q) * 32,
+           pick(q == 0, x, pick(q == 1, y, pick(q == 2, fe_one(), t))), lane, g);
+  if (q == 0) {
+    ok[(size_t)j * g + lane] = oktbl[col];
+    ok[(size_t)(M + j) * g + lane] = okr ? 1 : 0;
+  }
 }
 
 // The epoch table — the build that replaces epoch_cache._coords_fn
@@ -289,8 +322,9 @@ k3_rlc_kernel(const int32_t* __restrict__ tbl, const int32_t* __restrict__ dig,
 // ---- C interface (loaded with ctypes by ops/kernels.py) --------------------
 // Each entry launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of its launch. The grid is ceil(g / THREADS) blocks
-// with the tail masked in the kernel; K2's and K3's are ceil(4 g /
-// K2_THREADS) and ceil(4 g / K3_THREADS), a quad a lane (K2's times M
+// with the tail masked in the kernel; the warm K1's, K2's and K3's are
+// ceil(4 g / K1C_THREADS), ceil(4 g / K2_THREADS) and ceil(4 g /
+// K3_THREADS), a quad a lane (the warm K1's times M slots, K2's times M
 // tables), with the tail masked per quad.
 
 static dim3 lane_grid(int g, int y) {
@@ -311,8 +345,8 @@ extern "C" int tm_k1_rlc_cached(const void* ctbl, const void* oktbl,
                                 const void* idx, const void* r_rows,
                                 const void* scal_rows, void* coords, void* ok,
                                 void* dig, int g, int vp, void* stream) {
-  edw::k1_rlc_cached_kernel<<<lane_grid(g, edw::N_SCAL), edw::THREADS, 0,
-                             (cudaStream_t)stream>>>(
+  const dim3 grid((4 * g + edw::K1C_THREADS - 1) / edw::K1C_THREADS, edw::M);
+  edw::k1_rlc_cached_kernel<<<grid, edw::K1C_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ctbl, (const int32_t*)oktbl, (const int32_t*)idx,
       (const uint8_t*)r_rows, (const uint8_t*)scal_rows, (int32_t*)coords,
       (int32_t*)ok, (int32_t*)dig, g, vp);

@@ -23,11 +23,21 @@
 //
 // What the design does about it: as verify.cu, the signatures are the
 // parallelism. K1r runs a thread per (signature, point), so A and R decode
-// in two threads; K3r runs a quad of four threads per signature over the
-// shared ladder, as verify.cu's K3 does (fe25519.cuh quad functions):
-// thread q holds coordinate q of the accumulator, computes product q of
-// each round and loads only the table coordinate it multiplies, before
-// the iteration's doubles. The final test is exact ristretto equality
+// in two threads: 20,480 threads at 10,240 signatures, one wave. Its
+// decode runs inline with no call (fe25519.cuh ristretto_decode), so the
+// kernel has no stack frame: 0.241 ms against its bound of 0.079, 254
+// registers, where the out-of-line decode's 528-byte frame took 0.254.
+// Four threads a decode on the limb-split field product, as the warm K1s
+// run, took 0.28 ms here (81,920 threads, two waves), and a pair of
+// threads a decode (40,960 threads, one wave at 168 registers) 0.27:
+// each thread of a pair issues about as many instructions a squaring as
+// one thread does alone, so at 20,480 decodes the split's own
+// instructions cost more than its extra warps gain (tools/
+// torch_ladder_ab.py, PERF.md). K3r runs a quad of four threads per
+// signature over the shared ladder, as verify.cu's K3 does (fe25519.cuh
+// quad functions): thread q holds coordinate q of the accumulator,
+// computes product q of each round and loads only the table coordinate
+// it multiplies, before the iteration's doubles. The final test is exact ristretto equality
 // against R (z = 1): X yR == Y xR or Y yR == X xR, with no [8] doubles,
 // since ristretto points have no cofactor component to clear; each quad
 // thread forms one of its four cross products. At 10,240 signatures that
@@ -49,7 +59,9 @@ namespace edw {
 // Thread (i, p), p = blockIdx.y: p = 0 unpacks the digits of s and
 // decodes A (point 0 of coords) with the host flag aok; p = 1 the digits
 // of k and R (point 1) with rok. The host flags say the encoding is
-// canonical (below p) and even. Bound: operations (the decodes).
+// canonical (below p) and even. The decode (fe25519.cuh ristretto_decode)
+// is inline, its chain too, so the kernel has no stack frame. Bound:
+// operations (the decodes).
 __global__ void __launch_bounds__(VTHREADS)
 k1r_decode_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
                   const uint8_t* __restrict__ s_t, const uint8_t* __restrict__ k_t,

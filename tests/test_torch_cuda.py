@@ -5,8 +5,9 @@ Run them on the card with `python -m pytest tests/test_torch_cuda.py`.
 
 Tolerance: none. Coordinates are compared after canonicalisation (and
 are expected equal limb for limb), flags, digits and verdicts exactly;
-the quad k2_rlc's and k2_table's tables and k1_decompress_cached's
-outputs raw, every row of every slot.
+the quad k2_rlc's and k2_table's tables and the outputs of
+k1_decompress_cached, k1_rlc_cached and k1r_decode raw, every row of
+every slot.
 """
 
 import hashlib
@@ -427,6 +428,57 @@ def test_k1_decompress_cached_matches_plain_on_raw_limbs(battery, cuda, n):
     want = verify.k1_decompress_cached_plain(*tables, *args[:4])
     _garbage_pool(cuda, *(w.shape for w in want))
     got = verify.k1_decompress_cached(*tables, *args[:4])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert 0 < int(want[1].sum()) < 2 * n
+
+
+# -- the warm RLC K1 and K1r on raw limbs ---------------------------------------
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 64, 2560])
+def test_k1_rlc_cached_matches_plain_on_raw_limbs(battery, cuda, lanes):
+    """The split-product k1_rlc_cached against its plain version on raw
+    limbs: the coordinate slots of A and R (rows 20..31 included), the 2M
+    flags and the digits of the 2M scalars, with every output allocated
+    on -1-filled memory. Over the ZIP-215 battery in an epoch whose table
+    columns are out of order; the last live lane holds one signature and
+    three padding slots on column vp - 1, and at 64 and 2,560 lanes the
+    last 8 lanes are all padding; 1 and 2 lanes leave quads of each block
+    past the end."""
+    import chip_smoke
+
+    n = 1 if lanes == 1 else 4 * lanes - (35 if lanes >= 64 else 3)
+    block, _ = _spread(battery, n, lanes + 5)
+    wblock, ep = chip_smoke.with_epoch(block, lanes)
+    args = [torch.from_numpy(a).to(cuda) for a in rlc.prepare_rlc_cached(wblock, 4 * lanes, ep)]
+    tables = ep.coords_tables(cuda)
+    want = rlc.k1_rlc_cached_plain(*tables, *args[:3])
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = rlc.k1_rlc_cached(*tables, *args[:3])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if lanes >= 64:
+        assert 0 < int(want[1][rlc.M :].sum()) < rlc.M * lanes
+
+
+@pytest.mark.parametrize("n", [1, 250, 10240])
+def test_k1r_decode_matches_plain_on_raw_limbs(sr_battery, cuda, n):
+    """k1r_decode against k1r_decode_plain on raw limbs: the coordinate
+    slots of A and R (rows 20..31 included), both flags and the digits of
+    s and k, with every output allocated on -1-filled memory. Over the
+    ristretto battery with 6 padding signatures (the all-zero identity,
+    every flag 1) where n > 1; 1 and 250 signatures leave threads of the
+    last block past the end."""
+    live = 1 if n == 1 else n - 6
+    block, _ = _spread(sr_battery, live, n + 7)
+    args = [torch.from_numpy(a).to(cuda) for a in osr.prepare_sr25519(block, n)][:6]
+    want = osr.k1r_decode_plain(*args)
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = osr.k1r_decode(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

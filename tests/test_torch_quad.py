@@ -6,9 +6,9 @@ quad_add, quad_to_niels, quad_cofactor_eq, quad_ristretto_eq) let four
 threads of a warp share one point: thread q holds coordinate q of the
 point, computes product q of each round with mul/sq, and the quad swaps
 the 20-limb products by __shfl_sync. Its split functions (split_mul,
-split_sq, split_pow22523) let a quad share one field product: each
-thread forms five of the 20 limbs, and the quad exchanges carries and
-gathers the limbs by shuffles.
+split_sq, split_pow22523, split_sqrt_ratio) let a quad share one field
+product: each thread forms five of the 20 limbs, and the quad exchanges
+carries and gathers the limbs by shuffles.
 CUDA code runs only on the card, where tests/test_torch_cuda.py holds the
 whole kernels to their plain versions. Here the header itself is
 compiled for the host with the system C++ compiler, against a small
@@ -19,9 +19,10 @@ exchanges are checked on every run against the plain functions
 (ops/point.py and ops/fe.py, themselves held to the JAX package's by
 test_torch_point.py and test_torch_fe.py). The same stand-in, with a
 launcher that starts each warp of a block's threads, runs the whole
-k2_rlc and k3r_ladder kernels of csrc/rlc.cu and csrc/sr25519.cu and the
-k2_table and k1_decompress_cached kernels of csrc/verify.cu at a few
-lanes and signatures against their plain versions. A thread that
+k1_rlc_cached, k2_rlc, k1r_decode and k3r_ladder kernels of csrc/rlc.cu
+and csrc/sr25519.cu and the k2_table and k1_decompress_cached kernels of
+csrc/verify.cu at a few lanes and signatures against their plain
+versions. A thread that
 returns while others wait at a shuffle marks its warp broken: a shuffle
 that not every thread reached, which hangs the card, fails the test here
 at once instead of hanging it.
@@ -31,7 +32,9 @@ eight quads); for the split functions, seeded random limbs over the
 carried range [-1216, 2^13 + 1216] with whole elements at either end;
 the kernels at 1 and 3 lanes or signatures of random limbs, at 20
 sr25519 signatures (chip_smoke.py's ristretto edge battery and 2 padding
-rows) and over chip_smoke.py's ZIP-215 edge battery with padding.
+rows) and over chip_smoke.py's ZIP-215 edge battery with padding (the
+warm K1s at 1 and 3 lanes and at 25 signatures, table columns out of
+order).
 Tolerance: none; every limb of every output is equal, rows 20..31 of
 each slot included.
 """
@@ -194,6 +197,23 @@ extern "C" int emu_split(int op, const int32_t* a, const int32_t* b, int32_t* ou
       }
     });
 }
+// split_sqrt_ratio(u, v) on one warp of eight quads, quad k on column k
+// of (20, 8) arrays; thread q of the quad writes r to r_out (4, 20, 8)
+// and its flag to ok_out (4, 8).
+extern "C" int emu_sqrt_ratio(const int32_t* u, const int32_t* v, int32_t* r_out,
+                              int32_t* ok_out) {
+  return emu_warp([=](int tid) {
+      const int q = tid & 3, k = tid >> 2;
+      const auto uv = [&](fe& uu, fe& vr) {
+        uu = load(u, 0, k, 8);
+        vr = split_rot(load(v, 0, k, 8), q);
+      };
+      fe r;
+      const bool ok = split_sqrt_ratio(r, uv, q);
+      for (int l = 0; l < NL; ++l) r_out[(q * NL + l) * 8 + k] = r.v[l];
+      ok_out[q * 8 + k] = ok ? 1 : 0;
+    });
+}
 // A warp whose lane 5 leaves before the quad's shuffle: the stand-in must
 // report it.
 extern "C" int emu_stray_lane() {
@@ -230,6 +250,20 @@ KERNEL_HARNESS = r"""
 extern "C" int emu_k2_rlc(const int32_t* coords, int32_t* tbl, int g) {
   return launch(dim3((4 * g + K2_THREADS - 1) / K2_THREADS, M), K2_THREADS,
                 [=] { k2_rlc_kernel(coords, tbl, g); });
+}
+extern "C" int emu_k1_rlc_cached(const int32_t* ctbl, const int32_t* oktbl, const int32_t* idx,
+                                 const uint8_t* r_rows, const uint8_t* scal_rows, int32_t* coords,
+                                 int32_t* ok, int32_t* dig, int g, int vp) {
+  return launch(dim3((4 * g + K1C_THREADS - 1) / K1C_THREADS, M), K1C_THREADS, [=] {
+    k1_rlc_cached_kernel(ctbl, oktbl, idx, r_rows, scal_rows, coords, ok, dig, g, vp);
+  });
+}
+extern "C" int emu_k1r_decode(const uint8_t* a_t, const uint8_t* r_t, const uint8_t* s_t,
+                              const uint8_t* k_t, const int32_t* aok, const int32_t* rok,
+                              int32_t* coords, int32_t* ok, int32_t* sdig, int32_t* kdig, int n) {
+  return launch(sig_grid(n, 2), VTHREADS, [=] {
+    k1r_decode_kernel(a_t, r_t, s_t, k_t, aok, rok, coords, ok, sdig, kdig, n);
+  });
 }
 extern "C" int emu_k3r_ladder(const int32_t* tbl, const int32_t* sdig, const int32_t* kdig,
                               const int32_t* coords, const int32_t* ok, const int32_t* sok,
@@ -284,6 +318,7 @@ def emu_lib(tmp_path_factory):
     lib = _compile(cxx, d, "harness.cpp", "libquad_emu.so")
     lib.emu_quad.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_split.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.emu_sqrt_ratio.argtypes = [ctypes.c_void_p] * 4
     return lib
 
 
@@ -306,6 +341,8 @@ def emu_kernels(tmp_path_factory):
     lib = _kernel_lib(tmp_path_factory, "kernel_emu", ("rlc", "sr25519"), KERNEL_HARNESS)
     lib.emu_k2_rlc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.emu_k3r_ladder.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
+    lib.emu_k1_rlc_cached.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    lib.emu_k1r_decode.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
     return lib
 
 
@@ -434,6 +471,65 @@ def test_k3r_ladder_kernel_equals_plain(emu_kernels):
     assert torch.equal(got, want)
 
 
+def _raw_equal(got, want) -> None:
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_k1_rlc_cached_kernel_equals_plain(emu_kernels, lanes):
+    """The whole k1_rlc_cached kernel (a quad per (lane, slot) on the
+    split field product) against k1_rlc_cached_plain over the last 4 lanes
+    - 1 entries of chip_smoke.py's ZIP-215 edge battery (at 3 lanes:
+    non-canonical and small-order keys, a key off the curve, a corrupted
+    key, s >= L, random bytes whose R do not decompress) and a padding
+    signature on column vp - 1, with the table's columns out of order:
+    every output raw, rows 20..31 of each coordinate slot included, each
+    output starting as -1. 1 and 3 lanes leave most quads of each block
+    past the end."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries()[-(4 * lanes - 1):]
+    block, ep = chip_smoke.with_epoch(EntryBlock.from_entries(ents), 8 + lanes)
+    idx, r_rows, scal_rows, _ = (torch.from_numpy(a)
+                                 for a in rlc.prepare_rlc_cached(block, 4 * lanes, ep))
+    assert idx[-1] == ep.vp - 1 and idx[:-1].tolist() != sorted(idx[:-1].tolist())
+    ctbl, oktbl = epoch_cache.epoch_coords_plain(
+        torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)))
+    want = rlc.k1_rlc_cached_plain(ctbl, oktbl, idx, r_rows, scal_rows)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    ins = [x.contiguous() for x in (ctbl, oktbl, idx, r_rows, scal_rows)]
+    assert emu_kernels.emu_k1_rlc_cached(
+        *(x.data_ptr() for x in ins), *(g.data_ptr() for g in got), lanes, ep.vp) == 0
+    _raw_equal(got, want)
+    if lanes > 1:
+        ok_a, ok_r = want[1][: rlc.M].flatten().tolist(), want[1][rlc.M :].flatten().tolist()
+        assert 0 in ok_a and 1 in ok_a and 0 in ok_r and 1 in ok_r
+
+
+def test_k1r_decode_kernel_equals_plain(emu_kernels):
+    """The whole k1r_decode kernel (a thread per (signature, point) on the
+    inline ristretto decode) against k1r_decode_plain over chip_smoke.py's
+    ristretto edge battery (odd keys, p + 1, bit 255 set, 1 + s^2 = 0, not
+    square, an odd t, an R that does not decode, the identity key) and 2
+    padding rows (the all-zero identity, every flag 1): every output raw,
+    rows 20..31 of each coordinate slot included, each output starting as
+    -1, so a row the kernel leaves unwritten shows."""
+    import chip_smoke
+
+    ents = chip_smoke.sr_edge_entries()
+    n = len(ents) + 2
+    args = [torch.from_numpy(a).contiguous()
+            for a in osr.prepare_sr25519(EntryBlock.from_entries(ents), n)][:6]
+    want = osr.k1r_decode_plain(*args)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    assert emu_kernels.emu_k1r_decode(
+        *(x.data_ptr() for x in args), *(g.data_ptr() for g in got), n) == 0
+    _raw_equal(got, want)
+    ok = want[1][:, : len(ents)].flatten().tolist()
+    assert 0 in ok and 1 in ok and want[1][:, -2:].all()
+
+
 # -- the limb-split field product and the verify.cu kernels -------------------
 
 LO, HI = -1216, (1 << 13) + 1216  # the carried range's ends
@@ -482,6 +578,27 @@ def test_split_sq_equals_fe_sq(emu_lib, seed):
 def test_quad_pow22523_equals_fe_pow22523(emu_lib, seed):
     a, b = _split_inputs(seed, 8)
     _assert_split(_split_run(emu_lib, 2, a, b), fe.pow22523(a))
+
+
+def test_split_sqrt_ratio_equals_sqrt_ratio(emu_lib):
+    """split_sqrt_ratio on the quad against point.sqrt_ratio: r (every
+    thread holds it in order) and the flag, on limbs over the carried
+    range, with square ratios on either branch (v r^2 = u before the
+    sqrt(-1) product, and -u) and non-square ones among them."""
+    u, v = _split_inputs(54, 8)
+    want_ok, want_r = point.sqrt_ratio(u, v)
+    r = torch.full((4, fe.NLIMBS, 8), -1, dtype=torch.int32)
+    ok = torch.full((4, 8), -1, dtype=torch.int32)
+    assert emu_lib.emu_sqrt_ratio(u.contiguous().data_ptr(), v.contiguous().data_ptr(),
+                                  r.data_ptr(), ok.data_ptr()) == 0
+    for q in range(4):
+        assert torch.equal(r[q], want_r)
+        assert ok[q].tolist() == want_ok[0].int().tolist()
+    v3 = fe.mul(fe.sq(v), v)
+    r0 = fe.mul(fe.mul(u, v3), fe.pow22523(fe.mul(u, fe.mul(fe.sq(v3), v))))
+    pos = fe.eq(fe.mul(v, fe.sq(r0)), u)  # v r^2 = u before the sqrt(-1) product
+    assert {(bool(a), bool(b)) for a, b in zip(want_ok[0], pos[0])} == {
+        (True, True), (True, False), (False, False)}
 
 
 def test_stand_in_reports_a_shuffle_not_every_thread_reaches(emu_lib):

@@ -15,14 +15,15 @@ its kernel library with nvcc, and prints one JSON line with:
   shapes: k1_rlc, k1_rlc_cached, k2_rlc and k3_rlc at 2,560 lanes, the
   per-signature and sr25519 kernels at 10,240 signatures, epoch_coords
   at 16,384 table rows; median of --rounds rounds of --reps launches;
-- whether k2_table and k1_decompress_cached equal their plain versions
-  on these inputs, every raw limb (`equal`): a variant timed from a copy
-  is built and run by nothing else in the call, so this says whether a
-  faster variant is also a right one;
-- with --sweep, the same times of k3_rlc and k2_rlc over 640 to 10,240
-  lanes and of k3_ladder and k1_decompress_cached over 2,560 to 40,960
-  signatures: a time that grows in step with the batch says the card is
-  full, a flat one that the warps' own latency bounds it.
+- whether k2_table, k1_decompress_cached, k1_rlc_cached and k1r_decode
+  equal their plain versions on these inputs, every raw limb (`equal`):
+  a variant timed from a copy is built and run by nothing else in the
+  call, so this says whether a faster variant is also a right one;
+- with --sweep, the same times of k3_rlc, k2_rlc and k1_rlc_cached over
+  640 to 10,240 lanes and of k3_ladder, k1_decompress_cached and
+  k1r_decode over 2,560 to 40,960 signatures: a time that grows in step
+  with the batch says the card is full, a flat one that the warps' own
+  latency bounds it.
 
 The inputs are seeded random limbs, digits and bytes in range, not
 signatures: a ladder's or a table build's work does not depend on the
@@ -144,9 +145,10 @@ def main() -> int:
     sig_idx = torch.randint(0, TABLE_ROWS, (SIGS,), generator=gen, dtype=torch.int32).to(dev)
     warm_in = (ctbl, oktbl, sig_idx, rows(SIGS), rows(SIGS), rows(SIGS))
     sr_in = [octets(SIGS) for _ in range(4)] + [ones(1, SIGS), ones(1, SIGS)]
+    warm_lanes = (ctbl, oktbl, lane_idx, lane_r, lane_scal)
     runs = {
         "k1_rlc": lambda: rlc.k1_rlc(lane_a, lane_rt, scal),
-        "k1_rlc_cached": lambda: rlc.k1_rlc_cached(ctbl, oktbl, lane_idx, lane_r, lane_scal),
+        "k1_rlc_cached": lambda: rlc.k1_rlc_cached(*warm_lanes),
         "k2_rlc": lambda: rlc.k2_rlc(r_in[2]),
         "k3_rlc": lambda: rlc.k3_rlc(*r_in),
         "epoch_coords": lambda: epoch_cache.epoch_coords(pub_t),
@@ -157,11 +159,17 @@ def main() -> int:
         "k1r_decode": lambda: osr.k1r_decode(*sr_in),
         "k3r_ladder": lambda: osr.k3r_ladder(*v_in),
     }
+
+    def same(got, want) -> bool:
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
     equal = {
-        "k2_table": torch.equal(runs["k2_table"](), verify.k2_table_plain(v_in[3])),
-        "k1_decompress_cached": all(
-            torch.equal(g, w) for g, w in zip(runs["k1_decompress_cached"](),
-                                              verify.k1_decompress_cached_plain(*warm_in))),
+        "k2_table": same(runs["k2_table"](), verify.k2_table_plain(v_in[3])),
+        "k1_decompress_cached": same(runs["k1_decompress_cached"](),
+                                     verify.k1_decompress_cached_plain(*warm_in)),
+        "k1_rlc_cached": same(runs["k1_rlc_cached"](), rlc.k1_rlc_cached_plain(*warm_lanes)),
+        "k1r_decode": same(runs["k1r_decode"](), osr.k1r_decode_plain(*sr_in)),
     }
 
     def event_ms(fn):
@@ -180,6 +188,12 @@ def main() -> int:
         for g in SWEEP_LANES:
             runs[f"k3_rlc@{g}"] = (lambda a: lambda: rlc.k3_rlc(*a))(rlc_in(g))
             runs[f"k2_rlc@{g}"] = (lambda a: lambda: rlc.k2_rlc(a))(limbs(rlc.COORD_ROWS, g))
+            warm = (ctbl, oktbl, torch.randint(0, TABLE_ROWS, (g * rlc.M,), generator=gen,
+                                               dtype=torch.int32).to(dev),
+                    rows(g * rlc.M),
+                    torch.randint(0, 256, (g, rlc.N_SCAL, 32), generator=gen,
+                                  dtype=torch.uint8).to(dev))
+            runs[f"k1_rlc_cached@{g}"] = (lambda a: lambda: rlc.k1_rlc_cached(*a))(warm)
         for n in SWEEP_SIGS:
             runs[f"k3_ladder@{n}"] = (lambda a: lambda: verify.k3_ladder(*a))(sig_in(n))
             warm = (ctbl, oktbl, torch.randint(0, TABLE_ROWS, (n,), generator=gen,
@@ -187,6 +201,8 @@ def main() -> int:
                     rows(n), rows(n), rows(n))
             runs[f"k1_decompress_cached@{n}"] = (
                 lambda a: lambda: verify.k1_decompress_cached(*a))(warm)
+            sr = [octets(n) for _ in range(4)] + [ones(1, n), ones(1, n)]
+            runs[f"k1r_decode@{n}"] = (lambda a: lambda: osr.k1r_decode(*a))(sr)
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
