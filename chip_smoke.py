@@ -20,10 +20,9 @@ Phases, in order:
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
    signature. Coordinates are compared after canonicalisation (the raw
-   limbs of k2_table's table and of the coordinates of k1_rlc_cached,
-   k1_decompress_cached and k1r_decode, rows 20..31 of each slot
-   included), flags, digits and verdicts exactly, and the verdicts
-   against the oracles;
+   limbs of k2_table's table and of the coordinates of the four K1s and
+   k1r_decode, rows 20..31 of each slot included), flags, digits and
+   verdicts exactly, and the verdicts against the oracles;
 4. slice: `types.validation.verify_commit` on a 10,000-validator commit
    on the card, on each path with the launch counters set to 0 just
    before it and read just after:
@@ -155,6 +154,32 @@ PRODUCTS_PER_UNIT = {
     "k1_decompress": 123_100, "k1_decompress_cached": 61_550, "k2_table": 50_880,
     "k3_ladder": 938_400, "k1r_decode": 128_740, "k3r_ladder": 926_160,
 }
+# k1_rlc and k1_decompress do not run those formulas: their bound counts
+# the multiplies of their own formulation (fe25519.cuh decompress_wide),
+# counted from the source. Per point, pow22523's chain and, around it, 3
+# squarings (v^2, (v^3)^2, r^2) and 6 multiplies (v^3, v^7, u v^7, u v^3,
+# r, v r^2) on the wide field. A squaring forms 55 32 x 32 -> 64 products
+# and a multiply 100, each one more for 19 times the top carry's low word;
+# its 32-bit multiplies are 19 times limbs 5..9 (a squaring) or 1..9 (a
+# multiply) and 19 times the top carry's high word. On the 13-bit
+# functions a point forms one squaring (y^2) and three multiplies (d y^2,
+# r sqrt(-1), counted in every point as the plain version forms it, x y).
+# A 32 x 32 -> 64 product takes INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK of
+# the SM's 32-bit multiply-add slots a clock.
+WIDE_AROUND_CHAIN = (3, 6)  # squarings, multiplies
+WIDE_SQ = (56, 6)  # 32 x 32 -> 64 products, 32-bit multiplies
+WIDE_MUL = (101, 10)
+WIDE_13BIT = (1, 3)  # squarings, multiplies
+# a point's 32 x 32 -> 64 products and 32-bit multiplies, as the headers of
+# csrc/rlc.cu and csrc/verify.cu state them
+WIDE_PER_POINT = (15_941, 3_104)
+# IMAD.WIDE.U32 an SM issues a clock at most, in the form decompress_wide
+# compiles to (an IMAD.WIDE.U32 of RZ a product, two summed into a column by
+# IADD3 and IADD3.X): 27.11 at 12 chains a thread and 64 warps an SM,
+# against 63.99 IMAD, on an H100 80GB HBM3 at 700 W (tools/torch_imad_rate.py;
+# the programming guide gives no rate for it)
+WIDE_PER_SM_CLOCK = 27.11
+WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2}
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
     "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
@@ -169,10 +194,10 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
-# canonicalisation; the rest, and every output of k2_table, k1_rlc_cached,
-# k1_decompress_cached and k1r_decode, raw
-SLOT_OUTPUTS = {"k1_rlc": (0,), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
-                "epoch_coords": (0,), "k1_decompress": (0,), "k1_decompress_cached": (),
+# canonicalisation; the rest, and every output of the four K1s, k2_table
+# and k1r_decode, raw
+SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
+                "epoch_coords": (0,), "k1_decompress": (), "k1_decompress_cached": (),
                 "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": ()}
 
 
@@ -749,6 +774,49 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
 # -- timing --------------------------------------------------------------------
 
 
+def _count_mul_sq(fn) -> tuple:
+    """(fe.mul, fe.sq) calls of fn(), counted per column (a curve constant
+    is one (20, 1) column broadcast over the batch)."""
+    counts = {"mul": 0, "sq": 0}
+    real_mul, real_sq = fe.mul, fe.sq
+
+    def mul(a, b):
+        counts["mul"] += max(a.shape[-1], b.shape[-1])
+        return real_mul(a, b)
+
+    def sq(a):
+        counts["sq"] += a.shape[-1]
+        return real_sq(a)
+
+    fe.mul, fe.sq = mul, sq
+    try:
+        fn()
+    finally:
+        fe.mul, fe.sq = real_mul, real_sq
+    return counts["mul"], counts["sq"]
+
+
+def wide_multiplies() -> dict:
+    """Multiplies a point of decompress_wide: 32 x 32 -> 64 products
+    (`wide`), 32-bit multiplies (`int32`) and the 32-bit multiply-add
+    slots they take (`slots`, INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK a wide
+    product). The chain's
+    squarings and multiplies are counted by running fe.pow22523 (the same
+    chain) on one column; the rest is as WIDE_* state. The counts must
+    equal the ones stated in the sources' headers (WIDE_PER_POINT)."""
+    n_mul, n_sq = _count_mul_sq(lambda: fe.pow22523(fe.from_ints([2])))
+    n_sq += WIDE_AROUND_CHAIN[0]
+    n_mul += WIDE_AROUND_CHAIN[1]
+    wide = n_sq * WIDE_SQ[0] + n_mul * WIDE_MUL[0]
+    int32 = (n_sq * WIDE_SQ[1] + n_mul * WIDE_MUL[1]
+             + WIDE_13BIT[0] * PRODUCTS_SQ + WIDE_13BIT[1] * PRODUCTS_MUL)
+    check((wide, int32) == WIDE_PER_POINT,
+          f"decompress_wide's multiplies a point {(wide, int32)}, the sources state "
+          f"{WIDE_PER_POINT}")
+    return {"squarings": n_sq, "multiplies": n_mul, "wide": wide, "int32": int32,
+            "slots": INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK * wide + int32}
+
+
 def count_products(units: dict) -> dict:
     """Multiply-adds per unit of each kernel, counted by running the plain
     versions on one unit (a lane, a table row, a signature) on the CPU
@@ -757,27 +825,10 @@ def count_products(units: dict) -> dict:
     count must equal the one stated in its source's header: a field
     product the count misses would otherwise lower the bound without an
     error. `units` maps a kernel to a thunk of its plain version."""
-    counts = {"mul": 0, "sq": 0}
-    real_mul, real_sq = fe.mul, fe.sq
-
-    def mul(a, b):
-        # a curve constant is one (20, 1) column broadcast over the batch
-        counts["mul"] += max(a.shape[-1], b.shape[-1])
-        return real_mul(a, b)
-
-    def sq(a):
-        counts["sq"] += a.shape[-1]
-        return real_sq(a)
-
     counted = {}
-    fe.mul, fe.sq = mul, sq
-    try:
-        for name, fn in units.items():
-            counts["mul"] = counts["sq"] = 0
-            fn()
-            counted[name] = counts["mul"] * PRODUCTS_MUL + counts["sq"] * PRODUCTS_SQ
-    finally:
-        fe.mul, fe.sq = real_mul, real_sq
+    for name, fn in units.items():
+        n_mul, n_sq = _count_mul_sq(fn)
+        counted[name] = n_mul * PRODUCTS_MUL + n_sq * PRODUCTS_SQ
     check(counted == PRODUCTS_PER_UNIT,
           f"multiply-adds per unit {counted}, the sources state {PRODUCTS_PER_UNIT}")
     return counted
@@ -991,12 +1042,21 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
                        (rt, rs, rk, rc, ro, sr[6], rout), n_sr),
     }
     products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr))
+    wide = wide_multiplies()
+    log(f"timing: decompress_wide a point: {wide['squarings']} squarings and "
+        f"{wide['multiplies']} multiplies on the wide field, {wide['wide']} 32 x 32 -> 64 "
+        f"products and {wide['int32']} 32-bit multiplies, {wide['slots']:.0f} multiply-add slots")
+    # the multiply-add slots a unit takes: the cold K1s' from their own
+    # formulation, every other kernel's from the 13-bit formulas
+    ops = dict(products)
+    for name, points in WIDE_POINTS_PER_UNIT.items():
+        ops[name] = wide["slots"] * points
     int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
     records = []
     for name, (fn, tensors, units) in runs.items():
         ms = event_ms(fn, KERNEL_REPS)
         io_bytes = sum(t.nbytes for t in tensors)
-        ops_ms = products[name] * units / int_rate * 1e3
+        ops_ms = ops[name] * units / int_rate * 1e3
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         source, replaces = KERNELS[name]
@@ -1010,14 +1070,15 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
             "pct_of_bound": 100 * bound_ms / ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
+            "ops_per_unit": ops[name],
             "products_per_unit": products[name],
             "units": units,
             "bytes": io_bytes,
         })
         log(f"timing: {name} {ms:.3f} ms over {units} units; bound "
             f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it reached "
-            f"({products[name] * units / 1e9:.3f} G "
-            f"multiply-adds -> {ops_ms:.4f} ms, {io_bytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
+            f"({ops[name] * units / 1e9:.3f} G "
+            f"multiply-add slots -> {ops_ms:.4f} ms, {io_bytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
     return records
 
 

@@ -5,7 +5,10 @@
 // formula at a time: a field element is 20 signed 13-bit limbs in int32,
 // and every operation below performs the same integer steps as its plain
 // PyTorch counterpart, so kernels and plain versions agree limb for limb,
-// not only modulo p.
+// not only modulo p. The wide field at the end (10 limbs of 25.5 bits, for
+// the cold K1s' chains) is the exception: it keeps only the value, and
+// comes back to canonical limbs before anything the plain version's limbs
+// depend on.
 //
 // All products and sums stay below 2^31 by fe_t's bound analysis
 // (fe_t.py:60-66, :103-108): one carry pass after add/sub/neg keeps limbs
@@ -777,11 +780,13 @@ __device__ __forceinline__ fe split_pow22523(const fe& z, int q) {
   return split_mul(split_sqn(xg, 2, q), z, q);
 }
 
-// y = carry(unpack_limbs(e)) of the 32 bytes at src, and the sign bit.
-__device__ __forceinline__ fe load_y(const uint8_t* __restrict__ src, int32_t& sign) {
+// y = carry(unpack_limbs(e)) of the 32 bytes src[0], src[stride], ...,
+// src[31 stride], and the sign bit.
+__device__ __forceinline__ fe load_y(const uint8_t* __restrict__ src, size_t stride,
+                                     int32_t& sign) {
   int32_t e[32];
 #pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = src[b];
+  for (int b = 0; b < 32; ++b) e[b] = src[b * stride];
   sign = e[31] >> 7;
   return carry(unpack_limbs(e));
 }
@@ -829,7 +834,7 @@ struct split_decompress_uv {
   fe& yr;
   int32_t& sign;
   __device__ __forceinline__ void operator()(fe& u, fe& v) const {
-    y = load_y(src, sign);
+    y = load_y(src, 1, sign);
     yr = split_rot(y, q);
     const fe yy = split_sq(yr, q);
     u = sub(split_u(yy), fe_one());
@@ -851,6 +856,245 @@ __device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out
   y_out = y;
   t_out = split_u(split_mul(x, yr, q));
   return ok;
+}
+
+// ---- the wide field: the card's 32 x 32 -> 64 multiply --------------------
+// The 13-bit signed limbs above are the TPU's shape: its vector unit has
+// no 32 x 32 -> 64 multiply, so fe_t keeps every product and sum inside
+// int32, and a squaring costs 210 multiply-adds, a wrap of 38 more and
+// three carry passes over 20 limbs. This card multiplies 32 x 32 -> 64 in
+// one instruction (IMAD.WIDE.U32), so here an element is 10 unsigned limbs
+// of 26 and 25 bits at bits 25.5 i rounded up (ref10's layout): each
+// product is one multiply-add into one of 10 64-bit column sums, with
+// 2^255 = 19 (mod p) and the factor 2 where two odd limbs meet taken into
+// the operands, so a multiply is 100 products, a squaring 55, then one
+// pass of carries. The column sums do not depend on each other, so one
+// thread's products issue back to back. Between operations these limbs
+// are not fe.py's, so only what depends on the value alone runs here:
+// pow22523's chain and sqrt_ratio's products around it (decompress_wide);
+// wide_in goes in from the canonical limbs and wide_out comes out to them.
+// A radix-2^32 element (8 words, 36 products a squaring, each product's
+// carry running into the next) took 0.14 ms where this one takes 0.13 in
+// the cold K1s (H100 80GB HBM3, 700 W; PERF.md). Plain C++ on 32- and
+// 64-bit integers but for WIDE_MAD, so the host compiler builds the same
+// source for the CPU stand-in.
+
+// c + a b for 32-bit a and b and a 64-bit c: one IMAD.WIDE.U32. Written
+// in plain C++ ((uint64_t)a * b + c), nvcc keeps the limbs as 64-bit
+// values across the squaring loop, with a zero high word it does not know
+// to be zero, and forms each product as a 64 x 64 one (an IMAD.WIDE.U32
+// and two IMADs for the high words, 284 instructions a squaring against
+// 176); on 32-bit registers, mad.wide.u32 is the one instruction. The
+// CPU stand-in defines WIDE_MAD in plain C++.
+#ifndef WIDE_MAD
+__device__ __forceinline__ uint64_t wide_mad_ptx(uint32_t a, uint32_t b, uint64_t c) {
+  uint64_t d;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+}
+#define WIDE_MAD(a, b, c) wide_mad_ptx(a, b, c)
+#endif
+
+constexpr int NWL = 10;
+
+struct fw {
+  uint32_t v[NWL];
+};
+
+// Width and lowest bit of limb i: 26, 25, 26, ... bits at 0, 26, 51, 77, ...
+__device__ constexpr int wide_bits(int i) { return i & 1 ? 25 : 26; }
+__device__ constexpr int wide_at(int i) { return 25 * i + (i + 1) / 2; }
+
+// ref10's carry order: two chains from limbs 0 and 4 interleaved, then
+// limb 9's carry wrapped to limb 0 times 19 and limb 0 once more.
+__device__ constexpr int wide_carry_limb(int s) {
+  return s == 11 ? 0 : s == 10 ? 9 : s == 9 ? 8 : s == 8 ? 4 : (s & 1) ? 4 + s / 2 : s / 2;
+}
+
+// 10 column sums (each below 2^61) -> limbs. The carries are not rounded,
+// so every limb stays non-negative and every product an unsigned one.
+// Limb i ends below 2^bits, but limbs 1 and 5 below 2^25 + 2^15 (they
+// take the carries of the second passes over limbs 0 and 4), so 19 times
+// a limb fits 32 bits and the next product's column sums stay below 2^61.
+__device__ __forceinline__ fw wide_carry(uint64_t (&h)[NWL]) {
+#pragma unroll
+  for (int s = 0; s < 12; ++s) {
+    const int i = wide_carry_limb(s), b = wide_bits(i);
+    const uint64_t c = h[i] >> b;
+    h[i] &= ((uint64_t)1 << b) - 1;
+    if (i == NWL - 1)
+      h[0] += 19 * c;
+    else
+      h[i + 1] += c;
+  }
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = (uint32_t)h[i];
+  return r;
+}
+
+// Column (i + j) mod 10 takes f_i g_j, times 19 where i + j >= 10 (folded
+// into g) and times 2 where i and j are odd (folded into f).
+__device__ __forceinline__ fw wide_mul(const fw& f, const fw& g) {
+  uint32_t f2[NWL], g19[NWL];
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) {
+    f2[i] = (i & 1) ? 2 * f.v[i] : f.v[i];
+    g19[i] = 19 * g.v[i];
+  }
+  uint64_t h[NWL];
+#pragma unroll
+  for (int k = 0; k < NWL; ++k) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) {
+#pragma unroll
+    for (int j = 0; j < NWL; ++j)
+      h[(i + j) % NWL] = WIDE_MAD((j & 1) ? f2[i] : f.v[i], i + j >= NWL ? g19[j] : g.v[j],
+                                  h[(i + j) % NWL]);
+  }
+  return wide_carry(h);
+}
+
+// Each pair i <= j once: times 2 where i < j and where both are odd
+// (folded into f_i), times 19 where i + j >= 10 (folded into f_j).
+__device__ __forceinline__ fw wide_sq(const fw& f) {
+  uint32_t f2[NWL], f4[NWL], f19[NWL];
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) {
+    f2[i] = 2 * f.v[i];
+    f4[i] = 4 * f.v[i];
+    f19[i] = 19 * f.v[i];
+  }
+  uint64_t h[NWL];
+#pragma unroll
+  for (int k = 0; k < NWL; ++k) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) {
+#pragma unroll
+    for (int j = i; j < NWL; ++j) {
+      const int m = (i < j ? 2 : 1) * ((i & j & 1) ? 2 : 1);
+      const uint32_t a = m == 1 ? f.v[i] : m == 2 ? f2[i] : f4[i];
+      h[(i + j) % NWL] = WIDE_MAD(a, i + j >= NWL ? f19[j] : f.v[j], h[(i + j) % NWL]);
+    }
+  }
+  return wide_carry(h);
+}
+
+__device__ __forceinline__ fw wide_sqn(fw a, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) a = wide_sq(a);
+  return a;
+}
+
+// z^(2^252 - 3), pow22523's chain on the wide field.
+__device__ __forceinline__ fw wide_pow22523(const fw z) {
+  const fw x2 = wide_sq(z);
+  const fw x9 = wide_mul(z, wide_sqn(x2, 2));
+  const fw x11 = wide_mul(x2, x9);
+  const fw x31 = wide_mul(x9, wide_sq(x11));
+  const fw xa = wide_mul(wide_sqn(x31, 5), x31);
+  const fw xb = wide_mul(wide_sqn(xa, 10), xa);
+  const fw xc = wide_mul(wide_sqn(xb, 20), xb);
+  const fw xd = wide_mul(wide_sqn(xc, 10), xa);
+  const fw xe = wide_mul(wide_sqn(xd, 50), xd);
+  const fw xf = wide_mul(wide_sqn(xe, 100), xe);
+  const fw xg = wide_mul(wide_sqn(xf, 50), xd);
+  return wide_mul(wide_sqn(xg, 2), z);
+}
+
+// Any carried element -> the wide field: its canonical limbs (below p,
+// each in [0, 2^13)) regrouped into limbs of 26 and 25 bits.
+__device__ __forceinline__ fw wide_in(const fe& x) {
+  const fe c = canon_body(x);
+  fw r;
+#pragma unroll
+  for (int k = 0; k < NWL; ++k) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int sh = RADIX * i - wide_at(k);  // where limb i's bit 0 lands in limb k
+      if (sh > -RADIX && sh < wide_bits(k))
+        v |= sh >= 0 ? (uint32_t)c.v[i] << sh : (uint32_t)c.v[i] >> -sh;
+    }
+    r.v[k] = v & ((1u << wide_bits(k)) - 1);
+  }
+  return r;
+}
+
+// The wide field -> canonical limbs, by ref10's reduction. With limbs as
+// wide_carry or wide_in leave them the value V is below 2^255 + 2^144 <
+// 2p, so its quotient by p is 0 or 1. q0 = round(19 h_9 / 2^25) is at
+// most 19, and 19 when V >= p (then h_9 = 2^25 - 1), so q = floor((V +
+// q0) / 2^255), formed by a pass of carries from q0 up through the limbs,
+// is that quotient; V - q p carried out leaves every limb in [0, 2^bits).
+// Then the 255 bits are cut into 20 limbs of 13.
+__device__ __forceinline__ fe wide_out(const fw& f) {
+  uint32_t h[NWL];
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) h[i] = f.v[i];
+  uint32_t q = (19 * h[NWL - 1] + (1u << 24)) >> 25;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) q = (h[i] + q) >> wide_bits(i);
+  h[0] += 19 * q;
+#pragma unroll
+  for (int i = 0; i < NWL - 1; ++i) {
+    h[i + 1] += h[i] >> wide_bits(i);
+    h[i] &= (1u << wide_bits(i)) - 1;
+  }
+  h[NWL - 1] &= (1u << 25) - 1;
+  fe r;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < NWL; ++k) {
+      const int sh = wide_at(k) - RADIX * l;  // where limb k's bit 0 lands in limb l
+      if (sh > -wide_bits(k) && sh < RADIX) v |= sh >= 0 ? h[k] << sh : h[k] >> -sh;
+    }
+    r.v[l] = (int32_t)(v & MASK);
+  }
+  return r;
+}
+
+// decompress (ZIP-215) of the encoding src[0], src[stride], ...,
+// src[31 stride], inline, with sqrt_ratio's products and pow22523's chain
+// on the wide field: u = y^2 - 1 and v = d y^2 + 1 are formed on the
+// 13-bit functions, as decompress forms them, and go in; v^3, v^7, u v^7,
+// the chain, r = u v^3 (u v^7)^((p - 5) / 8) and the check v r^2 run wide;
+// r, the check and u come back as canonical limbs for the two canonical
+// tests, the sqrt(-1) branch, x = canon(r), the sign flip and t = x y on
+// the 13-bit functions, with y read again from the bytes. Every step after
+// the chain depends only on the values of r, the check and u, so X, Y, Z
+// and T are decompress's limbs. Only u and v live across the chain.
+__device__ __forceinline__ bool decompress_wide(pt& o, const uint8_t* __restrict__ src,
+                                                size_t stride) {
+  fw u, v;
+  {
+    int32_t sign;
+    const fe yy = sq(load_y(src, stride, sign));
+    u = wide_in(sub(yy, fe_one()));
+    v = wide_in(add(mul(fe_d(), yy), fe_one()));
+  }
+  const fw v3 = wide_mul(wide_sq(v), v);
+  const fw w = wide_pow22523(wide_mul(u, wide_mul(wide_sq(v3), v)));
+  const fw r = wide_mul(wide_mul(u, v3), w);
+  const fe uc = wide_out(u), cc = wide_out(wide_mul(v, wide_sq(r)));
+  fe d;  // check - u
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d.v[i] = cc.v[i] - uc.v[i];
+  const bool ok_pos = all_zero(canon_body(d));
+  const bool ok_neg = all_zero(canon_body(add(cc, uc)));
+  fe x = wide_out(r);
+  if (!ok_pos) x = mul(x, fe_sqrt_m1());
+  x = canon_body(x);
+  int32_t sign;
+  const fe y = load_y(src, stride, sign);
+  if ((x.v[0] & 1) != sign) x = neg(x);
+  o.x = x;
+  o.y = y;
+  o.z = fe_one();
+  o.t = mul(x, y);
+  return ok_pos || ok_neg;
 }
 
 }  // namespace edw

@@ -23,11 +23,22 @@
 // reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 2,560 lanes (10,240
 // signatures) that is 0.075, 0.038, 0.031 and 0.30 ms, and 0.060 ms for a
 // table of 16,384 rows. The bytes each moves (22, 30, 94, 105 and 9 MB)
-// take 0.003 to 0.03 ms at 3.35 TB/s, so all are bound by operations.
+// take 0.003 to 0.03 ms at 3.35 TB/s, so all are bound by operations. K1
+// runs on the wide field of fe25519.cuh instead: per lane 8 points of
+// 15,941 32 x 32 -> 64 products and 3,104 32-bit multiplies, 0.050 ms at
+// 2,560 lanes with a wide product at the 27.11 an SM issues a clock
+// (chip_smoke.py wide_multiplies, tools/torch_imad_rate.py).
 //
 // What the design does about it: the lanes are the parallelism. K1 runs a
 // thread per (lane, point), so its independent work spreads over 8 times
-// the threads. The table runs a thread per row, once per validator set.
+// the threads, 640 warps at 2,560 lanes; its decompression runs inline
+// (no call, no stack frame) with pow22523's chain and sqrt_ratio's
+// products on the wide field, 176 instructions a squaring against about
+// 450 on the 13-bit limbs: 0.13 ms against 0.22 for the 13-bit
+// decompression out of line, 168 registers (tools/torch_ladder_ab.py,
+// PERF.md). One warp alone on a scheduler takes 0.10 ms, the time up to
+// 1,280 lanes, so the 112 schedulers that hold two of the 640 warps set
+// it. The table runs a thread per row, once per validator set.
 // The warm K1 has only the M R decompressions to do, and one
 // decompression a thread left the card mostly idle (320 warps on 528
 // schedulers at 2,560 lanes, each walking pow22523's chain alone, 0.23
@@ -70,12 +81,11 @@
 // (PERF.md has its time beside the bound).
 //
 // Shared design: full unrolling of the limb loops inside a field multiply
-// keeps its 20 + 20 + 39 values in registers. K1 and the table call the
-// __noinline__ decompression, so that the build stays seconds long and
-// each kernel holds one copy of each formula; the warm K1's split
-// functions and the quad functions of K2 and K3 are inline, with their
-// loops kept rolled so that K3's body holds one double and one add, and
-// K2's one add and one conversion.
+// keeps its 20 + 20 + 39 values in registers. The table calls the
+// __noinline__ decompression, K1 the inline decompress_wide; the warm
+// K1's split functions and the quad functions of K2 and K3 are inline,
+// with their loops kept rolled so that K3's body holds one double and one
+// add, and K2's one add and one conversion.
 
 #include <cuda_runtime.h>
 
@@ -105,8 +115,10 @@ __device__ __forceinline__ int tbl_row(int t, int e, int c) {
 // of scalar p and decompresses point p (A_0..A_{M-1}, then R_0..R_{M-1}).
 // Digit t of a scalar is (byte[t >> 2] >> 2 (t & 3)) & 3, stored at row
 // (t & 3) * 32 + (t >> 2) of its 128 (pallas_verify's shift-grouped
-// order). Bound: operations (the decompression's pow22523); eight
-// independent decompressions per lane are spread over eight threads.
+// order). The decompression runs inline on the wide field (fe25519.cuh
+// decompress_wide), so the kernel has no call and no stack frame. Bound:
+// operations (the decompression's pow22523); eight independent
+// decompressions per lane are spread over eight threads.
 __global__ void __launch_bounds__(THREADS)
 k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
               const uint8_t* __restrict__ scal_t, int32_t* __restrict__ coords,
@@ -115,13 +127,9 @@ k1_rlc_kernel(const uint8_t* __restrict__ a_t, const uint8_t* __restrict__ r_t,
   const int p = blockIdx.y;
   if (lane >= g) return;
   store_digits(dig, p * 128, scal_t + (size_t)p * 32 * g + lane, g, lane, g);
-  const uint8_t* src = p < M ? a_t + (size_t)p * 32 * g
-                             : r_t + (size_t)(p - M) * 32 * g;
-  int32_t e[32];
-#pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = src[(size_t)b * g + lane];
+  const uint8_t* src = (p < M ? a_t + (size_t)p * 32 * g : r_t + (size_t)(p - M) * 32 * g) + lane;
   pt P;
-  const bool okp = decompress(P, e);
+  const bool okp = decompress_wide(P, src, g);
   ok[(size_t)p * g + lane] = okp ? 1 : 0;
   store_point(coords, p, P, lane, g);
 }

@@ -21,15 +21,21 @@
 // reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 10,240 signatures
 // that is 0.075, 0.038 (cached), 0.031 and 0.58 ms. The bytes each
 // kernel moves (22, 94 and 105 MB) take 0.007 to 0.03 ms at 3.35 TB/s, so
-// all four are bound by operations.
+// all four are bound by operations. K1 runs on the wide field of
+// fe25519.cuh instead: per signature 2 points of 15,941 32 x 32 -> 64
+// products and 3,104 32-bit multiplies, 0.050 ms at 10,240 signatures
+// with a wide product at the 27.11 an SM issues a clock
+// (chip_smoke.py wide_multiplies, tools/torch_imad_rate.py).
 //
-// What the design does about it: the signatures are the parallelism. K1
-// runs a thread per (signature, point), so A and R decompress in two
-// threads. The warm K1 has only R to decompress, and one decompression
-// per thread left the card mostly idle (320 warps on 528 schedulers at
-// 10,240 signatures, each walking pow22523's chain of 255 squarings
-// alone, 0.23 ms): it runs a quad of four threads per signature on the
-// limb-split field product of fe25519.cuh, in which thread q forms limbs
+// What the design does about it: the signatures are the parallelism. K1 runs
+// a thread per (signature, point), so A and R decompress in two threads,
+// with the decompression inline on the wide field, as rlc.cu's K1: 0.13 ms
+// against 0.22 for the 13-bit decompression out of line
+// (tools/torch_ladder_ab.py, PERF.md). The warm K1 has only R to decompress,
+// and one decompression per thread left the card mostly idle (320 warps on
+// 528 schedulers at 10,240 signatures, each walking pow22523's chain of 255
+// squarings alone, 0.23 ms): it runs a quad of four threads per signature on
+// the limb-split field product of fe25519.cuh, in which thread q forms limbs
 // 5q .. 5q + 4 of each product (55 products a squaring, 100 a multiply),
 // so 1,280 warps share the chains: 0.17 ms. Its registers are capped for
 // one wave, as K3's below (168, no spill; uncapped it took 196 and ran in
@@ -62,9 +68,9 @@
 // whose schedulers are all busy issuing integer instructions (PERF.md has
 // its time beside the bound).
 //
-// Shared design: as csrc/rlc.cu; the cold K1 calls the __noinline__
-// decompress of fe25519.cuh, the warm K1 its inline split functions, K2
-// and K3 its inline quad functions. Table select is a direct indexed load
+// Shared design: as csrc/rlc.cu; the cold K1 runs fe25519.cuh's inline
+// decompress_wide, the warm K1 its inline split functions, K2 and K3 its
+// inline quad functions. Table select is a direct indexed load
 // of entry s2 + 4 k2 (pallas_verify's 16-way masked select was a Mosaic
 // constraint); verification handles public data, so nothing here is
 // constant time.
@@ -78,7 +84,9 @@ namespace edw {
 // K1 — replaces pallas_verify._k1_decompress_kernel (pallas_verify.py:239).
 // Thread (i, p), p = blockIdx.y: p = 0 unpacks the digits of s and
 // decompresses A (point 0 of coords); p = 1 the digits of k and R (point
-// 1). Bound: operations (the decompressions); A and R of a signature are
+// 1). The decompression runs inline on the wide field (fe25519.cuh
+// decompress_wide), so the kernel has no call and no stack frame. Bound:
+// operations (the decompressions); A and R of a signature are
 // independent, so they run in two threads.
 __global__ void __launch_bounds__(VTHREADS)
 k1_decompress_kernel(const uint8_t* __restrict__ a_t,
@@ -92,12 +100,8 @@ k1_decompress_kernel(const uint8_t* __restrict__ a_t,
   const int p = blockIdx.y;
   if (i >= n) return;
   store_digits(p == 0 ? sdig : kdig, 0, (p == 0 ? s_t : k_t) + i, n, i, n);
-  const uint8_t* src = p == 0 ? a_t : r_t;
-  int32_t e[32];
-#pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = src[(size_t)b * n + i];
   pt P;
-  const bool okp = decompress(P, e);
+  const bool okp = decompress_wide(P, (p == 0 ? a_t : r_t) + i, n);
   ok[(size_t)p * n + i] = okp ? 1 : 0;
   store_point(coords, p, P, i, n);
 }

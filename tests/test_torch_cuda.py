@@ -5,9 +5,9 @@ Run them on the card with `python -m pytest tests/test_torch_cuda.py`.
 
 Tolerance: none. Coordinates are compared after canonicalisation (and
 are expected equal limb for limb), flags, digits and verdicts exactly;
-the quad k2_rlc's and k2_table's tables and the outputs of
-k1_decompress_cached, k1_rlc_cached and k1r_decode raw, every row of
-every slot.
+the quad k2_rlc's and k2_table's tables and the outputs of the four K1s
+(k1_rlc, k1_decompress and their cached forms) and of k1r_decode raw,
+every row of every slot.
 """
 
 import hashlib
@@ -67,8 +67,7 @@ def test_k1_matches_plain(inputs):
     want = rlc.k1_rlc_plain(a_t, r_t, scal_t)
     got = rlc.k1_rlc(a_t, r_t, scal_t)
     torch.cuda.synchronize()
-    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_k2_and_k3_match_plain(inputs):
@@ -146,8 +145,7 @@ def test_per_signature_kernels_match_plain(cuda):
     want = verify.k1_decompress_plain(*args[:4])
     got = verify.k1_decompress(*args[:4])
     torch.cuda.synchronize()
-    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
-    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     tbl_p = verify.k2_table_plain(want[0])
     tbl_k = verify.k2_table(want[0])
     torch.cuda.synchronize()
@@ -479,6 +477,54 @@ def test_k1r_decode_matches_plain_on_raw_limbs(sr_battery, cuda, n):
     want = osr.k1r_decode_plain(*args)
     _garbage_pool(cuda, *(w.shape for w in want))
     got = osr.k1r_decode(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert 0 < int(want[1].sum()) < 2 * n
+
+
+# -- the cold K1s on the wide field ---------------------------------------------
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 2560])
+def test_k1_rlc_matches_plain_on_raw_limbs(battery, cuda, lanes):
+    """k1_rlc (A_j and R_j of a lane in one thread, on the wide field)
+    against k1_rlc_plain on raw limbs: the coordinate slots of A and R
+    (rows 20..31 included), the 2M flags and the digits of the 2M
+    scalars, with every output allocated on -1-filled memory. Over the
+    ZIP-215 battery; the last live lane holds one signature and three
+    padding slots, and at 2,560 lanes the last 8 lanes are all padding;
+    1 and 2 lanes leave threads of the block past the end."""
+    n = 1 if lanes == 1 else 4 * lanes - (35 if lanes >= 64 else 3)
+    block, _ = _spread(battery, n, lanes + 9)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in rlc.prepare_rlc(block, 4 * lanes)][:3]
+    want = rlc.k1_rlc_plain(*args)
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = rlc.k1_rlc(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if lanes > 2:
+        assert 0 < int(want[1].sum()) < 2 * rlc.M * lanes
+
+
+@pytest.mark.parametrize("n", [1, 250, 10240])
+def test_k1_decompress_matches_plain_on_raw_limbs(battery, cuda, n):
+    """k1_decompress (A and R of a signature in one thread, on the wide
+    field) against k1_decompress_plain on raw limbs: A's and R's
+    coordinate slots (rows 20..31 included), both flags and the digits of
+    s and k, with every output allocated on -1-filled memory. Over the
+    ZIP-215 battery (non-canonical y, the sqrt(-1) branch, encodings that
+    do not decompress) with 6 padding signatures where n > 1; 1 and 250
+    signatures leave threads of the last block past the end."""
+    live = 1 if n == 1 else n - 6
+    block, _ = _spread(battery, live, n + 11)
+    args = [torch.from_numpy(a).to(cuda) for a in verify.prepare_compact(block, n)][:4]
+    want = verify.k1_decompress_plain(*args)
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = verify.k1_decompress(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

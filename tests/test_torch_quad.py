@@ -1,5 +1,5 @@
-"""The quad point functions, the limb-split field product and the kernels
-built on them, on the CPU.
+"""The quad point functions, the limb-split field product, the wide field
+and the kernels built on them, on the CPU.
 
 csrc/fe25519.cuh's quad functions (quad_double, quad_add_niels,
 quad_add, quad_to_niels, quad_cofactor_eq, quad_ristretto_eq) let four
@@ -8,7 +8,9 @@ point, computes product q of each round with mul/sq, and the quad swaps
 the 20-limb products by __shfl_sync. Its split functions (split_mul,
 split_sq, split_pow22523, split_sqrt_ratio) let a quad share one field
 product: each thread forms five of the 20 limbs, and the quad exchanges
-carries and gathers the limbs by shuffles.
+carries and gathers the limbs by shuffles. Its wide field (wide_mul,
+wide_sq, wide_pow22523, wide_in, wide_out: 10 limbs of 25.5 bits with
+64-bit column sums) carries the cold K1s' chains.
 CUDA code runs only on the card, where tests/test_torch_cuda.py holds the
 whole kernels to their plain versions. Here the header itself is
 compiled for the host with the system C++ compiler, against a small
@@ -19,10 +21,14 @@ exchanges are checked on every run against the plain functions
 (ops/point.py and ops/fe.py, themselves held to the JAX package's by
 test_torch_point.py and test_torch_fe.py). The same stand-in, with a
 launcher that starts each warp of a block's threads, runs the whole
-k1_rlc_cached, k2_rlc, k1r_decode and k3r_ladder kernels of csrc/rlc.cu
-and csrc/sr25519.cu and the k2_table and k1_decompress_cached kernels of
-csrc/verify.cu at a few lanes and signatures against their plain
-versions. A thread that
+k1_rlc, k1_rlc_cached, k2_rlc, k1r_decode and k3r_ladder kernels of
+csrc/rlc.cu and csrc/sr25519.cu and the k1_decompress, k2_table and
+k1_decompress_cached kernels of csrc/verify.cu at a few lanes and
+signatures against their plain versions. The wide field's mad.wide.u32
+(WIDE_MAD) is plain C++ here, and counted: the products one wide
+operation and one whole cold K1 form must equal the counts of
+chip_smoke.py's bound. The card tests hold the kernels that use it. A
+thread that
 returns while others wait at a shuffle marks its warp broken: a shuffle
 that not every thread reached, which hangs the card, fails the test here
 at once instead of hanging it.
@@ -30,11 +36,14 @@ at once instead of hanging it.
 Inputs: seeded random limbs in [0, 2^13), eight points (one warp of
 eight quads); for the split functions, seeded random limbs over the
 carried range [-1216, 2^13 + 1216] with whole elements at either end;
+for the wide field, the same, the ends of the range (0, 1, p - 1, p, p +
+1, 2p - 1, 2p, 2^255 - 1, 2^256 - 1) through wide_in, and wide limbs fed
+straight up to the most a carry leaves in each;
 the kernels at 1 and 3 lanes or signatures of random limbs, at 20
 sr25519 signatures (chip_smoke.py's ristretto edge battery and 2 padding
 rows) and over chip_smoke.py's ZIP-215 edge battery with padding (the
 warm K1s at 1 and 3 lanes and at 25 signatures, table columns out of
-order).
+order; the cold K1s at 1 and 3 lanes and over the whole battery).
 Tolerance: none; every limb of every output is equal, rows 20..31 of
 each slot included.
 """
@@ -76,6 +85,12 @@ SHIM = r"""
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
+// mad.wide.u32, counted: the tests hold the product counts of the bound
+// in chip_smoke.py to the source's
+inline thread_local uint64_t emu_wide_mads = 0;
+#define WIDE_MAD(a, b, c) \
+  (++emu_wide_mads, (uint64_t)(uint32_t)(a) * (uint32_t)(b) + (uint64_t)(c))
+extern "C" uint64_t emu_wide_mad_count() { return emu_wide_mads; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 struct EmuWarp {
@@ -214,6 +229,26 @@ extern "C" int emu_sqrt_ratio(const int32_t* u, const int32_t* v, int32_t* r_out
       ok_out[q * 8 + k] = ok ? 1 : 0;
     });
 }
+// The wide field on n elements, one after another (no warp), element k
+// in column k: op 0 wide_mul, 1 wide_sq, 2 wide_pow22523 of x (and y), 3
+// x alone, written to the 20 limbs lo by wide_out. x and y are wide_in of
+// the 13-bit limbs la and lb (20, n) or, where wa is given, the 10 wide
+// limbs wa and wb (10, n) as they are.
+extern "C" void emu_wide(int op, const int32_t* la, const int32_t* lb, const uint32_t* wa,
+                         const uint32_t* wb, int32_t* lo, int n) {
+  for (int k = 0; k < n; ++k) {
+    fw x, y;
+    if (wa) {
+      for (int i = 0; i < NWL; ++i) x.v[i] = wa[i * n + k], y.v[i] = wb[i * n + k];
+    } else {
+      x = wide_in(load(la, 0, k, n));
+      y = wide_in(load(lb, 0, k, n));
+    }
+    const fw r = op == 0 ? wide_mul(x, y) : op == 1 ? wide_sq(x) : op == 2 ? wide_pow22523(x) : x;
+    const fe f = wide_out(r);
+    for (int l = 0; l < NL; ++l) lo[l * n + k] = f.v[l];
+  }
+}
 // A warp whose lane 5 leaves before the quad's shuffle: the stand-in must
 // report it.
 extern "C" int emu_stray_lane() {
@@ -258,6 +293,11 @@ extern "C" int emu_k1_rlc_cached(const int32_t* ctbl, const int32_t* oktbl, cons
     k1_rlc_cached_kernel(ctbl, oktbl, idx, r_rows, scal_rows, coords, ok, dig, g, vp);
   });
 }
+extern "C" int emu_k1_rlc(const uint8_t* a_t, const uint8_t* r_t, const uint8_t* scal_t,
+                          int32_t* coords, int32_t* ok, int32_t* dig, int g) {
+  return launch(dim3((g + THREADS - 1) / THREADS, N_SCAL), THREADS,
+                [=] { k1_rlc_kernel(a_t, r_t, scal_t, coords, ok, dig, g); });
+}
 extern "C" int emu_k1r_decode(const uint8_t* a_t, const uint8_t* r_t, const uint8_t* s_t,
                               const uint8_t* k_t, const int32_t* aok, const int32_t* rok,
                               int32_t* coords, int32_t* ok, int32_t* sdig, int32_t* kdig, int n) {
@@ -279,6 +319,13 @@ VERIFY_HARNESS = r"""
 extern "C" int emu_k2_table(const int32_t* coords, int32_t* tbl, int n) {
   return launch(dim3((4 * n + K2_THREADS - 1) / K2_THREADS), K2_THREADS,
                 [=] { k2_table_kernel(coords, tbl, n); });
+}
+extern "C" int emu_k1_decompress(const uint8_t* a_t, const uint8_t* r_t, const uint8_t* s_t,
+                                 const uint8_t* k_t, int32_t* coords, int32_t* ok,
+                                 int32_t* sdig, int32_t* kdig, int n) {
+  return launch(sig_grid(n, 2), VTHREADS, [=] {
+    k1_decompress_kernel(a_t, r_t, s_t, k_t, coords, ok, sdig, kdig, n);
+  });
 }
 extern "C" int emu_k1_decompress_cached(const int32_t* ctbl, const int32_t* oktbl,
                                         const int32_t* idx, const uint8_t* r_rows,
@@ -319,6 +366,8 @@ def emu_lib(tmp_path_factory):
     lib.emu_quad.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_split.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.emu_sqrt_ratio.argtypes = [ctypes.c_void_p] * 4
+    lib.emu_wide.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
 
@@ -343,6 +392,8 @@ def emu_kernels(tmp_path_factory):
     lib.emu_k3r_ladder.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
     lib.emu_k1_rlc_cached.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     lib.emu_k1r_decode.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
+    lib.emu_k1_rlc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
 
@@ -351,6 +402,8 @@ def emu_verify(tmp_path_factory):
     lib = _kernel_lib(tmp_path_factory, "verify_emu", ("verify",), VERIFY_HARNESS)
     lib.emu_k2_table.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.emu_k1_decompress_cached.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+    lib.emu_k1_decompress.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
+    lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
 
@@ -668,3 +721,193 @@ def test_k1_decompress_cached_kernel_equals_plain(emu_verify):
         assert torch.equal(g, w)
     ok_r = want[1][1, : len(ents)].tolist()
     assert 0 in ok_r and 1 in ok_r
+
+
+# -- the wide field and the cold K1s on it --------------------------------------
+
+# values at the ends of the range, into wide_in as 13-bit limbs: p and 2p
+# reduce to 0, and 2^256 - 1 = 2p + 37
+EDGE_VALUES = [0, 1, fe.P - 1, fe.P, fe.P + 1, 2 * fe.P - 1, 2 * fe.P, 2**255 - 1, 2**256 - 1]
+WIDE_BITS = [25 if i & 1 else 26 for i in range(10)]
+WIDE_AT = [25 * i + (i + 1) // 2 for i in range(10)]
+# the most each wide limb holds as wide_carry leaves it: limbs 1 and 5 take
+# the carries of the second passes over limbs 0 and 4
+WIDE_TOP = [(1 << b) - 1 + (1 << 15) * (i in (1, 5)) for i, b in enumerate(WIDE_BITS)]
+
+
+def _wide_split(v: int) -> list:
+    """A value below 2^255 -> its 10 wide limbs, each within its width."""
+    return [(v >> at) & ((1 << b) - 1) for at, b in zip(WIDE_AT, WIDE_BITS)]
+
+
+def _wide_value(limbs) -> int:
+    return sum(int(x) << at for x, at in zip(limbs, WIDE_AT))
+
+
+def _wide_limb_sets() -> list:
+    """Wide limbs fed straight to the wide functions: 0, 1, p - 1, p, p + 1,
+    2^255 - 1 (every limb full), every limb at WIDE_TOP (the value 2^255 +
+    2^143 + ...), and 8 seeded random sets up to WIDE_TOP."""
+    rng = np.random.default_rng(67)
+    sets = [_wide_split(v) for v in (0, 1, fe.P - 1, fe.P, fe.P + 1, 2**255 - 1)]
+    sets.append(WIDE_TOP)
+    sets += [[int(rng.integers(0, t + 1)) for t in WIDE_TOP] for _ in range(8)]
+    return sets
+
+
+def _wide_inputs(kind: str) -> tuple:
+    """(a, b, wa, wb): 13-bit limbs (20, n) over the carried range with
+    whole columns at its ends (_split_inputs) or every pair of EDGE_VALUES,
+    with wa, wb None; or ("limbs") every pair of _wide_limb_sets as wide
+    limbs (10, n), with a, b the 13-bit limbs of the same values."""
+    if kind == "random":
+        a, b = _split_inputs(66, 16)
+        return a, b, None, None
+    if kind == "edge":
+        a = [x for x in EDGE_VALUES for _ in EDGE_VALUES]
+        b = [y for _ in EDGE_VALUES for y in EDGE_VALUES]
+        return fe.from_ints(a), fe.from_ints(b), None, None
+    sets = _wide_limb_sets()
+    wa = np.array([x for x in sets for _ in sets], dtype=np.uint32).T.copy()
+    wb = np.array([y for _ in sets for y in sets], dtype=np.uint32).T.copy()
+    return (fe.from_ints([_wide_value(c) for c in wa.T]),
+            fe.from_ints([_wide_value(c) for c in wb.T]), wa, wb)
+
+
+def _wide(emu_lib, op: int, a, b, wa=None, wb=None):
+    got = torch.full(a.shape, -1, dtype=torch.int32)
+    emu_lib.emu_wide(op, a.contiguous().data_ptr(), b.contiguous().data_ptr(),
+                     None if wa is None else wa.ctypes.data,
+                     None if wb is None else wb.ctypes.data, got.data_ptr(), a.shape[-1])
+    return got
+
+
+@pytest.mark.parametrize("kind", ["random", "edge", "limbs"])
+@pytest.mark.parametrize("op", ["mul", "sq", "pow22523"])
+def test_wide_field_equals_fe(emu_lib, op, kind):
+    """wide_mul, wide_sq and wide_pow22523, on wide_in of 13-bit limbs or
+    on wide limbs fed straight, written out by wide_out, against ops/fe.py's
+    mul, sq and pow22523 on the same values: every canonical limb equal."""
+    a, b, wa, wb = _wide_inputs(kind)
+    if op == "mul":
+        got, want = _wide(emu_lib, 0, a, b, wa, wb), fe.mul(a, b)
+    elif op == "sq":
+        got, want = _wide(emu_lib, 1, a, b, wa, wb), fe.sq(a)
+    else:
+        got, want = _wide(emu_lib, 2, a, b, wa, wb), fe.pow22523(a)
+    assert torch.equal(got, fe.canon(want))
+
+
+@pytest.mark.parametrize("kind", ["random", "edge", "limbs"])
+def test_wide_conversions_equal_canon(emu_lib, kind):
+    """wide_out(wide_in(x)) -> fe.canon(x), every limb, on 13-bit limbs
+    over the carried range and at the ends of the range (p and 2p in, 0
+    out); and wide_out of wide limbs fed straight, up to WIDE_TOP (values
+    from p to 2^255 + 2^143 reduce by one p), -> fe.canon of their value."""
+    a, b, wa, wb = _wide_inputs(kind)
+    assert torch.equal(_wide(emu_lib, 3, a, b, wa, wb), fe.canon(a))
+
+
+def _wide_mads(lib, fn) -> int:
+    """WIDE_MAD products that fn() formed in lib."""
+    before = lib.emu_wide_mad_count()
+    fn()
+    return lib.emu_wide_mad_count() - before
+
+
+@pytest.mark.parametrize("op", ["mul", "sq", "pow22523"])
+def test_wide_products_equal_the_bounds_count(emu_lib, op):
+    """The WIDE_MAD products of one wide_mul, wide_sq and wide_pow22523
+    equal the counts of chip_smoke.py's bound: WIDE_MUL's and WIDE_SQ's
+    products less the one for 19 times the top carry (a 64-bit multiply,
+    not a WIDE_MAD), and for the chain fe.pow22523's multiplies and
+    squarings at those counts."""
+    import chip_smoke
+
+    mul, sq = chip_smoke.WIDE_MUL[0] - 1, chip_smoke.WIDE_SQ[0] - 1
+    if op == "pow22523":
+        n_mul, n_sq = chip_smoke._count_mul_sq(lambda: fe.pow22523(fe.from_ints([2])))
+        want = n_mul * mul + n_sq * sq
+    else:
+        want = mul if op == "mul" else sq
+    a = fe.from_ints([2])
+    code = ["mul", "sq", "pow22523"].index(op)
+    assert _wide_mads(emu_lib, lambda: _wide(emu_lib, code, a, a)) == want
+
+
+@pytest.mark.parametrize("kernel", ["k1_rlc", "k1_decompress"])
+def test_cold_k1_wide_products_equal_the_bounds_count(request, kernel):
+    """The WIDE_MAD products of the whole k1_rlc at 1 lane (8 points) and
+    k1_decompress at 1 signature (2 points), over zero bytes, equal
+    chip_smoke.wide_multiplies' count a point (itself held to the sources'
+    headers) less the one a wide squaring or multiply forms for 19 times
+    the top carry."""
+    import chip_smoke
+
+    wide = chip_smoke.wide_multiplies()
+    want = wide["wide"] - wide["squarings"] - wide["multiplies"]
+    if kernel == "k1_rlc":
+        lib = request.getfixturevalue("emu_kernels")
+        args = [torch.zeros((rlc.M * 32, 1), dtype=torch.uint8) for _ in range(2)]
+        args.append(torch.zeros((rlc.N_SCAL * 32, 1), dtype=torch.uint8))
+        outs = [torch.full((r, 1), -1, dtype=torch.int32)
+                for r in (rlc.COORD_ROWS, 2 * rlc.M, rlc.DIG_ROWS)]
+        points = chip_smoke.WIDE_POINTS_PER_UNIT["k1_rlc"]
+    else:
+        lib = request.getfixturevalue("emu_verify")
+        args = [torch.zeros((32, 1), dtype=torch.uint8) for _ in range(4)]
+        outs = [torch.full((r, 1), -1, dtype=torch.int32)
+                for r in (verify.COORD_ROWS, 2, verify.DIG_ROWS, verify.DIG_ROWS)]
+        points = chip_smoke.WIDE_POINTS_PER_UNIT["k1_decompress"]
+    launch = getattr(lib, f"emu_{kernel}")
+    ptrs = [t.data_ptr() for t in args + outs]
+    rc = []
+    assert _wide_mads(lib, lambda: rc.append(launch(*ptrs, 1))) == points * want
+    assert rc == [0]
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_k1_rlc_kernel_equals_plain(emu_kernels, lanes):
+    """The whole k1_rlc kernel (decompressions on the wide field, inline)
+    against k1_rlc_plain over the last 4 lanes - 1 entries of
+    chip_smoke.py's ZIP-215 edge battery (at 3 lanes: a key off the
+    curve, small-order and non-canonical keys, random bytes whose R do
+    not decompress) and a padding slot: every output raw, rows 20..31 of
+    each coordinate slot included, each output starting as -1. 1 and 3
+    lanes leave most threads of the block past the end."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries()[-(4 * lanes - 1):]
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in rlc.prepare_rlc(EntryBlock.from_entries(ents), 4 * lanes)][:3]
+    want = rlc.k1_rlc_plain(*args)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    assert emu_kernels.emu_k1_rlc(*(x.data_ptr() for x in args),
+                                  *(g.data_ptr() for g in got), lanes) == 0
+    _raw_equal(got, want)
+    if lanes > 1:
+        ok = want[1].flatten().tolist()
+        assert 0 in ok and 1 in ok
+
+
+def test_k1_decompress_kernel_equals_plain(emu_verify):
+    """The whole k1_decompress kernel (decompressions on the wide field,
+    inline)
+    against k1_decompress_plain over chip_smoke.py's ZIP-215 edge battery
+    (non-canonical y, small-order keys, the sqrt(-1) branch, keys and R
+    that do not decompress) and 4 padding signatures: every output raw,
+    rows 20..31 of each coordinate slot included, each output starting
+    as -1."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries()
+    n = len(ents) + 4
+    args = [torch.from_numpy(a).contiguous()
+            for a in verify.prepare_compact(EntryBlock.from_entries(ents), n)][:4]
+    want = verify.k1_decompress_plain(*args)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    assert emu_verify.emu_k1_decompress(*(x.data_ptr() for x in args),
+                                        *(g.data_ptr() for g in got), n) == 0
+    _raw_equal(got, want)
+    ok = want[1][:, : len(ents)].flatten().tolist()
+    assert 0 in ok and 1 in ok

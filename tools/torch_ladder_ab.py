@@ -10,18 +10,22 @@ its kernel library with nvcc, and prints one JSON line with:
 - the card (`nvidia-smi` name and power limit);
 - per kernel, ptxas' registers, stack frame and spill bytes (read by this
   checkout's `chip_smoke.kernel_resources`), and the SASS instruction,
-  local load (LDL) and local store (STL) counts from `cuobjdump -sass`;
+  local load (LDL), local store (STL), wide multiply (IMAD.WIDE, the
+  32 x 32 -> 64 products) and carried add (IADD3.X) counts from
+  `cuobjdump -sass`;
 - the CUDA-event time of every kernel at the 10,000-validator commit's
   shapes: k1_rlc, k1_rlc_cached, k2_rlc and k3_rlc at 2,560 lanes, the
   per-signature and sr25519 kernels at 10,240 signatures, epoch_coords
   at 16,384 table rows; median of --rounds rounds of --reps launches;
-- whether k2_table, k1_decompress_cached, k1_rlc_cached and k1r_decode
-  equal their plain versions on these inputs, every raw limb (`equal`):
+- whether k1_rlc, k1_rlc_cached, k1_decompress, k1_decompress_cached,
+  k2_table and k1r_decode equal their plain versions on these inputs,
+  every raw limb (`equal`):
   a variant timed from a copy is built and run by nothing else in the
   call, so this says whether a faster variant is also a right one;
-- with --sweep, the same times of k3_rlc, k2_rlc and k1_rlc_cached over
-  640 to 10,240 lanes and of k3_ladder, k1_decompress_cached and
-  k1r_decode over 2,560 to 40,960 signatures: a time that grows in step
+- with --sweep, the same times of k3_rlc, k2_rlc, k1_rlc and
+  k1_rlc_cached over 640 to 10,240 lanes and of k3_ladder,
+  k1_decompress, k1_decompress_cached and k1r_decode over 2,560 to
+  40,960 signatures: a time that grows in step
   with the batch says the card is full, a flat one that the warps' own
   latency bounds it.
 
@@ -58,7 +62,8 @@ HERE = Path(__file__).resolve().parent.parent
 
 
 def _sass(lib: Path) -> dict:
-    """SASS instruction, LDL and STL counts per timed kernel."""
+    """SASS instruction, LDL, STL, IMAD.WIDE and IADD3.X counts per timed
+    kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
     out, name = {}, None
@@ -69,10 +74,11 @@ def _sass(lib: Path) -> dict:
             continue
         if name is None or not re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             continue
-        rec = out.setdefault(name, {"instructions": 0, "LDL": 0, "STL": 0})
+        rec = out.setdefault(name, {"instructions": 0, "LDL": 0, "STL": 0,
+                                    "IMAD.WIDE": 0, "IADD3.X": 0})
         rec["instructions"] += 1
-        rec["LDL"] += " LDL" in line
-        rec["STL"] += " STL" in line
+        for op in ("LDL", "STL", "IMAD.WIDE", "IADD3.X"):
+            rec[op] += f" {op}" in line
     return out
 
 
@@ -165,6 +171,8 @@ def main() -> int:
         return all(torch.equal(g, w) for g, w in zip(got, want))
 
     equal = {
+        "k1_rlc": same(runs["k1_rlc"](), rlc.k1_rlc_plain(lane_a, lane_rt, scal)),
+        "k1_decompress": same(runs["k1_decompress"](), verify.k1_decompress_plain(*k1_in)),
         "k2_table": same(runs["k2_table"](), verify.k2_table_plain(v_in[3])),
         "k1_decompress_cached": same(runs["k1_decompress_cached"](),
                                      verify.k1_decompress_cached_plain(*warm_in)),
@@ -194,6 +202,10 @@ def main() -> int:
                     torch.randint(0, 256, (g, rlc.N_SCAL, 32), generator=gen,
                                   dtype=torch.uint8).to(dev))
             runs[f"k1_rlc_cached@{g}"] = (lambda a: lambda: rlc.k1_rlc_cached(*a))(warm)
+            cold = [torch.cat([octets(g) for _ in range(rlc.M)]) for _ in range(2)]
+            cold.append(torch.randint(0, 256, (rlc.N_SCAL * 32, g), generator=gen,
+                                      dtype=torch.uint8).to(dev))
+            runs[f"k1_rlc@{g}"] = (lambda a: lambda: rlc.k1_rlc(*a))(cold)
         for n in SWEEP_SIGS:
             runs[f"k3_ladder@{n}"] = (lambda a: lambda: verify.k3_ladder(*a))(sig_in(n))
             warm = (ctbl, oktbl, torch.randint(0, TABLE_ROWS, (n,), generator=gen,
@@ -201,6 +213,8 @@ def main() -> int:
                     rows(n), rows(n), rows(n))
             runs[f"k1_decompress_cached@{n}"] = (
                 lambda a: lambda: verify.k1_decompress_cached(*a))(warm)
+            cold = [octets(n) for _ in range(4)]
+            runs[f"k1_decompress@{n}"] = (lambda a: lambda: verify.k1_decompress(*a))(cold)
             sr = [octets(n) for _ in range(4)] + [ones(1, n), ones(1, n)]
             runs[f"k1r_decode@{n}"] = (lambda a: lambda: osr.k1r_decode(*a))(sr)
     times = {name: [] for name in runs}
