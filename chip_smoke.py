@@ -20,9 +20,10 @@ Phases, in order:
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
    signature. Coordinates are compared after canonicalisation (the raw
-   limbs of k2_table's table and of the coordinates of the four K1s and
-   k1r_decode, rows 20..31 of each slot included), flags, digits and
-   verdicts exactly, and the verdicts against the oracles;
+   limbs of k2_table's table and of the coordinates of the four K1s,
+   the epoch table and k1r_decode, rows 20..31 of each slot included),
+   flags, digits and verdicts exactly, and the verdicts against the
+   oracles;
 4. slice: `types.validation.verify_commit` on a 10,000-validator commit
    on the card, on each path with the launch counters set to 0 just
    before it and read just after:
@@ -154,18 +155,19 @@ PRODUCTS_PER_UNIT = {
     "k1_decompress": 123_100, "k1_decompress_cached": 61_550, "k2_table": 50_880,
     "k3_ladder": 938_400, "k1r_decode": 128_740, "k3r_ladder": 926_160,
 }
-# k1_rlc and k1_decompress do not run those formulas: their bound counts
-# the multiplies of their own formulation (fe25519.cuh decompress_wide),
-# counted from the source. Per point, pow22523's chain and, around it, 3
-# squarings (v^2, (v^3)^2, r^2) and 6 multiplies (v^3, v^7, u v^7, u v^3,
-# r, v r^2) on the wide field. A squaring forms 55 32 x 32 -> 64 products
-# and a multiply 100, each one more for 19 times the top carry's low word;
-# its 32-bit multiplies are 19 times limbs 5..9 (a squaring) or 1..9 (a
-# multiply) and 19 times the top carry's high word. On the 13-bit
-# functions a point forms one squaring (y^2) and three multiplies (d y^2,
-# r sqrt(-1), counted in every point as the plain version forms it, x y).
-# A 32 x 32 -> 64 product takes INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK of
-# the SM's 32-bit multiply-add slots a clock.
+# k1_rlc, k1_decompress and epoch_coords do not run those formulas: their
+# bound counts the multiplies of their own formulation (fe25519.cuh
+# decompress_wide), counted from the source. Per point, pow22523's chain
+# and, around it, 3 squarings (v^2, (v^3)^2, r^2) and 6 multiplies (v^3,
+# v^7, u v^7, u v^3, r, v r^2) on the wide field. A squaring forms 55
+# 32 x 32 -> 64 products and a multiply 100, each one more for 19 times
+# the top carry's low word; its 32-bit multiplies are 19 times limbs 5..9
+# (a squaring) or 1..9 (a multiply) and 19 times the top carry's high
+# word. On the 13-bit functions a point forms one squaring (y^2) and three
+# multiplies (d y^2, r sqrt(-1), counted in every point as the plain
+# version forms it, x y). A 32 x 32 -> 64 product takes
+# INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK of the SM's 32-bit multiply-add
+# slots a clock.
 WIDE_AROUND_CHAIN = (3, 6)  # squarings, multiplies
 WIDE_SQ = (56, 6)  # 32 x 32 -> 64 products, 32-bit multiplies
 WIDE_MUL = (101, 10)
@@ -179,7 +181,7 @@ WIDE_PER_POINT = (15_941, 3_104)
 # against 63.99 IMAD, on an H100 80GB HBM3 at 700 W (tools/torch_imad_rate.py;
 # the programming guide gives no rate for it)
 WIDE_PER_SM_CLOCK = 27.11
-WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2}
+WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2, "epoch_coords": 1}
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
     "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
@@ -194,10 +196,10 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
-# canonicalisation; the rest, and every output of the four K1s, k2_table
-# and k1r_decode, raw
+# canonicalisation; the rest, and every output of the four K1s, the epoch
+# table, k2_table and k1r_decode, raw
 SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
-                "epoch_coords": (0,), "k1_decompress": (), "k1_decompress_cached": (),
+                "epoch_coords": (), "k1_decompress": (), "k1_decompress_cached": (),
                 "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": ()}
 
 
@@ -1046,8 +1048,9 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
     log(f"timing: decompress_wide a point: {wide['squarings']} squarings and "
         f"{wide['multiplies']} multiplies on the wide field, {wide['wide']} 32 x 32 -> 64 "
         f"products and {wide['int32']} 32-bit multiplies, {wide['slots']:.0f} multiply-add slots")
-    # the multiply-add slots a unit takes: the cold K1s' from their own
-    # formulation, every other kernel's from the 13-bit formulas
+    # the multiply-add slots a unit takes: the cold K1s' and the table's
+    # from their own formulation, every other kernel's from the 13-bit
+    # formulas
     ops = dict(products)
     for name, points in WIDE_POINTS_PER_UNIT.items():
         ops[name] = wide["slots"] * points

@@ -6,9 +6,9 @@
 // and every operation below performs the same integer steps as its plain
 // PyTorch counterpart, so kernels and plain versions agree limb for limb,
 // not only modulo p. The wide field at the end (10 limbs of 25.5 bits, for
-// the cold K1s' chains) is the exception: it keeps only the value, and
-// comes back to canonical limbs before anything the plain version's limbs
-// depend on.
+// the chains of the one-thread decompressions) is the exception: it keeps
+// only the value, and comes back to canonical limbs before anything the
+// plain version's limbs depend on.
 //
 // All products and sums stay below 2^31 by fe_t's bound analysis
 // (fe_t.py:60-66, :103-108): one carry pass after add/sub/neg keeps limbs
@@ -184,8 +184,7 @@ __device__ __forceinline__ fe sqn(fe a, int n) {
   return a;
 }
 
-// z^(2^252 - 3), ref10 addition chain. pow22523_body is the chain;
-// pow22523 is its out-of-line copy, which sqrt_ratio calls.
+// z^(2^252 - 3), ref10 addition chain, inline (sqrt_ratio_body).
 __device__ __forceinline__ fe pow22523_body(const fe z) {
   const fe x2 = sq(z);
   const fe x9 = mul(z, sqn(x2, 2));
@@ -200,8 +199,6 @@ __device__ __forceinline__ fe pow22523_body(const fe z) {
   const fe xg = mul(sqn(xf, 50), xd);
   return mul(sqn(xg, 2), z);
 }
-
-static __device__ __noinline__ fe pow22523(const fe z) { return pow22523_body(z); }
 
 // Fold bits >= 2^255 (2^255 = 19 mod p).
 __device__ __forceinline__ fe fold255(const fe& x) {
@@ -226,7 +223,8 @@ __device__ __forceinline__ fe cond_sub_p(const fe& x) {
 }
 
 // canon_body is the canonical reduction; canon is its out-of-line copy,
-// which the one-thread decompressions call.
+// which is_zero calls (the ladders' final tests, quad_cofactor_eq and
+// quad_ristretto_eq).
 __device__ __forceinline__ fe canon_body(const fe x0) {
   fe x = carry(x0);
   const fe p8 = fe_8p();
@@ -315,51 +313,23 @@ __device__ __forceinline__ fe unpack_limbs(const int32_t (&e)[32]) {
 
 // sqrt_ratio(u, v) (point.sqrt_ratio): r with v r^2 = u, multiplied by
 // sqrt(-1) unless v r^2 = u already; true when v r^2 = u or -u (ZIP-215
-// accepts check == -u as the RFC 8032 sqrt(-1) branch). sqrt_ratio_body
-// runs pow22523's chain and the canonical reductions inline where Inline
-// is true (ristretto_decode) and through their out-of-line copies where it
-// is false; sqrt_ratio, which decompress calls, is its out-of-line copy.
-template <bool Inline>
+// accepts check == -u as the RFC 8032 sqrt(-1) branch). It runs
+// pow22523's chain and the canonical reductions inline (ristretto_decode).
 __device__ __forceinline__ bool sqrt_ratio_body(fe& r_out, const fe u, const fe v) {
   const fe v3 = mul(sq(v), v);
   const fe v7 = mul(sq(v3), v);
   const fe uv7 = mul(u, v7);
-  fe r = mul(mul(u, v3), Inline ? pow22523_body(uv7) : pow22523(uv7));
+  fe r = mul(mul(u, v3), pow22523_body(uv7));
   const fe check = mul(v, sq(r));
   fe d;  // check - u, then check + u
 #pragma unroll
   for (int i = 0; i < NL; ++i) d.v[i] = check.v[i] - u.v[i];
-  const bool ok_pos = all_zero(Inline ? canon_body(d) : canon(d));
+  const bool ok_pos = all_zero(canon_body(d));
   d = add(check, u);
-  const bool ok_neg = all_zero(Inline ? canon_body(d) : canon(d));
+  const bool ok_neg = all_zero(canon_body(d));
   if (!ok_pos) r = mul(r, fe_sqrt_m1());
   r_out = r;
   return ok_pos || ok_neg;
-}
-
-static __device__ __noinline__ bool sqrt_ratio(fe& r_out, const fe u, const fe v) {
-  return sqrt_ratio_body<false>(r_out, u, v);
-}
-
-// ZIP-215 decompression (pallas_verify.decompress): y is carried but not
-// reduced, so a non-canonical y is accepted; the sign flip uses the
-// canonical x.
-static __device__ __noinline__ bool decompress(pt& o, const int32_t (&e)[32]) {
-  const fe one = fe_one();
-  const fe y = carry(unpack_limbs(e));
-  const int32_t sign = e[31] >> 7;
-  const fe yy = sq(y);
-  const fe u = sub(yy, one);
-  const fe v = add(mul(fe_d(), yy), one);
-  fe r;
-  const bool ok = sqrt_ratio(r, u, v);
-  fe x = canon(r);
-  if ((x.v[0] & 1) != sign) x = neg(x);
-  o.x = x;
-  o.y = y;
-  o.z = one;
-  o.t = mul(x, y);
-  return ok;
 }
 
 // ristretto255 DECODE (pallas_sr25519._ristretto_decode, point.
@@ -378,7 +348,7 @@ __device__ __forceinline__ bool ristretto_decode(pt& o, const int32_t (&e)[32], 
   const fe u2_sqr = sq(u2);
   const fe v = sub(neg(mul(fe_d(), sq(u1))), u2_sqr);  // -(d u1^2) - u2^2
   fe invsq;
-  const bool was_square = sqrt_ratio_body<true>(invsq, one, mul(v, u2_sqr));
+  const bool was_square = sqrt_ratio_body(invsq, one, mul(v, u2_sqr));
   const fe den_x = mul(invsq, u2);
   const fe den_y = mul(mul(invsq, den_x), v);
   fe x = canon_body(mul(add(s, s), den_x));
@@ -579,7 +549,7 @@ __device__ __forceinline__ bool quad_ristretto_eq(const fe& acc, const fe& r, in
 // and the quad gathers the result rotated by 20 shuffles. Every product
 // and sum is the int32 one that mul and sq form, and int32 sums do not
 // depend on their order, so every limb equals the one-thread result.
-// carry, canon, add, sub and the other one-thread functions run on the
+// carry, canon_body, add, sub and the other one-thread functions run on the
 // element in order in all four threads with no shuffle. All threads of a
 // warp execute every shuffle, so a product is never taken under a branch
 // that differs between quads: the callers form both sides and pick.
@@ -793,12 +763,12 @@ __device__ __forceinline__ fe load_y(const uint8_t* __restrict__ src, size_t str
 
 // sqrt_ratio(u, v) on the quad: r, in order in every thread, with v r^2
 // = u, multiplied by sqrt(-1) unless v r^2 = u already; true when v r^2 =
-// u or -u; the same limbs as the one-thread sqrt_ratio. uv(u, vr) forms u
-// in order and v rotated; it runs twice, before pow22523's chain and after
-// it, so that only the chain's own values are live across the chain (the
-// caller's uv forms again, after the chain, what the caller needs then: a
-// few products more). The sqrt(-1) product is formed unconditionally and
-// picked.
+// u or -u; the same limbs as the one-thread sqrt_ratio_body. uv(u, vr)
+// forms u in order and v rotated; it runs twice, before pow22523's chain
+// and after it, so that only the chain's own values are live across the
+// chain (the caller's uv forms again, after the chain, what the caller
+// needs then: a few products more). The sqrt(-1) product is formed
+// unconditionally and picked.
 template <class UV>
 __device__ __forceinline__ bool split_sqrt_ratio(fe& r_out, const UV& uv, int q) {
   fe w;
@@ -824,7 +794,7 @@ __device__ __forceinline__ bool split_sqrt_ratio(fe& r_out, const UV& uv, int q)
   return ok_pos || ok_neg;
 }
 
-// decompress's u = y^2 - 1 and v = d y^2 + 1 (rotated) for
+// The decompression's u = y^2 - 1 and v = d y^2 + 1 (rotated) for
 // split_sqrt_ratio, from the 32 bytes at src; y, its rotation and the
 // sign bit land in the caller's y, yr and sign.
 struct split_decompress_uv {
@@ -844,7 +814,7 @@ struct split_decompress_uv {
 
 // decompress (ZIP-215) of the 32 bytes at src on the quad: X, Y, T in
 // order in every thread (Z = 1), the same limbs as the one-thread
-// decompress.
+// decompress_wide.
 __device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out,
                                                  const uint8_t* __restrict__ src, int q) {
   int32_t sign;
@@ -1056,16 +1026,20 @@ __device__ __forceinline__ fe wide_out(const fw& f) {
   return r;
 }
 
-// decompress (ZIP-215) of the encoding src[0], src[stride], ...,
-// src[31 stride], inline, with sqrt_ratio's products and pow22523's chain
-// on the wide field: u = y^2 - 1 and v = d y^2 + 1 are formed on the
-// 13-bit functions, as decompress forms them, and go in; v^3, v^7, u v^7,
-// the chain, r = u v^3 (u v^7)^((p - 5) / 8) and the check v r^2 run wide;
-// r, the check and u come back as canonical limbs for the two canonical
-// tests, the sqrt(-1) branch, x = canon(r), the sign flip and t = x y on
-// the 13-bit functions, with y read again from the bytes. Every step after
-// the chain depends only on the values of r, the check and u, so X, Y, Z
-// and T are decompress's limbs. Only u and v live across the chain.
+// ZIP-215 decompression (pallas_verify.decompress, point.decompress) of
+// the encoding src[0], src[stride], ..., src[31 stride], inline: y is
+// carried but not reduced, so a non-canonical y is accepted, and the sign
+// flip uses the canonical x. sqrt_ratio's products and pow22523's chain
+// run on the wide field: u = y^2 - 1 and v = d y^2 + 1 are formed on the
+// 13-bit functions, as point.decompress forms them, and go in; v^3, v^7,
+// u v^7, the chain, r = u v^3 (u v^7)^((p - 5) / 8) and the check v r^2
+// run wide; r, the check and u come back as canonical limbs for the two
+// canonical tests, the sqrt(-1) branch, x = canon(r), the sign flip and
+// t = x y on the 13-bit functions, with y read again from the bytes. Every
+// step after the chain depends only on the values of r, the check and u,
+// so X, Y, Z and T are the plain version's limbs. Only u and v live
+// across the chain. The one-thread decompressions (the cold K1s and the
+// epoch table) run it; split_decompress is the quad's.
 __device__ __forceinline__ bool decompress_wide(pt& o, const uint8_t* __restrict__ src,
                                                 size_t stride) {
   fw u, v;

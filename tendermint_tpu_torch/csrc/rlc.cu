@@ -18,16 +18,19 @@
 //              16 Niels conversions
 //   K3         1,956,000: 127 iterations of 2 doubles and 3 or 4 Niels
 //              adds, then 6 doubles and the cross-multiplied test
-//   table      61,550: one decompression a row
+//   table      one point a row on the wide field (below): 15,941 wide
+//              products and 3,104 32-bit multiplies (61,550
+//              multiply-adds on the 13-bit formulas)
 // against 132 SMs x 64 INT32 lanes per clock at the SM clock nvidia-smi
 // reports (1,980 MHz on an H100 80GB HBM3 at 700 W). At 2,560 lanes (10,240
-// signatures) that is 0.075, 0.038, 0.031 and 0.30 ms, and 0.060 ms for a
-// table of 16,384 rows. The bytes each moves (22, 30, 94, 105 and 9 MB)
-// take 0.003 to 0.03 ms at 3.35 TB/s, so all are bound by operations. K1
-// runs on the wide field of fe25519.cuh instead: per lane 8 points of
-// 15,941 32 x 32 -> 64 products and 3,104 32-bit multiplies, 0.050 ms at
-// 2,560 lanes with a wide product at the 27.11 an SM issues a clock
-// (chip_smoke.py wide_multiplies, tools/torch_imad_rate.py).
+// signatures) that is 0.075, 0.038, 0.031 and 0.30 ms. The bytes each
+// moves (22, 30, 94, 105 and 9 MB) take 0.003 to 0.03 ms at 3.35 TB/s, so
+// all are bound by operations. K1 and the table run on the wide field of
+// fe25519.cuh instead: a point is 15,941 32 x 32 -> 64 products and 3,104
+// 32-bit multiplies, 8 a lane for K1 and one a row for the table, 0.050
+// ms at 2,560 lanes and 0.040 ms at 16,384 rows with a wide product at the
+// 27.11 an SM issues a clock (chip_smoke.py wide_multiplies,
+// tools/torch_imad_rate.py).
 //
 // What the design does about it: the lanes are the parallelism. K1 runs a
 // thread per (lane, point), so its independent work spreads over 8 times
@@ -38,7 +41,12 @@
 // decompression out of line, 168 registers (tools/torch_ladder_ab.py,
 // PERF.md). One warp alone on a scheduler takes 0.10 ms, the time up to
 // 1,280 lanes, so the 112 schedulers that hold two of the 640 warps set
-// it. The table runs a thread per row, once per validator set.
+// it. The table runs the same inline decompress_wide, a thread per row,
+// once per validator set: 16,384 rows are 512 warps on the card's 528
+// schedulers, each alone on its scheduler, so it takes the lone chain's
+// 0.10 ms (0.099 against 0.156 for the 13-bit decompression out of line,
+// in blocks of 64 or 128 alike; H100 80GB HBM3, 700 W,
+// tools/torch_ladder_ab.py, PERF.md).
 // The warm K1 has only the M R decompressions to do, and one
 // decompression a thread left the card mostly idle (320 warps on 528
 // schedulers at 2,560 lanes, each walking pow22523's chain alone, 0.23
@@ -81,11 +89,11 @@
 // (PERF.md has its time beside the bound).
 //
 // Shared design: full unrolling of the limb loops inside a field multiply
-// keeps its 20 + 20 + 39 values in registers. The table calls the
-// __noinline__ decompression, K1 the inline decompress_wide; the warm
-// K1's split functions and the quad functions of K2 and K3 are inline,
-// with their loops kept rolled so that K3's body holds one double and one
-// add, and K2's one add and one conversion.
+// keeps its 20 + 20 + 39 values in registers. K1 and the table run the
+// inline decompress_wide; the warm K1's split functions and the quad
+// functions of K2 and K3 are inline, with their loops kept rolled so that
+// K3's body holds one double and one add, and K2's one add and one
+// conversion.
 
 #include <cuda_runtime.h>
 
@@ -197,20 +205,20 @@ k1_rlc_cached_kernel(const int32_t* __restrict__ ctbl,
 
 // The epoch table — the build that replaces epoch_cache._coords_fn
 // (epoch_cache.py:292-309, XLA code rather than a Pallas kernel). One
-// thread per table row decompresses the row's key from pub_t (32, vp)
-// and writes its coordinates to coords (4 * 32, vp) and its flag to
-// ok (1, vp). Padding rows hold the identity encoding. Bound: operations
-// (one decompression a row); built once per validator set and device.
+// thread per table row decompresses the row's key, read with stride vp
+// from pub_t (32, vp), and writes its coordinates to coords (4 * 32, vp)
+// and its flag to ok (1, vp). Padding rows hold the identity encoding.
+// The decompression runs inline on the wide field (fe25519.cuh
+// decompress_wide), as K1's does, so the kernel has no call and no stack
+// frame. Bound: operations (one decompression a row); built once per
+// validator set and device.
 __global__ void __launch_bounds__(THREADS)
 epoch_coords_kernel(const uint8_t* __restrict__ pub_t, int32_t* __restrict__ coords,
                     int32_t* __restrict__ ok, int vp) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= vp) return;
-  int32_t e[32];
-#pragma unroll
-  for (int b = 0; b < 32; ++b) e[b] = pub_t[(size_t)b * vp + row];
   pt P;
-  const bool okp = decompress(P, e);
+  const bool okp = decompress_wide(P, pub_t + row, vp);
   ok[row] = okp ? 1 : 0;
   store_point(coords, 0, P, row, vp);
 }

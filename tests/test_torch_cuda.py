@@ -6,8 +6,8 @@ Run them on the card with `python -m pytest tests/test_torch_cuda.py`.
 Tolerance: none. Coordinates are compared after canonicalisation (and
 are expected equal limb for limb), flags, digits and verdicts exactly;
 the quad k2_rlc's and k2_table's tables and the outputs of the four K1s
-(k1_rlc, k1_decompress and their cached forms) and of k1r_decode raw,
-every row of every slot.
+(k1_rlc, k1_decompress and their cached forms), of the epoch table build
+and of k1r_decode raw, every row of every slot.
 """
 
 import hashlib
@@ -110,18 +110,6 @@ def epoch(cuda):
     val_idx = np.argsort(order).astype(np.int32)
     ep = epoch_cache.EpochEntry(b"E" * 32, col)
     return ents, ep, val_idx
-
-
-def test_epoch_coords_matches_plain(epoch, cuda):
-    _, ep, _ = epoch
-    rows = ep.pub_rows.copy()
-    rows[-2] = np.frombuffer((2).to_bytes(32, "little"), np.uint8)  # y = 2: no point
-    pub_t = torch.from_numpy(np.ascontiguousarray(rows.T)).to(cuda)
-    want = epoch_cache.epoch_coords_plain(pub_t)
-    got = epoch_cache.epoch_coords(pub_t)
-    torch.cuda.synchronize()
-    assert torch.equal(_canon_slots(got[0]), _canon_slots(want[0]))
-    assert torch.equal(got[1], want[1]) and not bool(got[1].all())
 
 
 def test_k1_rlc_cached_matches_plain(epoch, cuda):
@@ -530,3 +518,29 @@ def test_k1_decompress_matches_plain_on_raw_limbs(battery, cuda, n):
         assert torch.equal(g, w)
     if n > 1:
         assert 0 < int(want[1].sum()) < 2 * n
+
+
+@pytest.mark.parametrize("rows", [1, 250, 16384])
+def test_epoch_coords_matches_plain(battery, cuda, rows):
+    """epoch_coords (one thread a row, the decompression inline on the
+    wide field) against epoch_coords_plain on raw limbs: the coordinate
+    slots (rows 20..31 included) and the flags, with both outputs
+    allocated on -1-filled memory. Over the keys of the ZIP-215 battery
+    (non-canonical y, small-order keys, the sqrt(-1) branch, a y that
+    does not decompress) with 6 padding rows holding the identity
+    encoding where rows > 1; 1 and 250 rows leave threads of the last
+    block past the end."""
+    live = 1 if rows == 1 else rows - 6
+    block, _ = _spread(battery, live, rows + 17)
+    pub = np.empty((rows, 32), dtype=np.uint8)
+    pub[:live] = block.pub
+    pub[live:] = epoch_cache._IDENT_ENC
+    pub_t = torch.from_numpy(np.ascontiguousarray(pub.T)).to(cuda)
+    want = epoch_cache.epoch_coords_plain(pub_t)
+    _garbage_pool(cuda, *(w.shape for w in want))
+    got = epoch_cache.epoch_coords(pub_t)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if rows > 1:
+        assert 0 < int(want[1].sum()) < rows and bool(want[1][0, live:].all())

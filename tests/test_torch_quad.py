@@ -10,7 +10,8 @@ split_sq, split_pow22523, split_sqrt_ratio) let a quad share one field
 product: each thread forms five of the 20 limbs, and the quad exchanges
 carries and gathers the limbs by shuffles. Its wide field (wide_mul,
 wide_sq, wide_pow22523, wide_in, wide_out: 10 limbs of 25.5 bits with
-64-bit column sums) carries the cold K1s' chains.
+64-bit column sums) carries the chains of the cold K1s and the epoch
+table.
 CUDA code runs only on the card, where tests/test_torch_cuda.py holds the
 whole kernels to their plain versions. Here the header itself is
 compiled for the host with the system C++ compiler, against a small
@@ -21,13 +22,13 @@ exchanges are checked on every run against the plain functions
 (ops/point.py and ops/fe.py, themselves held to the JAX package's by
 test_torch_point.py and test_torch_fe.py). The same stand-in, with a
 launcher that starts each warp of a block's threads, runs the whole
-k1_rlc, k1_rlc_cached, k2_rlc, k1r_decode and k3r_ladder kernels of
-csrc/rlc.cu and csrc/sr25519.cu and the k1_decompress, k2_table and
-k1_decompress_cached kernels of csrc/verify.cu at a few lanes and
-signatures against their plain versions. The wide field's mad.wide.u32
-(WIDE_MAD) is plain C++ here, and counted: the products one wide
-operation and one whole cold K1 form must equal the counts of
-chip_smoke.py's bound. The card tests hold the kernels that use it. A
+k1_rlc, k1_rlc_cached, k2_rlc, epoch_coords, k1r_decode and k3r_ladder
+kernels of csrc/rlc.cu and csrc/sr25519.cu and the k1_decompress,
+k2_table and k1_decompress_cached kernels of csrc/verify.cu at a few
+lanes, signatures and rows against their plain versions. The wide
+field's mad.wide.u32 (WIDE_MAD) is plain C++ here, and counted: the
+products one wide operation, one whole cold K1 and one table row form
+must equal the counts of chip_smoke.py's bound. The card tests hold the kernels that use it. A
 thread that
 returns while others wait at a shuffle marks its warp broken: a shuffle
 that not every thread reached, which hangs the card, fails the test here
@@ -43,7 +44,9 @@ the kernels at 1 and 3 lanes or signatures of random limbs, at 20
 sr25519 signatures (chip_smoke.py's ristretto edge battery and 2 padding
 rows) and over chip_smoke.py's ZIP-215 edge battery with padding (the
 warm K1s at 1 and 3 lanes and at 25 signatures, table columns out of
-order; the cold K1s at 1 and 3 lanes and over the whole battery).
+order; the cold K1s at 1 and 3 lanes and over the whole battery; the
+table at 1 row and at 40 rows of the battery's keys, valid keys and
+identity padding).
 Tolerance: none; every limb of every output is equal, rows 20..31 of
 each slot included.
 """
@@ -298,6 +301,10 @@ extern "C" int emu_k1_rlc(const uint8_t* a_t, const uint8_t* r_t, const uint8_t*
   return launch(dim3((g + THREADS - 1) / THREADS, N_SCAL), THREADS,
                 [=] { k1_rlc_kernel(a_t, r_t, scal_t, coords, ok, dig, g); });
 }
+extern "C" int emu_epoch_coords(const uint8_t* pub_t, int32_t* coords, int32_t* ok, int vp) {
+  return launch(dim3((vp + THREADS - 1) / THREADS), THREADS,
+                [=] { epoch_coords_kernel(pub_t, coords, ok, vp); });
+}
 extern "C" int emu_k1r_decode(const uint8_t* a_t, const uint8_t* r_t, const uint8_t* s_t,
                               const uint8_t* k_t, const int32_t* aok, const int32_t* rok,
                               int32_t* coords, int32_t* ok, int32_t* sdig, int32_t* kdig, int n) {
@@ -393,6 +400,7 @@ def emu_kernels(tmp_path_factory):
     lib.emu_k1_rlc_cached.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     lib.emu_k1r_decode.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
     lib.emu_k1_rlc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    lib.emu_epoch_coords.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
@@ -835,13 +843,13 @@ def test_wide_products_equal_the_bounds_count(emu_lib, op):
     assert _wide_mads(emu_lib, lambda: _wide(emu_lib, code, a, a)) == want
 
 
-@pytest.mark.parametrize("kernel", ["k1_rlc", "k1_decompress"])
+@pytest.mark.parametrize("kernel", ["k1_rlc", "k1_decompress", "epoch_coords"])
 def test_cold_k1_wide_products_equal_the_bounds_count(request, kernel):
-    """The WIDE_MAD products of the whole k1_rlc at 1 lane (8 points) and
-    k1_decompress at 1 signature (2 points), over zero bytes, equal
-    chip_smoke.wide_multiplies' count a point (itself held to the sources'
-    headers) less the one a wide squaring or multiply forms for 19 times
-    the top carry."""
+    """The WIDE_MAD products of the whole k1_rlc at 1 lane (8 points),
+    k1_decompress at 1 signature (2 points) and epoch_coords at 1 row (1
+    point), over zero bytes, equal chip_smoke.wide_multiplies' count a
+    point (itself held to the sources' headers) less the one a wide
+    squaring or multiply forms for 19 times the top carry."""
     import chip_smoke
 
     wide = chip_smoke.wide_multiplies()
@@ -853,6 +861,11 @@ def test_cold_k1_wide_products_equal_the_bounds_count(request, kernel):
         outs = [torch.full((r, 1), -1, dtype=torch.int32)
                 for r in (rlc.COORD_ROWS, 2 * rlc.M, rlc.DIG_ROWS)]
         points = chip_smoke.WIDE_POINTS_PER_UNIT["k1_rlc"]
+    elif kernel == "epoch_coords":
+        lib = request.getfixturevalue("emu_kernels")
+        args = [torch.zeros((32, 1), dtype=torch.uint8)]
+        outs = [torch.full((r, 1), -1, dtype=torch.int32) for r in (epoch_cache.TABLE_ROWS, 1)]
+        points = chip_smoke.WIDE_POINTS_PER_UNIT["epoch_coords"]
     else:
         lib = request.getfixturevalue("emu_verify")
         args = [torch.zeros((32, 1), dtype=torch.uint8) for _ in range(4)]
@@ -911,3 +924,32 @@ def test_k1_decompress_kernel_equals_plain(emu_verify):
     _raw_equal(got, want)
     ok = want[1][:, : len(ents)].flatten().tolist()
     assert 0 in ok and 1 in ok
+
+
+@pytest.mark.parametrize("rows", [1, 40])
+def test_epoch_coords_kernel_equals_plain(emu_kernels, rows):
+    """The whole epoch_coords kernel (one thread a row, the decompression
+    inline on the wide field) against epoch_coords_plain over the keys of
+    chip_smoke.py's ZIP-215 edge battery (non-canonical y, small-order
+    keys, the sqrt(-1) branch, a y that does not decompress, random
+    bytes), valid keys and 4 padding rows holding the identity encoding:
+    every output raw, rows 20..31 of each slot included, each output
+    starting as -1. At 1 row a non-canonical key; 40 rows run past one
+    warp, and both leave threads of the block past the end."""
+    import chip_smoke
+
+    keys = [p for p, _, _ in chip_smoke.edge_entries()]
+    if rows == 1:
+        keys = [next(k for k in keys if int.from_bytes(k, "little") % (1 << 255) >= _edwards.P)]
+    else:
+        keys += [_edwards.pubkey_from_seed(bytes([i]) * 32) for i in range(rows - 4 - len(keys))]
+        keys += [epoch_cache._IDENT_ENC.tobytes()] * 4
+    pub_t = torch.from_numpy(np.frombuffer(b"".join(keys), np.uint8).reshape(rows, 32).T.copy())
+    want = epoch_cache.epoch_coords_plain(pub_t)
+    got = tuple(torch.full_like(w, -1) for w in want)
+    assert emu_kernels.emu_epoch_coords(pub_t.data_ptr(), *(g.data_ptr() for g in got),
+                                        rows) == 0
+    _raw_equal(got, want)
+    if rows > 1:
+        ok = want[1].flatten().tolist()
+        assert 0 in ok and 1 in ok and ok[-4:] == [1] * 4

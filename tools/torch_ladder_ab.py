@@ -17,9 +17,9 @@ its kernel library with nvcc, and prints one JSON line with:
   shapes: k1_rlc, k1_rlc_cached, k2_rlc and k3_rlc at 2,560 lanes, the
   per-signature and sr25519 kernels at 10,240 signatures, epoch_coords
   at 16,384 table rows; median of --rounds rounds of --reps launches;
-- whether k1_rlc, k1_rlc_cached, k1_decompress, k1_decompress_cached,
-  k2_table and k1r_decode equal their plain versions on these inputs,
-  every raw limb (`equal`):
+- whether k1_rlc, k1_rlc_cached, epoch_coords, k1_decompress,
+  k1_decompress_cached, k2_table and k1r_decode equal their plain
+  versions on these inputs, every raw limb (`equal`):
   a variant timed from a copy is built and run by nothing else in the
   call, so this says whether a faster variant is also a right one;
 - with --sweep, the same times of k3_rlc, k2_rlc, k1_rlc and
@@ -177,6 +177,7 @@ def main() -> int:
         "k1_decompress_cached": same(runs["k1_decompress_cached"](),
                                      verify.k1_decompress_cached_plain(*warm_in)),
         "k1_rlc_cached": same(runs["k1_rlc_cached"](), rlc.k1_rlc_cached_plain(*warm_lanes)),
+        "epoch_coords": same(runs["epoch_coords"](), epoch_cache.epoch_coords_plain(pub_t)),
         "k1r_decode": same(runs["k1r_decode"](), osr.k1r_decode_plain(*sr_in)),
     }
 
