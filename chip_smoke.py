@@ -12,8 +12,20 @@ Phases, in order:
    source, all started together, with the build seconds and each
    kernel's registers, stack frame and spills (`-Xptxas -v`, also in its
    kernel record when this run built the library); and the host library
-   (csrc/merlin.cpp, the sr25519 challenges) with the host C++ compiler;
-3. kernels: each of the eleven CUDA entries on the card against its plain
+   (csrc/merlin.cpp and csrc/host_prep.cpp: the sr25519 challenges, the
+   fused commit prep, the ed25519 challenges, the RLC lane scalars, the
+   vote sign bytes, the reduction mod L) with the host C++ compiler;
+   then the data: a 10,000-validator ed25519 and sr25519 commit, each
+   also decoded from its wire bytes (the columnar commit the timed calls
+   use);
+3. host: each C helper of the host library on the 10,000-validator
+   inputs against its Python or numpy oracle (commit_prep.
+   _prep_commit_numpy, backend._challenges, rlc._rlc_scalars_py with
+   backend._s_below_l, canonical.compose_vote_sign_bytes_cols, Python's
+   `% L`), outputs equal byte for byte; the C time (median of
+   HOST_REPS) on the library's threads and on one, the oracle's time,
+   and the host's CPU model and count;
+4. kernels: each of the eleven CUDA entries on the card against its plain
    PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
    and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
@@ -24,13 +36,15 @@ Phases, in order:
    the epoch table and k1r_decode, rows 20..31 of each slot included),
    flags, digits and verdicts exactly, and the verdicts against the
    oracles;
-4. slice: `types.validation.verify_commit` on a 10,000-validator commit
-   on the card, on each path with the launch counters set to 0 just
-   before it and read just after:
+5. slice: `types.validation.verify_commit` on the 10,000-validator
+   commit decoded from its wire bytes on the card, on each path with the
+   launch counters set to 0 just before it and read just after:
    (a) RLC, ed25519: five calls on one validator set, the first cold
        (k1_rlc), the rest warm (k1_rlc_cached, the epoch table built
        once), with the epoch cache's misses and hits; a tampered
-       signature raises `wrong signature (#i): <HEX>` warm and cold;
+       signature raises `wrong signature (#i): <HEX>` warm and cold, on
+       a commit built from a list and on a decoded commit mutated in
+       place;
        verify_commit_light runs warm; a commit below 2/3 raises
        ErrNotEnoughVotingPowerSigned;
    (b) per-signature (TM_TPU_RLC=0), epoch cache off: the valid,
@@ -42,9 +56,13 @@ Phases, in order:
    (d) sr25519: a 10,000-validator sr25519 commit through k1r_decode,
        k2_table and k3r_ladder once each per call: valid, tampered and
        below 2/3, never noted in the epoch cache;
-5. timing, for each path (RLC cold, RLC warm, per-signature,
-   per-signature warm, sr25519): the end-to-end verify_commit wall clock
-   (warm, median of 20); a torch.profiler trace of 5 more calls, from
+6. timing, for each path (RLC cold, RLC warm, per-signature,
+   per-signature warm, sr25519), on the decoded commit: the end-to-end
+   verify_commit wall clock (warm, median of 20) and one call on the
+   commit built from objects; the host library's calls in one call
+   (each ed25519 path through the fused commit prep, span
+   `commit.prep`; sr25519 through the object path, `commit.select` and
+   `commit.sign_bytes`); a torch.profiler trace of 5 more calls, from
    which each call's host stages (the port's record_function spans), the
    rest of the call, and the card's busy time and idle share come; peak
    device memory. Then each kernel's time from CUDA events at the path's
@@ -66,6 +84,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import platform
 import random
 import re
 import statistics
@@ -78,13 +97,15 @@ import torch
 
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
 from tendermint_tpu_torch.crypto import ed25519, sr25519
-from tendermint_tpu_torch.ops import epoch_cache, fe, host, kernels, rlc, verify
+from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, fe, host, kernels, rlc
+from tendermint_tpu_torch.ops import verify
 from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
 from tendermint_tpu_torch.types import validation
 from tendermint_tpu_torch.types.block import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
+    BLOCK_ID_FLAG_NIL,
     BlockID,
     Commit,
     CommitSig,
@@ -112,22 +133,35 @@ LANE_SHAPES = (64, 2560)  # RLC kernel shapes; 2,560 lanes = 10,240 signatures
 SR_SHAPES = (64, 10240)  # sr25519 kernel shapes, in signatures
 WARM_CALLS = 5  # verify_commit calls on one set in slice (a): 1 cold, 4 warm
 REPEATS = 20  # warm end-to-end runs (median)
+HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
 KERNEL_REPS = 10  # launches per CUDA-event timing
 TRACE_DIR = kernels.BUILD_DIR.parent / "traces"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# the port's record_function spans on each batch path, in path order
-COMMIT_STAGES = ("commit.select", "commit.sign_bytes")
+# the port's record_function spans on each batch path, in path order: the
+# ed25519 paths take the fused commit prep, sr25519 the object path
+FUSED_STAGES = ("commit.prep",)
+OBJECT_STAGES = ("commit.select", "commit.sign_bytes")
 PATHS = {
-    "rlc_cold": COMMIT_STAGES + ("rlc.prep", "rlc.h2d", "rlc.kernels", "rlc.d2h",
-                                 "rlc.expand"),
-    "rlc_warm": COMMIT_STAGES + ("rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
-                                 "rlc.d2h", "rlc.expand"),
-    "per_signature": COMMIT_STAGES + ("verify.prep", "verify.h2d", "verify.kernels",
-                                      "verify.d2h"),
-    "per_signature_warm": COMMIT_STAGES + ("verify.prep", "verify.gather", "verify.h2d",
-                                           "verify.kernels", "verify.d2h"),
-    "sr25519": COMMIT_STAGES + ("sr.prep", "sr.h2d", "sr.kernels", "sr.d2h"),
+    "rlc_cold": FUSED_STAGES + ("rlc.prep", "rlc.h2d", "rlc.kernels", "rlc.d2h",
+                                "rlc.expand"),
+    "rlc_warm": FUSED_STAGES + ("rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
+                                "rlc.d2h", "rlc.expand"),
+    "per_signature": FUSED_STAGES + ("verify.prep", "verify.h2d", "verify.kernels",
+                                     "verify.d2h"),
+    "per_signature_warm": FUSED_STAGES + ("verify.prep", "verify.gather", "verify.h2d",
+                                          "verify.kernels", "verify.d2h"),
+    "sr25519": OBJECT_STAGES + ("sr.prep", "sr.h2d", "sr.kernels", "sr.d2h"),
+}
+# the host library's calls in one verify_commit call of each path
+HOST_HELPERS = ("commit_prep_fused", "ed25519_challenges_buf", "ed25519_rlc_prep",
+                "vote_sign_bytes_batch_buf", "sr25519_challenges", "mod_l_many")
+HOST_CALLS = {
+    "rlc_cold": {"commit_prep_fused": 1, "ed25519_rlc_prep": 1},
+    "rlc_warm": {"commit_prep_fused": 1, "ed25519_rlc_prep": 1},
+    "per_signature": {"commit_prep_fused": 1, "ed25519_challenges_buf": 1},
+    "per_signature_warm": {"commit_prep_fused": 1, "ed25519_challenges_buf": 1},
+    "sr25519": {"vote_sign_bytes_batch_buf": 1, "sr25519_challenges": 1, "mod_l_many": 1},
 }
 # each path: (TM_TPU_RLC, epoch cache depth, the commit's key type)
 PATH_SETUP = {
@@ -225,20 +259,21 @@ def nvidia_smi(query: str) -> str:
 
 
 @contextlib.contextmanager
-def rlc_env(value):
-    """TM_TPU_RLC set to `value` (None: unset) inside the block."""
-    old = os.environ.get("TM_TPU_RLC")
+def env(name: str, value):
+    """Environment variable `name` set to `value` (None: unset) inside the
+    block."""
+    old = os.environ.get(name)
     if value is None:
-        os.environ.pop("TM_TPU_RLC", None)
+        os.environ.pop(name, None)
     else:
-        os.environ["TM_TPU_RLC"] = value
+        os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("TM_TPU_RLC", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["TM_TPU_RLC"] = old
+            os.environ[name] = old
 
 
 # -- data ----------------------------------------------------------------------
@@ -476,6 +511,133 @@ def build_kernels() -> dict:
     return res
 
 
+# -- host phase ----------------------------------------------------------------
+
+
+def _median_ms(fn, reps: int) -> tuple:
+    """(the last result, median wall ms) of reps calls of fn."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return out, statistics.median(times)
+
+
+def _same_prep(got, want) -> bool:
+    (gs, gt, gb), (ws, wt, wb) = got, want
+    return (np.array_equal(gs, ws) and gt == wt and gb is not None and wb is not None
+            and np.array_equal(gb.pub, wb.pub) and np.array_equal(gb.sig, wb.sig)
+            and np.array_equal(gb.offsets, wb.offsets) and bytes(gb.msgs) == bytes(wb.msgs))
+
+
+def _rlc_oracle(block: EntryBlock, z: np.ndarray, live: int) -> tuple:
+    """host.ed25519_rlc_prep's outputs from the Python versions."""
+    n = len(block)
+    k = backend._challenges(np.ascontiguousarray(block.sig[:, :32]), block.pub,
+                            block.messages())
+    s_enc = np.zeros((live, 32), dtype=np.uint8)
+    s_enc[:n] = block.sig[:, 32:]
+    k_enc = np.zeros((live, 32), dtype=np.uint8)
+    k_enc[:n] = np.frombuffer(k, dtype=np.uint8).reshape(n, 32)
+    su = rlc._rlc_scalars_py(s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), rlc.M)
+    return k, su, backend._s_below_l(s_enc, n, live)
+
+
+def host_phase(vals, commit: Commit, sr_block: EntryBlock) -> dict:
+    """Each C helper of the host library at N_VALIDATORS signatures against
+    its oracle on the same inputs: the decoded commit's fused prep (the
+    verify_commit mode), its challenges, RLC prep and sign bytes, and the
+    reduction mod L of the sr25519 commit's challenges."""
+    out = {}
+
+    def record(name, c_fn, oracle_fn, same):
+        got, c_ms = _median_ms(c_fn, HOST_REPS)
+        with env("TM_NATIVE_THREADS", "1"):
+            got_1, c1_ms = _median_ms(c_fn, HOST_REPS)
+        want, oracle_ms = _median_ms(oracle_fn, 1)
+        check(same(got, want) and same(got_1, want), f"host helper {name} differs from its oracle")
+        out[name] = {"c_ms": c_ms, "c_ms_1_thread": c1_ms, "oracle_ms": oracle_ms}
+        log(f"host: {name} equals its oracle; C {c_ms:.3f} ms on {host.threads()} threads, "
+            f"{c1_ms:.3f} ms on 1 (medians of {HOST_REPS}), oracle {oracle_ms:.3f} ms")
+        return got
+
+    cblock = commit.commit_block()
+    check(cblock is not None, "the decoded commit has no columns")
+    pub, power = vals.ed25519_columns()
+    tpl_c = commit.sign_bytes_template(CHAIN_ID, BLOCK_ID_FLAG_COMMIT)
+    tpl_n = commit.sign_bytes_template(CHAIN_ID, BLOCK_ID_FLAG_NIL)
+    args = (cblock, pub, power, tpl_c[0], tpl_n[0], tpl_c[1],
+            vals.total_voting_power() * 2 // 3, commit_prep.MODE_COUNT_FOR_BLOCK)
+    _, _, block = record("commit_prep_fused", lambda: commit_prep.prep_commit(*args),
+                         lambda: commit_prep._prep_commit_numpy(*args), _same_prep)
+    check(len(block) == N_VALIDATORS, f"the fused prep selected {len(block)} signatures")
+    r = np.ascontiguousarray(block.sig[:, :32])
+    buf, offs = block.msgs_contiguous()
+    record("ed25519_challenges_buf",
+           lambda: host.ed25519_challenges_buf(r, block.pub, buf, offs),
+           lambda: backend._challenges(r, block.pub, block.messages()),
+           lambda g, w: g.tobytes() == w)
+    live = -(-len(block) // rlc.M) * rlc.M
+    z = rlc._gen_z(live)
+    record("ed25519_rlc_prep",
+           lambda: host.ed25519_rlc_prep(block.pub, block.sig, buf, offs, z, rlc.M, live),
+           lambda: _rlc_oracle(block, z, live),
+           lambda g, w: (g[0].tobytes(), g[1].tobytes() + g[2].tobytes()) == w[:2]
+           and np.array_equal(g[3], w[2]))
+    times = np.stack([cblock.ts_seconds, cblock.ts_nanos.astype(np.int64)], axis=1)
+    record("vote_sign_bytes_batch_buf",
+           lambda: host.vote_sign_bytes_batch_buf(tpl_c[0], tpl_c[1], times),
+           lambda: canonical.compose_vote_sign_bytes_cols(tpl_c, times[:, 0], times[:, 1]),
+           lambda g, w: bytes(g[0]) == bytes(w[0]) and np.array_equal(g[1], w[1]))
+    sr_r = np.ascontiguousarray(sr_block.sig[:, :32])
+    digests = host.sr25519_challenges(sr25519.SIGNING_CTX, sr_block.pub, sr_r, sr_block.msgs,
+                                      sr_block.offsets)
+    record("mod_l_many", lambda: host.mod_l_many(digests),
+           lambda: b"".join((int.from_bytes(d.tobytes(), "little") % _edwards.L)
+                            .to_bytes(32, "little") for d in digests),
+           lambda g, w: g.tobytes() == w)
+    out["threads"] = host.threads()
+    out["cpu"] = cpu_model()
+    out["cpus"] = os.cpu_count()
+    out["cpus_usable"] = len(os.sched_getaffinity(0))
+    log(f"host: the library runs {out['threads']} threads a call; host CPU {out['cpu']}, "
+        f"{out['cpus']} CPUs, {out['cpus_usable']} usable by this process")
+    return out
+
+
+def cpu_model() -> str:
+    """The host CPU's model name as lscpu gives it, with the machine type."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+             if line.startswith(("Model name", "Vendor ID"))]
+    return f"{' / '.join(names) or 'model not reported'} ({platform.machine()})"
+
+
+def host_calls(fn) -> dict:
+    """The host library's calls (HOST_HELPERS) while fn() runs."""
+    counts = dict.fromkeys(HOST_HELPERS, 0)
+    real = {k: getattr(host, k) for k in HOST_HELPERS}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    for k in HOST_HELPERS:
+        setattr(host, k, counted(k))
+    try:
+        fn()
+    finally:
+        for k, f in real.items():
+            setattr(host, k, f)
+    return {k: v for k, v in counts.items() if v}
+
+
 # -- kernel phase --------------------------------------------------------------
 
 
@@ -667,16 +829,17 @@ def _commits(vals, commit) -> tuple:
 
 
 def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
-    """verify_commit on the card on every path; returns each kernel's
-    launches in its path's run: the WARM_CALLS RLC calls, one
-    per-signature call, one warm per-signature call, one sr25519 call."""
+    """verify_commit on the card on every path, on commits decoded from
+    their wire bytes; returns each kernel's launches in its path's run:
+    the WARM_CALLS RLC calls, one per-signature call, one warm
+    per-signature call, one sr25519 call."""
 
     def vc(c, fn=validation.verify_commit, v=vals):
         return lambda: fn(CHAIN_ID, v, BLOCK, HEIGHT, c, device=dev)
 
     bad, bad_msg, low, low_msg = _commits(vals, commit)
     launches = {}
-    with rlc_env(None):
+    with env("TM_TPU_RLC", None):
         # (a) RLC: one set, cold then warm
         epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
         kernels.reset_launches()
@@ -702,6 +865,12 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
         before = dict(kernels.LAUNCHES)
         expect_error(vc(bad), ValueError, bad_msg)
         check(_launched(before).get("k1_rlc_cached") == 1, "the tampered commit did not run warm")
+        # stale columns: a decoded commit mutated in place detaches its view
+        mutated = Commit.decode(commit.encode())
+        check(mutated.commit_block() is not None, "the decoded commit has no columns")
+        cs = mutated.signatures[TAMPER_AT]
+        mutated.signatures[TAMPER_AT] = dataclasses.replace(cs, signature=tamper(cs.signature))
+        expect_error(vc(mutated), ValueError, bad_msg)
         before = dict(kernels.LAUNCHES)
         vc(commit, validation.verify_commit_light)()
         light = _launched(before)
@@ -712,11 +881,12 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
         before = dict(kernels.LAUNCHES)
         expect_error(vc(bad), ValueError, bad_msg)
         check(_launched(before).get("k1_rlc") == 1, "the tampered commit did not run cold")
-        log(f"slice (a): tampered signature #{TAMPER_AT} blamed warm and cold; "
-            f"verify_commit_light warm {light}; low power rejected")
+        log(f"slice (a): tampered signature #{TAMPER_AT} blamed warm (built from a list, and "
+            f"decoded then mutated) and cold; verify_commit_light warm {light}; low power "
+            "rejected")
 
     want = {"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1}
-    with rlc_env("0"):
+    with env("TM_TPU_RLC", "0"):
         # (b) per-signature, cold: the epoch cache off
         epoch_cache.reset(depth=0)
         kernels.reset_launches()
@@ -751,7 +921,7 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
         log(f"slice (c): per-signature calls on one set launched {per_call}; tampered "
             f"#{TAMPER_AT} blamed warm; low power rejected")
 
-    with rlc_env(None):
+    with env("TM_TPU_RLC", None):
         # (d) sr25519
         sr_bad, sr_bad_msg, sr_low, sr_low_msg = _commits(sr_vals, sr_commit)
         epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
@@ -921,8 +1091,11 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
             return t0 <= e["ts"] and e["ts"] + e["dur"] <= t1
 
         mine = [e for e in spans if inside(e)]
-        missing = set(stages_of) - {e["name"] for e in mine}
+        names = {e["name"] for e in mine}
+        missing = set(stages_of) - names
         check(not missing, f"a traced {path} call lacks the spans {sorted(missing)}")
+        other = set(FUSED_STAGES + OBJECT_STAGES) - set(stages_of)
+        check(not (names & other), f"a traced {path} call has the spans {sorted(names & other)}")
         stages = {s: sum(e["dur"] for e in mine if e["name"] == s) / 1e3 for s in stages_of}
         stages["rest"] = c["dur"] / 1e3 - sum(stages.values())
         dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS and inside(e)]
@@ -935,21 +1108,32 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
     return out
 
 
-def time_path(path: str, vals, commit, dev) -> dict:
-    """End-to-end times and the stage breakdown of one path."""
-    env, depth, _ = PATH_SETUP[path]
-    with rlc_env(env):
+def time_path(path: str, vals, commit, built, dev) -> dict:
+    """End-to-end times and the stage breakdown of one path, on the
+    decoded commit; one call on the commit built from objects."""
+    rlc_flag, depth, _ = PATH_SETUP[path]
+
+    def call(c):
+        validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
+
+    with env("TM_TPU_RLC", rlc_flag):
         epoch_cache.reset(depth=depth)
         for _ in range(2):  # the second call of a set is warm
-            validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+            call(commit)
+        calls = host_calls(lambda: call(commit))
+        check(calls == HOST_CALLS[path],
+              f"a {path} call made the host library calls {calls}, wanted {HOST_CALLS[path]}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         e2e = []
         for _ in range(REPEATS):
             t = time.perf_counter()
-            validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+            call(commit)
             e2e.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev)
+        t = time.perf_counter()
+        call(built)
+        built_ms = (time.perf_counter() - t) * 1e3
         prof = profiled_calls(vals, commit, dev, path)
         epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
     e2e_ms = statistics.median(e2e) * 1e3
@@ -962,6 +1146,8 @@ def time_path(path: str, vals, commit, dev) -> dict:
     log(f"timing [{path}]: verify_commit {N_VALIDATORS} validators median {e2e_ms:.2f} ms over "
         f"{REPEATS} runs (min {min(e2e) * 1e3:.2f}, max {max(e2e) * 1e3:.2f}; "
         f"{N_VALIDATORS / (e2e_ms / 1e3):.0f} sigs/s); peak memory {peak} bytes")
+    log(f"timing [{path}]: host library calls a call {calls}; one call on the commit built "
+        f"from objects {built_ms:.2f} ms")
     log(f"timing [{path}]: {PROFILED} profiled calls, median {prof_ms:.2f} ms; stages (median ms) "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
     if busy_ms is None:
@@ -973,6 +1159,8 @@ def time_path(path: str, vals, commit, dev) -> dict:
     return {
         "verify_commit_ms": e2e_ms,
         "verify_commit_runs_ms": [x * 1e3 for x in e2e],
+        "object_built_call_ms": built_ms,
+        "host_calls": calls,
         "sigs_per_s": N_VALIDATORS / (e2e_ms / 1e3),
         "profiled_call_ms": prof_ms,
         "profiled_calls": prof,
@@ -1115,6 +1303,8 @@ def main() -> int:
             sets[key_type] = build_commit(pool, key_type)
             log(f"data: {N_VALIDATORS}-validator {key_type} commit signed in "
                 f"{time.perf_counter() - t:.1f} s by {workers} processes")
+        # the commits as a node receives them: decoded from their wire bytes
+        wire = {k: Commit.decode(c.encode()) for k, (_, c) in sets.items()}
         vals, commit = sets["ed25519"]
         ents = commit_entries(commit, vals)
         sr_ents = commit_entries(sets["sr25519"][1], sets["sr25519"][0])
@@ -1128,15 +1318,22 @@ def main() -> int:
     ])
 
     t = time.perf_counter()
+    host_stats = host_phase(vals, wire["ed25519"], EntryBlock.from_entries(sr_ents))
+    log(f"host phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     kstats = kernel_phase(inputs, sr_in, table_pub, dev)
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    launches = slice_phase(vals, commit, *sets["sr25519"], dev)
+    launches = slice_phase(vals, wire["ed25519"], sets["sr25519"][0], wire["sr25519"], dev)
     log(f"slice phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    paths = {p: time_path(p, *sets[PATH_SETUP[p][2]], dev) for p in PATHS}
+    paths = {}
+    for p in PATHS:
+        key_type = PATH_SETUP[p][2]
+        paths[p] = time_path(p, sets[key_type][0], wire[key_type], sets[key_type][1], dev)
     records = kernel_timing(vals, EntryBlock.from_entries(ents),
                             EntryBlock.from_entries(sr_ents), dev, sm_clock_hz)
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
@@ -1148,7 +1345,7 @@ def main() -> int:
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
         r.update(resources.get(r["name"], {}))
-    log("summary: " + json.dumps(paths))
+    log("summary: " + json.dumps({"paths": paths, "host": host_stats}))
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

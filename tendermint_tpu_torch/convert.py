@@ -17,7 +17,8 @@ from .types.validator_set import ValidatorSet
 
 def state_from_wire(valset_bytes: bytes, commit_bytes: bytes):
     """(ValidatorSet, Commit) of the port, decoded from the protobuf
-    encodings of tendermint.types.ValidatorSet and tendermint.types.Commit."""
+    encodings of tendermint.types.ValidatorSet and tendermint.types.Commit;
+    a canonical commit decodes columnar (types/block.Commit.decode)."""
     return ValidatorSet.decode(bytes(valset_bytes)), Commit.decode(bytes(commit_bytes))
 
 

@@ -9,9 +9,10 @@ accumulate-then-verify of one EntryBlock. The ed25519 batch path is
 synchronous, one batch at a time with no async pipeline: the RLC path of
 ops/rlc.py (verify_batch_rlc, which takes a warm validator set's epoch
 table) or, with TM_TPU_RLC=0, the per-signature path of ops/verify.py
-(verify_batch_compact). Challenges are hashlib SHA-512 and Python
-big-int reductions (the JAX package's fallback when its native helpers
-are not built).
+(verify_batch_compact). The challenges come from the host library
+(ops/host.py, csrc/host_prep.cpp) in one call over the block's message
+buffer; _challenges, hashlib and Python big-int reductions, is the
+tests' oracle for it.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 from ..crypto import BatchVerifier, PubKey
 from ..crypto import ed25519 as _ed25519
 from ..crypto._edwards import L
-from . import rlc
+from . import host, rlc
 from . import verify as per_sig
 from .entry_block import EntryBlock
 
@@ -60,7 +61,8 @@ def _pack_rows(entries: EntryBlock, bucket: int):
 
 
 def _challenges(r_enc: np.ndarray, pub: np.ndarray, msgs) -> bytes:
-    """k_i = SHA512(R_i || A_i || M_i) mod L, 32 bytes little-endian each."""
+    """k_i = SHA512(R_i || A_i || M_i) mod L, 32 bytes little-endian each:
+    the oracle of host.ed25519_challenges_buf."""
     n = len(msgs)
     ra = np.empty((n, 64), dtype=np.uint8)
     ra[:, :32] = r_enc[:n]
@@ -97,9 +99,9 @@ def _host_rows(entries: EntryBlock, bucket: int):
     pub, r_enc, s_enc = _pack_rows(entries, bucket)
     s_ok = _s_below_l(s_enc, n, bucket)
     k_enc = np.zeros((bucket, 32), dtype=np.uint8)
-    if n:
-        ks = _challenges(r_enc[:n], pub[:n], entries.messages())
-        k_enc[:n] = np.frombuffer(ks, dtype=np.uint8).reshape(n, 32)
+    buf, offs = entries.msgs_contiguous()
+    k_enc[:n] = host.ed25519_challenges_buf(r_enc[:n], pub[:n], buf,
+                                            np.ascontiguousarray(offs, dtype=np.int64))
     return pub, r_enc, s_enc, k_enc, s_ok
 
 

@@ -1,6 +1,7 @@
-"""Columnar signature batch.
+"""Columnar signature batch and columnar commit signatures.
 
-Counterpart: tendermint_tpu/ops/entry_block.py (EntryBlock). One batch of
+Counterpart: tendermint_tpu/ops/entry_block.py (EntryBlock, CommitBlock).
+One batch of
 ed25519 signatures as contiguous columns, built once and passed by
 reference from commit selection to the kernel prep:
 
@@ -16,6 +17,10 @@ and, for a commit's block, the epoch metadata of ops/epoch_cache.py:
 
 Slicing keeps both; concat keeps them only when every block has rows
 and all share one key (rows of different sets index different tables).
+
+A CommitBlock holds a commit's signatures as columns, filled once at
+wire decode (types/block.py); ops/commit_prep.py turns it into an
+EntryBlock.
 """
 
 from __future__ import annotations
@@ -84,8 +89,19 @@ class EntryBlock:
         for i in range(len(self)):
             yield self.entry(i)
 
+    def msgs_contiguous(self) -> tuple:
+        """(buffer, offsets) with the buffer cut to exactly the message
+        window and the offsets rebased to start at 0: the form the host
+        library's columnar calls take (ops/host.py)."""
+        base = int(self.offsets[0])
+        end = int(self.offsets[-1])
+        buf = self.msgs
+        if base != 0 or end != len(buf):
+            buf = memoryview(buf)[base:end]
+        return buf, self.offsets if base == 0 else self.offsets - base
+
     def messages(self) -> list:
-        """Every message as bytes (the host challenge loop's input)."""
+        """Every message as bytes (the challenge oracle's input)."""
         buf = bytes(self.msgs)
         o = self.offsets.tolist()
         return [buf[o[i] : o[i + 1]] for i in range(len(self))]
@@ -137,3 +153,51 @@ class EntryBlock:
             val_idx=np.concatenate([b.val_idx for b in blocks]) if same_epoch else None,
             epoch_key=key if same_epoch else None,
         )
+
+
+class CommitBlock:
+    """Columnar commit-signature representation — populated ONCE at wire
+    decode (types/block.py Commit.decode) so the verify hot path never
+    walks per-signature CommitSig objects. The CommitSig objects the
+    `commit.signatures` API exposes are LAZY VIEWS over these columns
+    (types/block.py CommitSigs), not the source of truth:
+
+        flags      (n,)    uint8   BlockIDFlag per signature
+        val_idx    (n,)    int32   validator index (signature order)
+        sig        (n, 64) uint8   signatures; absent lanes all-zero
+        ts_seconds (n,)    int64   vote timestamp seconds
+        ts_nanos   (n,)    int32   vote timestamp nanos
+        addr       (n, 20) uint8   validator addresses; absent lanes zero
+
+    Construction invariant (enforced where types/block.py builds one):
+    every lane matches the canonical CommitSig shape — absent lanes have
+    no address/signature and the Go zero timestamp, non-absent lanes
+    carry a 20-byte address and exactly 64 signature bytes, and flags are
+    one of {ABSENT, COMMIT, NIL}. A commit violating that decodes to
+    plain CommitSig objects instead (no CommitBlock), so the object path
+    keeps raising exactly the errors it always raised."""
+
+    __slots__ = ("flags", "val_idx", "sig", "ts_seconds", "ts_nanos", "addr")
+
+    def __init__(self, flags: np.ndarray, val_idx: np.ndarray, sig: np.ndarray,
+                 ts_seconds: np.ndarray, ts_nanos: np.ndarray, addr: np.ndarray):
+        n = flags.shape[0]
+        if (
+            sig.shape != (n, 64) or addr.shape != (n, 20)
+            or val_idx.shape != (n,) or ts_seconds.shape != (n,)
+            or ts_nanos.shape != (n,)
+        ):
+            raise ValueError("CommitBlock column shapes disagree")
+        self.flags = flags
+        self.val_idx = val_idx
+        self.sig = sig
+        self.ts_seconds = ts_seconds
+        self.ts_nanos = ts_nanos
+        self.addr = addr
+
+    @property
+    def n(self) -> int:
+        return self.flags.shape[0]
+
+    def __len__(self) -> int:
+        return self.flags.shape[0]

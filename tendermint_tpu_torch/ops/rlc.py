@@ -41,7 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import _edwards
-from . import epoch_cache, fe, kernels, point
+from . import epoch_cache, fe, host, kernels, point
 
 NL = fe.NLIMBS
 
@@ -318,7 +318,8 @@ def plan_bucket(n: int) -> tuple:
 
 
 def _rlc_scalars_py(s_enc: bytes, k_enc: bytes, z_enc: bytes, m: int) -> bytes:
-    """Lane scalars S (g x 32 B) then U (g*m x 32 B), little-endian."""
+    """Lane scalars S (g x 32 B) then U (g*m x 32 B), little-endian: the
+    oracle of host.ed25519_rlc_prep's scalars."""
     L = _edwards.L
     n = len(s_enc) // 32
     S = bytearray()
@@ -348,18 +349,20 @@ def _gen_z(n: int) -> np.ndarray:
 
 
 def _rlc_host_scalars(entries, live: int, g_live: int, z: np.ndarray):
-    """Pack the live rows, then challenges k = SHA-512(R||A||M) mod L,
-    the s < L flags and the lane scalars. Returns (pub (live, 32),
-    r_enc (live, 32), scal (g_live, N_SCAL, 32), s_ok (live,) bool)."""
-    from .backend import _host_rows
+    """Pack the live rows; the challenges k = SHA-512(R||A||M) mod L, the
+    s < L flags and the lane scalars in one call of the host library
+    (host.ed25519_rlc_prep). Returns (pub (live, 32), r_enc (live, 32),
+    scal (g_live, N_SCAL, 32), s_ok (live,) bool)."""
+    from .backend import _pack_rows
 
-    pub, r_enc, s_enc, k_enc, s_ok = _host_rows(entries, live)
-    raw = _rlc_scalars_py(s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), M)
+    pub, r_enc, _s_enc = _pack_rows(entries, live)
+    buf, offs = entries.msgs_contiguous()
+    _k, S, U, s_ok = host.ed25519_rlc_prep(
+        np.ascontiguousarray(entries.pub), np.ascontiguousarray(entries.sig), buf,
+        np.ascontiguousarray(offs, dtype=np.int64), z, M, live)
     scal = np.zeros((g_live, N_SCAL, 32), dtype=np.uint8)
-    scal[:, 0] = np.frombuffer(raw[: 32 * g_live], dtype=np.uint8).reshape(g_live, 32)
-    scal[:, 1 : M + 1] = np.frombuffer(raw[32 * g_live :], dtype=np.uint8).reshape(
-        g_live, M, 32
-    )
+    scal[:, 0] = S
+    scal[:, 1 : M + 1] = U.reshape(g_live, M, 32)
     scal[:, M + 1 :] = z.reshape(g_live, M, 32)[:, 1:]
     return pub, r_enc, scal, s_ok
 

@@ -34,7 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import sr25519 as _sr25519
-from ..crypto._edwards import L, P
+from ..crypto._edwards import P
 from . import fe, host, kernels, point, verify
 
 COORD_ROWS = verify.COORD_ROWS
@@ -138,9 +138,9 @@ def prepare_sr25519(entries, bucket: int):
     sok_t (1, bucket) int32), batch-minor (pallas_sr25519.prepare_sr25519).
     Host work: the v1 marker bit (set, then cleared before s < L), the
     canonical-and-even flags of A and R, and the merlin challenges
-    (csrc/merlin.cpp) reduced mod L. Padding signatures are all-zero
-    encodings, the ristretto identity (not the edwards 0x01), with every
-    flag 1, and verify."""
+    (csrc/merlin.cpp) reduced mod L (csrc/host_prep.cpp). Padding
+    signatures are all-zero encodings, the ristretto identity (not the
+    edwards 0x01), with every flag 1, and verify."""
     from .backend import _s_below_l
 
     n = len(entries)
@@ -159,13 +159,8 @@ def prepare_sr25519(entries, bucket: int):
     s_ok = _s_below_l(s_enc, n, bucket) & marker_ok
     k_enc = np.zeros((bucket, 32), dtype=np.uint8)
     if n:
-        raw = host.sr25519_challenges(_sr25519.SIGNING_CTX, pub[:n], r_enc[:n],
-                                      entries.msgs, entries.offsets).tobytes()
-        ks = b"".join(
-            (int.from_bytes(raw[64 * i : 64 * i + 64], "little") % L).to_bytes(32, "little")
-            for i in range(n)
-        )
-        k_enc[:n] = np.frombuffer(ks, dtype=np.uint8).reshape(n, 32)
+        k_enc[:n] = host.mod_l_many(host.sr25519_challenges(
+            _sr25519.SIGNING_CTX, pub[:n], r_enc[:n], entries.msgs, entries.offsets))
 
     def flags(ok):
         return np.ascontiguousarray(ok.astype(np.int32)[None, :])

@@ -2,25 +2,34 @@
 
 Counterpart: tendermint_tpu/types/block.py (types/block.go). Only what
 commit verification needs: the proto encode/decode of these types and
-the canonical vote sign-bytes of a commit's signatures. `signatures` is
-a plain list of CommitSig.
+the canonical vote sign-bytes of a commit's signatures. A commit decoded
+from its wire bytes holds its signatures as columns (ops/entry_block.
+CommitBlock) behind a lazy list view (CommitSigs); a commit built from
+CommitSig objects holds a plain list, and commit_block() builds its
+columns afresh at every call.
 """
 
 from __future__ import annotations
 
+from collections.abc import MutableSequence
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 
+from ..ops import host
+from ..ops.entry_block import CommitBlock
 from ..wire import canonical as _canon
-from ..wire.canonical import Timestamp
+from ..wire.canonical import GO_ZERO_TIME_SECONDS, Timestamp
 from ..wire.proto import (
+    WT_BYTES,
+    WT_VARINT,
     ProtoWriter,
     decode_message,
     field_bytes,
     field_int,
     field_repeated_bytes,
+    iter_fields,
     to_signed32,
     to_signed64,
 )
@@ -127,6 +136,218 @@ class CommitSig:
         )
 
 
+class CommitSigs(MutableSequence):
+    """`commit.signatures` backed by a columnar CommitBlock
+    (ops/entry_block.py): the columns are the source of truth from wire
+    decode onward, and CommitSig OBJECTS are materialized lazily, one per
+    accessed index, as views over them. The verify hot path
+    (types/validation.py fused branch) reads the columns directly and
+    never triggers materialization.
+
+    Mutation (setitem/delitem/insert) first materializes every lane into
+    a plain object list and DETACHES the columns — the mutated list is
+    then the truth and the owning Commit rebuilds its block on demand —
+    so list semantics (including the tests' in-place signature tampering)
+    are preserved exactly."""
+
+    __slots__ = ("_block", "_items", "_full")
+
+    def __init__(self, block: CommitBlock):
+        self._block = block
+        self._items: list = [None] * len(block)
+        self._full = False  # every lane materialized
+
+    def _materialize(self, i: int) -> CommitSig:
+        cs = self._items[i]
+        if cs is None:
+            b = self._block
+            flag = int(b.flags[i])
+            if flag == BLOCK_ID_FLAG_ABSENT:
+                cs = CommitSig(block_id_flag=flag)
+            else:
+                cs = CommitSig(
+                    block_id_flag=flag,
+                    validator_address=b.addr[i].tobytes(),
+                    timestamp=Timestamp(int(b.ts_seconds[i]), int(b.ts_nanos[i])),
+                    signature=b.sig[i].tobytes(),
+                )
+            self._items[i] = cs
+        return cs
+
+    def _materialize_all(self) -> None:
+        if not self._full:
+            for i in range(len(self._items)):
+                self._materialize(i)
+            self._full = True
+
+    def _detach(self) -> None:
+        """Materialize everything and drop the columns (mutation path)."""
+        self._materialize_all()
+        self._block = None
+
+    def block(self) -> Optional[CommitBlock]:
+        """The backing CommitBlock, or None once mutated."""
+        return self._block
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._materialize(j) for j in range(*i.indices(len(self._items)))]
+        if self._items[i] is None:  # also validates the index
+            return self._materialize(i + len(self._items) if i < 0 else i)
+        return self._items[i]
+
+    def __iter__(self):
+        # one pass materializes every lane; the object path then walks a
+        # plain list instead of calling __getitem__ per index
+        self._materialize_all()
+        return iter(self._items)
+
+    def __setitem__(self, i, value) -> None:
+        self._detach()
+        self._items[i] = value
+
+    def __delitem__(self, i) -> None:
+        self._detach()
+        del self._items[i]
+
+    def insert(self, i, value) -> None:
+        self._detach()
+        self._items.insert(i, value)
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, (CommitSigs, list)):
+            return list(self) == list(other)
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return repr(list(self))
+
+
+_ZERO64 = bytes(64)
+_ZERO20 = bytes(20)
+
+
+def _commit_sig_columns(sigs) -> Optional[CommitBlock]:
+    """Build a CommitBlock from CommitSig objects — the path for commits
+    assembled in-process. Returns None when any lane deviates from the
+    canonical shape (wrong-size address or signature, unknown flag,
+    absent lane with data): those commits keep the object path and its
+    exact error behavior."""
+    n = len(sigs)
+    if n == 0:
+        return None
+    flags = []
+    sig_chunks = []
+    addr_chunks = []
+    secs = []
+    nanos = []
+    for cs in sigs:
+        f = cs.block_id_flag
+        if f == BLOCK_ID_FLAG_ABSENT:
+            if cs.validator_address or cs.signature or not cs.timestamp.is_zero():
+                return None
+            sig_chunks.append(_ZERO64)
+            addr_chunks.append(_ZERO20)
+        elif f in (BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL):
+            if len(cs.validator_address) != 20 or len(cs.signature) != 64:
+                return None
+            sig_chunks.append(cs.signature)
+            addr_chunks.append(cs.validator_address)
+        else:
+            return None
+        flags.append(f)
+        secs.append(cs.timestamp.seconds)
+        nanos.append(cs.timestamp.nanos)
+    return CommitBlock(
+        flags=np.array(flags, dtype=np.uint8),
+        val_idx=np.arange(n, dtype=np.int32),
+        sig=np.frombuffer(b"".join(sig_chunks), dtype=np.uint8).reshape(n, 64),
+        ts_seconds=np.array(secs, dtype=np.int64),
+        ts_nanos=np.array(nanos, dtype=np.int32),
+        addr=np.frombuffer(b"".join(addr_chunks), dtype=np.uint8).reshape(n, 20),
+    )
+
+
+class _NonCanonical(Exception):
+    """Wire record deviates from the canonical CommitSig shape."""
+
+
+def _decode_sig_record(raw: bytes) -> tuple:
+    """One CommitSig wire record -> (flag, addr, secs, nanos, sig),
+    canonical-shape-checked. Raises _NonCanonical on ANY deviation
+    (unknown/duplicate fields, wrong wire types, non-canonical lane
+    shape) — the caller falls back to CommitSig.decode per record, which
+    reproduces the object path's exact tolerance and errors."""
+    flag = 0
+    addr = b""
+    sig = b""
+    ts_raw = None
+    seen = 0
+    for f, wt, val in iter_fields(raw):
+        bit = 1 << f
+        if seen & bit:
+            raise _NonCanonical
+        seen |= bit
+        if f == 1 and wt == WT_VARINT:
+            flag = val
+        elif f == 2 and wt == WT_BYTES:
+            addr = val
+        elif f == 3 and wt == WT_BYTES:
+            ts_raw = val
+        elif f == 4 and wt == WT_BYTES:
+            sig = val
+        else:
+            raise _NonCanonical
+    secs = 0
+    nanos = 0
+    if ts_raw is not None:
+        seen_ts = 0
+        for f, wt, val in iter_fields(ts_raw):
+            if wt != WT_VARINT or f not in (1, 2) or seen_ts & (1 << f):
+                raise _NonCanonical
+            seen_ts |= 1 << f
+            if f == 1:
+                secs = to_signed64(val)
+            else:
+                nanos = to_signed32(val)
+    if flag == BLOCK_ID_FLAG_ABSENT:
+        if addr or sig or secs != GO_ZERO_TIME_SECONDS or nanos != 0:
+            raise _NonCanonical
+    elif flag in (BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL):
+        if len(addr) != 20 or len(sig) != 64:
+            raise _NonCanonical
+    else:
+        raise _NonCanonical
+    return flag, addr, secs, nanos, sig
+
+
+def _decode_commit_sigs(raws: List[bytes]):
+    """Decode a commit's signature records COLUMNAR-FIRST: one pass fills
+    CommitBlock columns and the result is a lazy CommitSigs view. Any
+    non-canonical record falls the whole commit back to plain CommitSig
+    objects (identical to the pre-columnar decode)."""
+    n = len(raws)
+    if n == 0:
+        return []
+    try:
+        rows = [_decode_sig_record(raw) for raw in raws]
+    except (_NonCanonical, ValueError):
+        return [CommitSig.decode(raw) for raw in raws]
+    return CommitSigs(CommitBlock(
+        flags=np.fromiter((r[0] for r in rows), dtype=np.uint8, count=n),
+        val_idx=np.arange(n, dtype=np.int32),
+        sig=np.frombuffer(b"".join(r[4] or _ZERO64 for r in rows),
+                          dtype=np.uint8).reshape(n, 64),
+        ts_seconds=np.fromiter((r[2] for r in rows), dtype=np.int64, count=n),
+        ts_nanos=np.fromiter((r[3] for r in rows), dtype=np.int32, count=n),
+        addr=np.frombuffer(b"".join(r[1] or _ZERO20 for r in rows),
+                           dtype=np.uint8).reshape(n, 20),
+    ))
+
+
 @dataclass
 class Commit:
     """types/block.go:744-830."""
@@ -160,20 +381,42 @@ class Commit:
         tpl = self.sign_bytes_template(chain_id, cs.block_id_flag)
         return _canon.compose_vote_sign_bytes(tpl, cs.timestamp)
 
+    def commit_block(self) -> Optional[CommitBlock]:
+        """The commit's columnar CommitBlock (ops/entry_block.py), or
+        None when the signatures deviate from the canonical shape.
+
+        Wire-decoded commits carry their block from decode (the
+        signatures list is a lazy CommitSigs view over it — zero cost
+        here, and mutating the view detaches it, so the columns can
+        never go stale). Commits assembled from objects in-process
+        build columns FRESH on every call — deliberately uncached:
+        `commit.signatures[i] = ...` on a plain list has no hook, so a
+        cache here would let a mutated (tampered) signature verify
+        against the pre-mutation bytes."""
+        sigs = self.signatures
+        if isinstance(sigs, CommitSigs):
+            blk = sigs.block()
+            if blk is not None:
+                return blk
+        return _commit_sig_columns(sigs)
+
     def vote_sign_bytes_block(self, chain_id: str, idxs) -> tuple:
         """The sign bytes of the votes at idxs in ONE buffer + an
-        (len(idxs)+1,) int64 offset table (the EntryBlock msgs form)."""
+        (len(idxs)+1,) int64 offset table (the EntryBlock msgs form), by
+        the host library's composer when every vote has one flag."""
         idxs = list(idxs)
         n = len(idxs)
         if n == 0:
             return b"", np.zeros(1, dtype=np.int64)
-        sigs = self.signatures
+        sigs = list(self.signatures)
         flag = sigs[idxs[0]].block_id_flag
         if all(sigs[i].block_id_flag == flag for i in idxs):
-            return _canon.compose_vote_sign_bytes_block(
-                self.sign_bytes_template(chain_id, flag),
-                [sigs[i].timestamp for i in idxs],
-            )
+            prefix, suffix = self.sign_bytes_template(chain_id, flag)
+            times = np.array([(sigs[i].timestamp.seconds, sigs[i].timestamp.nanos)
+                              for i in idxs], dtype=np.int64)
+            return host.vote_sign_bytes_batch_buf(prefix, suffix, times)
+        # mixed BlockIDFlags (never one commit's for-block set, but the
+        # API allows it): per-index compose, one join
         chunks = [self.vote_sign_bytes(chain_id, i) for i in idxs]
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum([len(c) for c in chunks], out=offsets[1:])
@@ -190,12 +433,14 @@ class Commit:
 
     @classmethod
     def decode(cls, data: bytes) -> "Commit":
+        """Columnar-from-decode: canonical-shaped signature records parse
+        straight into CommitBlock columns (one pass, no CommitSig or
+        Timestamp objects); `signatures` is a lazy view over them. A
+        non-canonical commit decodes to plain objects."""
         f = decode_message(data)
         return cls(
             height=to_signed64(field_int(f, 1)),
             round=to_signed32(field_int(f, 2)),
             block_id=BlockID.decode(field_bytes(f, 3)),
-            signatures=[
-                CommitSig.decode(raw) for raw in field_repeated_bytes(f, 4)
-            ],
+            signatures=_decode_commit_sigs(field_repeated_bytes(f, 4)),
         )

@@ -10,8 +10,14 @@ carries its validator rows and, once the set has been seen before, the
 set's epoch key (ops/epoch_cache.py), so a warm set's keys come from
 the device table instead of being decompressed again. Error cases, the tally and
 the blame of the first bad signature are byte-identical to the
-reference's. The batch path's host stages are torch.profiler
-record_function spans ("commit.*" here; "rlc.*", "verify.*" and "sr.*"
+reference's. A columnar commit (one decoded from its wire bytes, or
+built of canonical CommitSig objects) of an all-ed25519 set takes the
+fused prep (ops/commit_prep.py: selection, tally, sign bytes and the
+key gather in one call of the host library); any other commit or set
+takes the object path, which selects over CommitSig objects. The batch
+path's host stages are torch.profiler record_function spans
+("commit.prep" on the fused path, "commit.select" and
+"commit.sign_bytes" on the object path; "rlc.*", "verify.*" and "sr.*"
 in ops/), so one profiler trace of a call shows its host stages beside
 its device time.
 """
@@ -25,9 +31,9 @@ from torch.profiler import record_function
 
 from ..crypto import batch as _batch
 from ..device import resolve_device
-from ..ops import epoch_cache
+from ..ops import commit_prep, epoch_cache
 from ..ops.entry_block import EntryBlock
-from .block import BlockID, Commit, CommitSig
+from .block import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig
 from .validator_set import ErrNotEnoughVotingPowerSigned, ValidatorSet
 
 BATCH_VERIFY_THRESHOLD = 2  # validation.go:12
@@ -109,10 +115,26 @@ def _select_commit_sigs(
     count_sig: Callable[[CommitSig], bool],
     count_all_signatures: bool,
 ):
-    """Selection + tally of the batch path (validation.go:152-240), by
+    """Selection + tally of the object path (validation.go:152-240), by
     validator index: flag filtering, signature-length checks and the
     voting-power tally with the reference's early stop. Returns
     (selected [(sig_idx, validator)], tallied)."""
+    if count_all_signatures and ignore_sig is _ignore_absent:
+        # verify_commit's predicates: flag listcomps in place of three
+        # calls a signature (the reference's shortcut)
+        sigs = list(commit.signatures)
+        validators = vals.validators
+        flags = [c.block_id_flag for c in sigs]
+        selected = [(i, validators[i]) for i, f in enumerate(flags)
+                    if f != BLOCK_ID_FLAG_ABSENT]
+        if any(len(sigs[i].signature) != 64 for i, _ in selected):
+            raise ValueError("invalid signature length")
+        if count_sig is _count_for_block:
+            tallied = sum(validators[i].voting_power for i, f in enumerate(flags)
+                          if f == BLOCK_ID_FLAG_COMMIT)
+        else:
+            tallied = sum(v.voting_power for _, v in selected)
+        return selected, tallied
     tallied = 0
     selected = []
     for idx, commit_sig in enumerate(commit.signatures):
@@ -129,6 +151,26 @@ def _select_commit_sigs(
         if not count_all_signatures and tallied > voting_power_needed:
             break
     return selected, tallied
+
+
+def _fused_commit_prep(chain_id, vals, commit, voting_power_needed, ignore_sig,
+                       count_sig, count_all_signatures):
+    """(sel_idx, tallied, EntryBlock or None) of the fused prep
+    (ops/commit_prep.py), or None when the commit or set is not
+    columnar-representable: the object path then gives the exact errors."""
+    if ignore_sig is _ignore_not_for_block:
+        mode = commit_prep.MODE_SELECT_COMMIT_ONLY
+    elif ignore_sig is _ignore_absent:
+        mode = 0
+    else:
+        return None
+    if count_sig is _count_for_block:
+        mode |= commit_prep.MODE_COUNT_FOR_BLOCK
+    elif count_sig is not _count_all:
+        return None
+    if not count_all_signatures:
+        mode |= commit_prep.MODE_EARLY_STOP
+    return commit_prep.prep_commit_from(commit, vals, chain_id, voting_power_needed, mode)
 
 
 def _verify_commit_batch(
@@ -150,6 +192,20 @@ def _verify_commit_batch(
         raise RuntimeError(
             "unsupported signature algorithm or insufficient signatures for batch verification"
         )
+    fused = None
+    if vals.ed25519_columns() is not None:  # sr25519 and mixed sets: the object path
+        with record_function("commit.prep"):
+            fused = _fused_commit_prep(chain_id, vals, commit, voting_power_needed,
+                                       ignore_sig, count_sig, count_all_signatures)
+    if fused is not None:
+        sel_idx, tallied, block = fused
+        if block is None:
+            raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
+        # the key type is the columns' (all ed25519, or no fused path);
+        # signature lengths are the (n, 64) column's
+        bv.add_block(block)
+        _verdict(bv, commit, sel_idx)
+        return
     with record_function("commit.select"):
         selected, tallied = _select_commit_sigs(
             vals, commit, voting_power_needed,
@@ -157,7 +213,7 @@ def _verify_commit_batch(
         )
     if tallied <= voting_power_needed:
         raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
-    sigs = commit.signatures
+    sigs = list(commit.signatures)
     with record_function("commit.sign_bytes"):
         sig_idxs = [idx for idx, _ in selected]
         buf, offsets = commit.vote_sign_bytes_block(chain_id, sig_idxs)
@@ -186,14 +242,20 @@ def _verify_commit_batch(
             block = EntryBlock(np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
                                sig, buf, offsets)
     bv.add_block(block, keys=keys)
+    _verdict(bv, commit, sig_idxs)
+
+
+def _verdict(bv, commit: Commit, sig_idxs) -> None:
+    """Verify what bv holds; blame the first bad signature by its index
+    in the commit (sig_idxs maps the batch's rows to it)."""
     ok, valid_sigs = bv.verify()
     if ok:
         return
     valid_arr = np.asarray(valid_sigs, dtype=bool)
     if not valid_arr.all() and valid_arr.size:
-        idx = sig_idxs[int(np.argmin(valid_arr))]
+        idx = int(sig_idxs[int(np.argmin(valid_arr))])
         raise ValueError(
-            f"wrong signature (#{idx}): {sigs[idx].signature.hex().upper()}"
+            f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
         )
     raise RuntimeError("BUG: batch verification failed with no invalid signatures")
 

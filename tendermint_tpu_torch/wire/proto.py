@@ -8,7 +8,7 @@ non-nullable embedded messages always emitted, negative varints as
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 _U64_MASK = (1 << 64) - 1
 
@@ -95,10 +95,11 @@ class ProtoWriter:
 FieldValue = Union[int, bytes]
 
 
-def decode_message(data: bytes) -> Dict[int, List[Tuple[int, FieldValue]]]:
-    """{field: [(wire_type, raw_value), ...]}; varint/fixed values as
-    unsigned ints, length-delimited values as bytes."""
-    out: Dict[int, List[Tuple[int, FieldValue]]] = {}
+def iter_fields(data: bytes) -> Iterator[Tuple[int, int, FieldValue]]:
+    """(field, wire_type, raw_value) in wire order; varint/fixed values
+    as unsigned ints, length-delimited values as bytes. The columnar
+    commit decode (types/block.py) walks each CommitSig record once with
+    it, without building decode_message's dict."""
     off = 0
     while off < len(data):
         key, off = decode_uvarint(data, off)
@@ -125,6 +126,13 @@ def decode_message(data: bytes) -> Dict[int, List[Tuple[int, FieldValue]]]:
             off += 4
         else:
             raise ValueError(f"unsupported wire type {wt}")
+        yield field, wt, val
+
+
+def decode_message(data: bytes) -> Dict[int, List[Tuple[int, FieldValue]]]:
+    """{field: [(wire_type, raw_value), ...]} (iter_fields' values)."""
+    out: Dict[int, List[Tuple[int, FieldValue]]] = {}
+    for field, wt, val in iter_fields(data):
         out.setdefault(field, []).append((wt, val))
     return out
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of tendermint_tpu_torch, and not
-chip_smoke.py, imports jax or anything of tendermint_tpu, and the entry
-points never pick the CPU by themselves."""
+chip_smoke.py, imports jax or anything of tendermint_tpu, no C or CUDA
+source of the port includes anything of the JAX package or native/, and
+the entry points never pick the CPU by themselves."""
 
 import ast
 import json
@@ -43,6 +44,19 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert bad == []
 
 
+def test_no_c_source_includes_the_jax_package_or_native():
+    srcs = sorted((PORT / "csrc").iterdir())
+    assert {"host_prep.cpp", "merlin.cpp"} <= {p.name for p in srcs}
+    bad = [
+        f"{p.name}: {line.strip()}"
+        for p in srcs
+        for line in p.read_text().splitlines()
+        if line.lstrip().startswith("#include")
+        and any(k in line for k in ("native", "tendermint_tpu", "Python.h", "tm_native"))
+    ]
+    assert bad == []
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, json, pkgutil, sys\n"
@@ -70,6 +84,8 @@ def test_importing_every_module_loads_no_jax():
         "tendermint_tpu_torch.ops.sr25519",
         "tendermint_tpu_torch.ops.mixed",
         "tendermint_tpu_torch.ops.host",
+        "tendermint_tpu_torch.ops.commit_prep",
+        "tendermint_tpu_torch.ops.entry_block",
         "tendermint_tpu_torch.crypto.merkle",
         "tendermint_tpu_torch.crypto.tmhash",
         "tendermint_tpu_torch.crypto.sr25519",
