@@ -56,6 +56,27 @@ Phases, in order:
    (d) sr25519: a 10,000-validator sr25519 commit through k1r_decode,
        k2_table and k3r_ladder once each per call: valid, tampered and
        below 2/3, never noted in the epoch cache;
+   (e) the light path (light/verifier.py, light/client.py) on a chain of
+       three 10,000-validator ed25519 sets, V1 the set of (a)-(c), V2
+       half V1's keys and half new ones, V3 half V2's and none of V1's
+       (powers from seeds 1016, 1017, 1018): headers 1, 2, 3 (V1), 10
+       (V2) and 17 (V3), each commit signed in full and decoded from its
+       wire bytes, the clock passed in, inside the trusting period.
+       (e1) verify_adjacent 1 -> 2 warm through k1_rlc_cached, k2_rlc
+       and k3_rlc once, its batch exactly the early-stop count of V1's
+       powers; a signature tampered inside that prefix raises
+       ErrInvalidHeader with its blame, one tampered past it
+       (TAMPER_AT) is accepted, as the reference accepts it;
+       (e2) verify_non_adjacent 1 -> 10: the trusting check by address
+       against V1, then +2/3 of V2, three RLC kernels each (V2 cold,
+       then its table built on its first warm call); 1 -> 17 raises
+       ErrNotEnoughTrust; a commit carrying one address twice raises the
+       double vote;
+       (e3) the Client skipping from root 1 to 17 (V1 cannot trust V3,
+       it bisects at 10), the witness agreeing, the store holding 1 and
+       17; then sequentially from 1 to 3;
+       (e4) one verify_adjacent on the per-signature kernels
+       (TM_TPU_RLC=0);
 6. timing, for each path (RLC cold, RLC warm, per-signature,
    per-signature warm, sr25519), on the decoded commit: the end-to-end
    verify_commit wall clock (warm, median of 20) and one call on the
@@ -67,11 +88,19 @@ Phases, in order:
    rest of the call, and the card's busy time and idle share come; peak
    device memory. Then each kernel's time from CUDA events at the path's
    shape beside its plain version's time, its bound and the share of the
-   bound it reaches (`pct_of_bound`). The traces are kept in
-   build/traces/.
+   bound it reaches (`pct_of_bound`). Then the light path:
+   verify_adjacent 1 -> 2 and verify_non_adjacent 1 -> 10, REPEATS calls
+   each on blocks decoded afresh for every call and on kept objects
+   (median, min, max), PROFILED fresh calls a path traced with the
+   spans light.checks, commit.*, rlc.*; one skipping Client call from a
+   fresh store holding only the root, traced with light.store too; and
+   the host costs of a freshly decoded 10,000-validator block (set
+   decode and hash, header hash, commit decode and materialization).
+   The traces are kept in build/traces/.
 
-It prints one JSON line of kernel records, then the `nvidia-smi` line,
-then, last, `{"ok": true, "device": {...}}`. Any failed check exits
+It prints one JSON line of the light path's checks and times (with the
+card's name and power limit), one JSON line of kernel records, then the
+`nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
 """
@@ -95,9 +124,15 @@ import time
 import numpy as np
 import torch
 
+from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
 from tendermint_tpu_torch.crypto import ed25519, sr25519
 from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, fe, host, kernels, rlc
+from tendermint_tpu_torch.db import MemDB
+from tendermint_tpu_torch.light import client as light_client
+from tendermint_tpu_torch.light import verifier as light_verifier
+from tendermint_tpu_torch.light.provider import ErrLightBlockNotFound, LightBlock, Provider
+from tendermint_tpu_torch.light.store import LightStore
 from tendermint_tpu_torch.ops import verify
 from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
@@ -109,7 +144,9 @@ from tendermint_tpu_torch.types.block import (
     BlockID,
     Commit,
     CommitSig,
+    Header,
     PartSetHeader,
+    SignedHeader,
 )
 from tendermint_tpu_torch.types.validator_set import (
     ErrNotEnoughVotingPowerSigned,
@@ -132,6 +169,14 @@ TAMPER_AT = 4321  # signature flipped in the tampered commit
 LANE_SHAPES = (64, 2560)  # RLC kernel shapes; 2,560 lanes = 10,240 signatures
 SR_SHAPES = (64, 10240)  # sr25519 kernel shapes, in signatures
 WARM_CALLS = 5  # verify_commit calls on one set in slice (a): 1 cold, 4 warm
+# slice (e): the light chain's heights, each with its set (V1, V2, V3 of
+# light_ranges), the trusting period and clock drift in seconds, the
+# clock (inside the period), and a signature inside V1's early stop
+LIGHT_HEIGHTS = {1: 0, 2: 0, 3: 0, 10: 1, 17: 2}
+LIGHT_PERIOD = 14 * 24 * 3600.0
+LIGHT_DRIFT = 10.0
+LIGHT_NOW = canonical.Timestamp(T0_SECONDS + 3600, 0)
+LIGHT_INSIDE = 100
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -289,11 +334,16 @@ def _vote_template() -> tuple:
     )
 
 
+def _seed(i: int) -> bytes:
+    """Validator i's ed25519 seed: every slice's key i is the same key."""
+    return hashlib.sha256(b"chip-smoke validator %d %d" % (SEED, i)).digest()
+
+
 def _sign_validator(i: int) -> tuple:
     """(pub, timestamp, sig) of validator i's precommit for BLOCK. Each
     validator's timestamp depends only on i, so signing needs no pass over
     the sorted set first."""
-    seed = hashlib.sha256(b"chip-smoke validator %d %d" % (SEED, i)).digest()
+    seed = _seed(i)
     ts = canonical.Timestamp(T0_SECONDS, 1000 * i + 1)
     msg = canonical.compose_vote_sign_bytes(_vote_template(), ts)
     return _edwards.pubkey_from_seed(seed), ts, _edwards.sign(seed, msg)
@@ -943,6 +993,381 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
     return launches
 
 
+# -- slice (e): the light path ------------------------------------------------
+
+
+def _light_pub(i: int) -> bytes:
+    return _edwards.pubkey_from_seed(_seed(i))
+
+
+def _light_sign(job: tuple) -> bytes:
+    i, msg = job
+    return _edwards.sign(_seed(i), msg)
+
+
+def light_ranges() -> list:
+    """The key ranges of V1, V2 and V3: V1 is the earlier slices' set,
+    V2 shares half of it, V3 shares half of V2 and nothing of V1."""
+    n = N_VALIDATORS
+    return [(0, n), (n // 2, n + n // 2), (n, 2 * n)]
+
+
+def build_light_chain(pool) -> dict:
+    """The light chain's wire bytes: height -> (header, commit, validator
+    set) encodings, every commit signed in full by its set."""
+    ranges = light_ranges()
+    pubs = pool.map(_light_pub, range(ranges[-1][1]), chunksize=64)
+    sets = []
+    for j, (lo, hi) in enumerate(ranges):
+        # V1's powers are the earlier slices' draw over the same keys
+        powers = np.random.default_rng(SEED + j).integers(1, 1000, hi - lo)
+        sets.append(ValidatorSet.new([Validator.new(ed25519.PubKey(pubs[i]), int(p))
+                                      for i, p in zip(range(lo, hi), powers)]))
+    index = {p: i for i, p in enumerate(pubs)}
+    headers, bids, votes = {}, {}, []  # votes: (height, address, key, time, message)
+    prev = b""
+    for h, j in LIGHT_HEIGHTS.items():
+        vset = sets[j]
+        d = hashlib.sha256(b"chip-smoke light %d" % h).digest()
+        hdr = Header(
+            chain_id=CHAIN_ID, height=h, time=canonical.Timestamp(T0_SECONDS + 10 * h, 0),
+            last_block_id=(BlockID(prev, PartSetHeader(1, hashlib.sha256(prev).digest()))
+                           if prev else BlockID()),
+            last_commit_hash=d, data_hash=hashlib.sha256(d).digest(),
+            validators_hash=vset.hash(), next_validators_hash=vset.hash(),
+            consensus_hash=hashlib.sha256(b"consensus").digest(),
+            app_hash=hashlib.sha256(b"app %d" % h).digest(),
+            proposer_address=vset.get_proposer().address,
+        )
+        prev = hdr.hash()
+        headers[h] = hdr
+        bids[h] = BlockID(prev, PartSetHeader(1, hashlib.sha256(prev + b"parts").digest()))
+        tpl = canonical.canonical_vote_template(
+            chain_id=CHAIN_ID, msg_type=canonical.SIGNED_MSG_TYPE_PRECOMMIT, height=h,
+            round_=0, block_id=bids[h].canonical())
+        for v in vset.validators:
+            i = index[v.pub_key.bytes()]
+            ts = canonical.Timestamp(T0_SECONDS + 10 * h + 1, i + 1)
+            votes.append((h, v.address, i, ts, canonical.compose_vote_sign_bytes(tpl, ts)))
+    sigs = pool.map(_light_sign, [(i, msg) for _, _, i, _, msg in votes], chunksize=64)
+    commit_sigs = {h: [] for h in LIGHT_HEIGHTS}
+    for (h, addr, _, ts, _), sig in zip(votes, sigs):
+        commit_sigs[h].append(CommitSig(BLOCK_ID_FLAG_COMMIT, addr, ts, sig))
+    return {h: (headers[h].encode(), Commit(h, 0, bids[h], commit_sigs[h]).encode(),
+                sets[j].encode())
+            for h, j in LIGHT_HEIGHTS.items()}
+
+
+class MemProvider(Provider):
+    """The chain's light blocks from memory, with the heights asked for."""
+
+    def __init__(self, blocks: dict):
+        self.blocks = blocks
+        self.asked = []
+
+    def light_block(self, height: int) -> LightBlock:
+        self.asked.append(height)
+        if height == 0:
+            height = max(self.blocks)
+        if height not in self.blocks:
+            raise ErrLightBlockNotFound(height)
+        return self.blocks[height]
+
+
+@contextlib.contextmanager
+def batch_sizes():
+    """The signatures of each ed25519 batch verified inside the block."""
+    sizes = []
+    real = backend.Ed25519DeviceBatchVerifier._verify_block
+
+    def spy(self, block):
+        sizes.append(len(block))
+        return real(self, block)
+
+    backend.Ed25519DeviceBatchVerifier._verify_block = spy
+    try:
+        yield sizes
+    finally:
+        backend.Ed25519DeviceBatchVerifier._verify_block = real
+
+
+def early_stop(commit: Commit, trusted: ValidatorSet, num: int, den: int) -> int:
+    """Signatures a light check of `trusted` (+2/3: 2, 3; trusting: 1, 3)
+    selects from `commit` before its tally passes num/den of the set's
+    power: the signers it knows, by address, in commit order."""
+    rows = [trusted.get_by_address(cs.validator_address)[0] for cs in commit.signatures]
+    power = trusted.ed25519_columns()[1]
+    counted = np.array([power[r] for r in rows if r >= 0], dtype=np.int64)
+    k = int(np.searchsorted(np.cumsum(counted), trusted.total_voting_power() * num // den,
+                            side="right"))
+    return min(k + 1, counted.size)
+
+
+def _rewired(lb: LightBlock, edit) -> LightBlock:
+    """lb with edit(list of CommitSigs) applied and its commit carried
+    through its wire bytes again, as a node would receive it."""
+    c = lb.signed_header.commit
+    sigs = list(c.signatures)
+    edit(sigs)
+    commit = Commit.decode(Commit(c.height, c.round, c.block_id, sigs).encode())
+    return LightBlock(SignedHeader(lb.signed_header.header, commit), lb.validators)
+
+
+def light_phase(wire: dict, dev) -> dict:
+    """Slice (e): the light path on the card at full width; each case's
+    launches and batch sizes checked. Returns the early-stop counts."""
+    blocks = {h: convert.light_block_from_wire(*w) for h, w in wire.items()}
+    v1 = blocks[1].validators
+    now = LIGHT_NOW
+    trust = validation.DEFAULT_TRUST_LEVEL
+
+    def adjacent(u, t=blocks[1]):
+        return lambda: light_verifier.verify_adjacent(
+            t.signed_header, u.signed_header, u.validators, LIGHT_PERIOD, now, LIGHT_DRIFT,
+            device=dev)
+
+    def non_adjacent(u, t=blocks[1]):
+        return lambda: light_verifier.verify_non_adjacent(
+            t.signed_header, t.validators, u.signed_header, u.validators, LIGHT_PERIOD, now,
+            LIGHT_DRIFT, trust, device=dev)
+
+    def run(fn):
+        kernels.reset_launches()
+        with batch_sizes() as sizes:
+            fn()
+        return _launched({}), sizes
+
+    stops = {
+        "light_v1": early_stop(blocks[2].signed_header.commit, v1, 2, 3),
+        "trusting_v1_on_10": early_stop(blocks[10].signed_header.commit, v1, 1, 3),
+        "light_v2": early_stop(blocks[10].signed_header.commit, blocks[10].validators, 2, 3),
+        "trusting_v2_on_17": early_stop(blocks[17].signed_header.commit,
+                                        blocks[10].validators, 1, 3),
+        "light_v3": early_stop(blocks[17].signed_header.commit, blocks[17].validators, 2, 3),
+    }
+    log(f"slice (e): early-stop batch sizes from the powers {stops}")
+    rlc_warm = {"k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1}
+    with env("TM_TPU_RLC", None):
+        # (e1) adjacent 1 -> 2: cold, the table build, then warm
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        first = [run(adjacent(blocks[2]))[0] for _ in range(2)]
+        check(first == [{"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1}, dict(rlc_warm, epoch_coords=1)],
+              f"the first two verify_adjacent calls launched {first}")
+        got, sizes = run(adjacent(blocks[2]))
+        check(got == rlc_warm, f"verify_adjacent warm launched {got}")
+        check(sizes == [stops["light_v1"]], f"verify_adjacent's batch {sizes}, wanted "
+              f"{stops['light_v1']}")
+        inside = LIGHT_INSIDE
+        check(inside < stops["light_v1"] <= TAMPER_AT < N_VALIDATORS,
+              f"signatures {inside} and {TAMPER_AT} do not straddle the stop "
+              f"{stops['light_v1']}")
+
+        def tampered(at):
+            def edit(sigs):
+                sigs[at] = dataclasses.replace(sigs[at], signature=tamper(sigs[at].signature))
+            return _rewired(blocks[2], edit)
+
+        bad = tampered(inside)
+        expect_error(adjacent(bad), light_verifier.ErrInvalidHeader,
+                     f"wrong signature (#{inside}): "
+                     f"{bad.signed_header.commit.signatures[inside].signature.hex().upper()}")
+        # past the early stop the reference never looks at the signature
+        adjacent(tampered(TAMPER_AT))()
+        log(f"slice (e1): verify_adjacent 1 -> 2 warm launched {got}, batch {sizes}; "
+            f"tampered #{inside} (inside the stop) blamed; tampered #{TAMPER_AT} (past the "
+            f"stop at {stops['light_v1']}) accepted, as the reference accepts it")
+
+        # (e2) non-adjacent 1 -> 10: trusting by address against V1, +2/3 of V2
+        calls = [run(non_adjacent(blocks[10])) for _ in range(3)]
+        want = [{"k1_rlc_cached": 1, "k1_rlc": 1, "k2_rlc": 2, "k3_rlc": 2},
+                {"k1_rlc_cached": 2, "epoch_coords": 1, "k2_rlc": 2, "k3_rlc": 2},
+                {"k1_rlc_cached": 2, "k2_rlc": 2, "k3_rlc": 2}]
+        check([c for c, _ in calls] == want, f"verify_non_adjacent launched {calls}")
+        check(all(s == [stops["trusting_v1_on_10"], stops["light_v2"]] for _, s in calls),
+              f"verify_non_adjacent's batches {[s for _, s in calls]}")
+        needed = v1.total_voting_power() // 3
+        expect_error(non_adjacent(blocks[17]), light_verifier.ErrNotEnoughTrust,
+                     f"invalid commit -- insufficient voting power: got 0, needed more than "
+                     f"{needed}")
+        known = [k for k, cs in enumerate(blocks[10].signed_header.commit.signatures)
+                 if v1.get_by_address(cs.validator_address)[1] is not None][:2]
+
+        def double(sigs):
+            sigs[known[1]] = sigs[known[0]]
+
+        dbl = _rewired(blocks[10], double)
+        val = v1.get_by_address(dbl.signed_header.commit.signatures[known[0]].validator_address)[1]
+        expect_error(non_adjacent(dbl), light_verifier.ErrInvalidHeader,
+                     f"double vote from {val} ({known[0]} and {known[1]})")
+        log(f"slice (e2): verify_non_adjacent 1 -> 10 launched {[c for c, _ in calls]}, "
+            f"batches {calls[0][1]}; 1 -> 17 not enough trust; a double vote at "
+            f"{known} rejected")
+
+        # (e3) the client: skipping from 1 to 17, then sequential from 1 to 3
+        primary, witness = MemProvider(blocks), MemProvider(blocks)
+        client = light_client.Client(
+            CHAIN_ID, light_client.TrustOptions(LIGHT_PERIOD, 1, blocks[1].hash()), primary,
+            [witness], LightStore(MemDB()), now_fn=lambda: now, device=dev)
+        t = time.perf_counter()
+        got, sizes = run(lambda: client.verify_light_block_at_height(17, now))
+        client_ms = (time.perf_counter() - t) * 1e3
+        stored = [h for h in blocks if client.trusted_light_block(h) is not None]
+        check(client.trusted_light_block(17).hash() == blocks[17].hash(), "wrong block at 17")
+        check(primary.asked == [1, 17, 10] and witness.asked == [1, 17],
+              f"the client asked the primary for {primary.asked}, the witness for "
+              f"{witness.asked}")
+        # the reference's skipping verification stores the target, not the
+        # pivot it went through
+        check(stored == [1, 17], f"the client's store holds {stored}")
+        check(got == {"k1_rlc_cached": 3, "k1_rlc": 1, "k2_rlc": 4, "k3_rlc": 4},
+              f"the skipping client launched {got}")
+        check(sizes == [stops[k] for k in ("trusting_v1_on_10", "light_v2", "trusting_v2_on_17",
+                                           "light_v3")], f"the skipping client's batches {sizes}")
+        seq = light_client.Client(
+            CHAIN_ID, light_client.TrustOptions(LIGHT_PERIOD, 1, blocks[1].hash()),
+            MemProvider(blocks), [MemProvider(blocks)], LightStore(MemDB()), sequential=True,
+            now_fn=lambda: now, device=dev)
+        seq_got, seq_sizes = run(lambda: seq.verify_light_block_at_height(3, now))
+        seq_stored = [h for h in blocks if seq.trusted_light_block(h) is not None]
+        check(seq_stored == [1, 2, 3], f"the sequential client's store holds {seq_stored}")
+        check(seq_got == {"k1_rlc_cached": 2, "k2_rlc": 2, "k3_rlc": 2},
+              f"the sequential client launched {seq_got}")
+        log(f"slice (e3): client skipping 1 -> 17 ({client_ms:.1f} ms) asked the primary for "
+            f"{primary.asked} (bisected at 10), launched {got}, batches {sizes}; the witness "
+            f"agreed; store {stored}; sequential 1 -> 3 launched {seq_got}, store {seq_stored}")
+
+    with env("TM_TPU_RLC", "0"):
+        # (e4) one adjacent step on the per-signature kernels, V1 warm
+        got, sizes = run(adjacent(blocks[2]))
+        want = {"k1_decompress_cached": 1, "k2_table": 1, "k3_ladder": 1}
+        check(got == want, f"verify_adjacent per-signature launched {got}")
+        check(sizes == [stops["light_v1"]], f"the per-signature batch {sizes}")
+        log(f"slice (e4): verify_adjacent 1 -> 2 per-signature launched {got}")
+    return {"early_stop": stops, "client_first_ms": client_ms}
+
+
+LIGHT_STAGES = ("light.checks", "light.store", "commit.prep", "commit.select",
+                "commit.sign_bytes", "rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
+                "rlc.d2h", "rlc.expand")
+
+
+def _run_stats(runs_ms: list) -> dict:
+    return {"median_ms": statistics.median(runs_ms), "min_ms": min(runs_ms),
+            "max_ms": max(runs_ms), "runs_ms": runs_ms}
+
+
+def light_timing(wire: dict, dev) -> dict:
+    """verify_adjacent 1 -> 2 (warm) and verify_non_adjacent 1 -> 10:
+    REPEATS calls on blocks decoded afresh for each call (decoding
+    untimed: a light client receives each block new) and on the same
+    objects (their hashes and columns kept); PROFILED fresh calls a path
+    traced with the stages; one skipping client call from a fresh store
+    holding only the root; and the host costs the path pays on a freshly
+    decoded 10,000-validator block."""
+    def fresh(h):
+        return convert.light_block_from_wire(*wire[h])
+
+    trust = validation.DEFAULT_TRUST_LEVEL
+
+    def adjacent(t, u):
+        light_verifier.verify_adjacent(t.signed_header, u.signed_header, u.validators,
+                                       LIGHT_PERIOD, LIGHT_NOW, LIGHT_DRIFT, device=dev)
+
+    def non_adjacent(t, u):
+        light_verifier.verify_non_adjacent(t.signed_header, t.validators, u.signed_header,
+                                           u.validators, LIGHT_PERIOD, LIGHT_NOW, LIGHT_DRIFT,
+                                           trust, device=dev)
+
+    paths = {"verify_adjacent": (adjacent, 1, 2), "verify_non_adjacent": (non_adjacent, 1, 10)}
+    out = {}
+    with env("TM_TPU_RLC", None):
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        for name, (fn, t, u) in paths.items():
+            for _ in range(2):  # both sets warm, their tables built
+                fn(fresh(t), fresh(u))
+            runs = {"fresh": [], "reused": []}
+            kept = (fresh(t), fresh(u))
+            for _ in range(REPEATS):
+                pair = (fresh(t), fresh(u))
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                fn(*pair)
+                runs["fresh"].append((time.perf_counter() - s) * 1e3)
+                s = time.perf_counter()
+                fn(*kept)
+                runs["reused"].append((time.perf_counter() - s) * 1e3)
+            pairs = [(fresh(t), fresh(u)) for _ in range(PROFILED)]
+            prof = traced_calls(name, [lambda p=p: fn(*p) for p in pairs], f"light_{name}")
+            out[name] = {k: _run_stats(v) for k, v in runs.items()}
+            out[name]["profiled"] = _stage_medians(prof)
+            log(f"light timing [{name}]: fresh median {out[name]['fresh']['median_ms']:.2f} ms "
+                f"(min {out[name]['fresh']['min_ms']:.2f}, max "
+                f"{out[name]['fresh']['max_ms']:.2f}), reused median "
+                f"{out[name]['reused']['median_ms']:.2f} ms over {REPEATS} calls; profiled "
+                f"{json.dumps(out[name]['profiled'])}")
+
+        def client():
+            blocks = {h: fresh(h) for h in wire}
+            return light_client.Client(
+                CHAIN_ID, light_client.TrustOptions(LIGHT_PERIOD, 1, blocks[1].hash()),
+                MemProvider(blocks), [MemProvider(blocks)], LightStore(MemDB()),
+                now_fn=lambda: LIGHT_NOW, device=dev)
+
+        for _ in range(2):  # V3 noted, then its table built
+            client().verify_light_block_at_height(17, LIGHT_NOW)
+        c = client()
+        prof = traced_calls("client", [lambda: c.verify_light_block_at_height(17, LIGHT_NOW)],
+                            "light_client_skipping")
+        out["client_skipping"] = _stage_medians(prof)
+        log(f"light timing [client skipping 1 -> 17 from a fresh store holding the root, "
+            f"every set warm]: "
+            f"{json.dumps(out['client_skipping'])}")
+
+    def each(make, fn):
+        """Median ms of fn over PROFILED objects made afresh (untimed)."""
+        objs = [make() for _ in range(PROFILED)]
+        times = []
+        for o in objs:
+            t = time.perf_counter()
+            fn(o)
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    host_ms = {
+        "light_block_from_wire": _median_ms(lambda: fresh(10), PROFILED)[1],
+        "validator_set_decode": _median_ms(lambda: ValidatorSet.decode(wire[10][2]),
+                                           PROFILED)[1],
+        "validator_set_hash": each(lambda: ValidatorSet.decode(wire[10][2]),
+                                   lambda v: v.hash()),
+        "validator_set_ed25519_columns": each(lambda: ValidatorSet.decode(wire[10][2]),
+                                              lambda v: v.ed25519_columns()),
+        "header_hash": each(lambda: Header.decode(wire[10][0]), lambda h: h.hash()),
+        "commit_decode": _median_ms(lambda: Commit.decode(wire[10][1]), PROFILED)[1],
+        "commit_materialize": each(lambda: Commit.decode(wire[10][1]),
+                                   lambda c: list(c.signatures)),
+    }
+    out["host_ms"] = host_ms
+    log(f"light timing: host costs on a fresh {N_VALIDATORS}-validator block (median ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host_ms.items()))
+    return out
+
+
+def _stage_medians(prof: list) -> dict:
+    """Medians over traced calls: the call, each light-path stage present,
+    the rest, the card's busy time and its idle share."""
+    present = [s for s in LIGHT_STAGES if any(s in p["spans_ms"] for p in prof)]
+    stages = {s: statistics.median(p["spans_ms"].get(s, 0.0) for p in prof) for s in present}
+    rest = [p["call_ms"] - sum(p["spans_ms"].get(s, 0.0) for s in present) for p in prof]
+    out = {"calls": len(prof), "call_ms": statistics.median(p["call_ms"] for p in prof),
+           "stages_ms": stages, "rest_ms": statistics.median(rest),
+           "device_busy_ms": None, "device_idle_share": None}
+    if sum(sum(p["device_events"].values()) for p in prof):
+        out["device_busy_ms"] = statistics.median(p["device_busy_ms"] for p in prof)
+        out["device_idle_share"] = statistics.median(
+            1 - p["device_busy_ms"] / p["call_ms"] for p in prof)
+    return out
+
+
 # -- timing --------------------------------------------------------------------
 
 
@@ -1062,27 +1487,26 @@ def _union_ms(intervals: list) -> float:
     return busy / 1e3
 
 
-def profiled_calls(vals, commit, dev, path: str) -> list:
-    """PROFILED verify_commit calls under torch.profiler. From the one
-    trace, per call: its wall time, each host stage span of the path (the
-    port's record_function spans), the rest of the call outside them, and
-    the union of the card's kernel and copy intervals inside the call."""
-    stages_of = PATHS[path]
+def traced_calls(name: str, fns: list, trace_name: str) -> list:
+    """Each fn() once inside a record_function(name) span, all under one
+    torch.profiler trace (kept as build/traces/<trace_name>.json). Per
+    call: its wall ms, the ms of each of the port's spans inside it by
+    name, its device events by category, and the union of the card's
+    kernel and copy intervals inside it."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(PROFILED):
-            with torch.profiler.record_function("verify_commit"):
-                validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+        for fn in fns:
+            with torch.profiler.record_function(name):
+                fn()
         torch.cuda.synchronize()
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    trace = TRACE_DIR / f"verify_commit_{path}.json"
+    trace = TRACE_DIR / f"{trace_name}.json"
     prof.export_chrome_trace(str(trace))
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     spans = [e for e in events if e.get("cat") == "user_annotation"]
-    calls = sorted((e for e in spans if e["name"] == "verify_commit"), key=lambda e: e["ts"])
-    check(len(calls) == PROFILED,
-          f"trace holds {len(calls)} verify_commit spans, wanted {PROFILED}")
+    calls = sorted((e for e in spans if e["name"] == name), key=lambda e: e["ts"])
+    check(len(calls) == len(fns), f"trace holds {len(calls)} {name} spans, wanted {len(fns)}")
     out = []
     for c in calls:
         t0, t1 = c["ts"], c["ts"] + c["dur"]
@@ -1090,20 +1514,45 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
         def inside(e):
             return t0 <= e["ts"] and e["ts"] + e["dur"] <= t1
 
-        mine = [e for e in spans if inside(e)]
-        names = {e["name"] for e in mine}
+        spans_ms = {}
+        for e in spans:
+            if e is not c and inside(e):
+                spans_ms[e["name"]] = spans_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+        dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS and inside(e)]
+        out.append({
+            "call_ms": c["dur"] / 1e3,
+            "spans_ms": spans_ms,
+            "device_events": {k: sum(e.get("cat") == k for e in dev_ev) for k in DEVICE_CATS},
+            "device_busy_ms": _union_ms([(e["ts"], e["ts"] + e["dur"]) for e in dev_ev]),
+        })
+    return out
+
+
+def profiled_calls(vals, commit, dev, path: str) -> list:
+    """PROFILED verify_commit calls under torch.profiler. From the one
+    trace, per call: its wall time, each host stage span of the path (the
+    port's record_function spans), the rest of the call outside them, and
+    the union of the card's kernel and copy intervals inside the call."""
+    stages_of = PATHS[path]
+    calls = traced_calls(
+        "verify_commit",
+        [lambda: validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)]
+        * PROFILED,
+        f"verify_commit_{path}")
+    out = []
+    for c in calls:
+        names = set(c["spans_ms"])
         missing = set(stages_of) - names
         check(not missing, f"a traced {path} call lacks the spans {sorted(missing)}")
         other = set(FUSED_STAGES + OBJECT_STAGES) - set(stages_of)
         check(not (names & other), f"a traced {path} call has the spans {sorted(names & other)}")
-        stages = {s: sum(e["dur"] for e in mine if e["name"] == s) / 1e3 for s in stages_of}
-        stages["rest"] = c["dur"] / 1e3 - sum(stages.values())
-        dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS and inside(e)]
+        stages = {s: c["spans_ms"][s] for s in stages_of}
+        stages["rest"] = c["call_ms"] - sum(stages.values())
         out.append({
-            "call_ms": c["dur"] / 1e3,
+            "call_ms": c["call_ms"],
             "stages_ms": stages,
-            "device_events": {k: sum(e.get("cat") == k for e in dev_ev) for k in DEVICE_CATS},
-            "device_busy_ms": _union_ms([(e["ts"], e["ts"] + e["dur"]) for e in dev_ev]),
+            "device_events": c["device_events"],
+            "device_busy_ms": c["device_busy_ms"],
         })
     return out
 
@@ -1312,6 +1761,13 @@ def main() -> int:
         inputs = {lanes: sig_inputs(ents, edge, lanes, pool) for lanes in LANE_SHAPES}
         sr_edge = sr_edge_entries()
         sr_in = {n: sr_inputs(sr_ents, sr_edge, n, pool) for n in SR_SHAPES}
+        t = time.perf_counter()
+        light_wire = build_light_chain(pool)
+        light_sign_s = time.perf_counter() - t
+        n_light = sum(hi - lo for lo, hi in (light_ranges()[j] for j in LIGHT_HEIGHTS.values()))
+        log(f"data: the light chain (heights {list(LIGHT_HEIGHTS)}, {n_light} signatures by "
+            f"{light_ranges()[-1][1]} keys) built and signed in {light_sign_s:.1f} s by "
+            f"{workers} processes")
     table_pub = np.concatenate([
         np.frombuffer(b"".join(p for p, _, _ in edge), np.uint8).reshape(-1, 32),
         vals.ed25519_columns()[0],
@@ -1330,12 +1786,17 @@ def main() -> int:
     log(f"slice phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    light = light_phase(light_wire, dev)
+    log(f"light phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     paths = {}
     for p in PATHS:
         key_type = PATH_SETUP[p][2]
         paths[p] = time_path(p, sets[key_type][0], wire[key_type], sets[key_type][1], dev)
     records = kernel_timing(vals, EntryBlock.from_entries(ents),
                             EntryBlock.from_entries(sr_ents), dev, sm_clock_hz)
+    light["timing"] = light_timing(light_wire, dev)
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
     log("paths (median ms): " + ", ".join(
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
@@ -1346,6 +1807,9 @@ def main() -> int:
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
         r.update(resources.get(r["name"], {}))
     log("summary: " + json.dumps({"paths": paths, "host": host_stats}))
+    light.update(card=card, n_validators=N_VALIDATORS, signatures=n_light,
+                 signing_s=light_sign_s)
+    print(json.dumps({"light": light}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,19 @@
 The JAX package and the port share no objects: a validator set and a
 commit cross over as their protobuf encodings (tendermint_tpu's
 ValidatorSet.encode() and Commit.encode(), the reference's wire format),
-and a signature batch as numpy columns.
+a light block as its header's, commit's and set's encodings (the JAX
+package's SignedHeader has no encode of its own; its LightStore writes
+the header and the commit apart), and a signature batch as numpy
+columns.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .light.provider import LightBlock
 from .ops.entry_block import EntryBlock
-from .types.block import Commit
+from .types.block import Commit, Header, SignedHeader
 from .types.validator_set import ValidatorSet
 
 
@@ -20,6 +24,17 @@ def state_from_wire(valset_bytes: bytes, commit_bytes: bytes):
     encodings of tendermint.types.ValidatorSet and tendermint.types.Commit;
     a canonical commit decodes columnar (types/block.Commit.decode)."""
     return ValidatorSet.decode(bytes(valset_bytes)), Commit.decode(bytes(commit_bytes))
+
+
+def light_block_from_wire(header_bytes: bytes, commit_bytes: bytes,
+                          valset_bytes: bytes) -> LightBlock:
+    """LightBlock of the port from the protobuf encodings of
+    tendermint.types.Header, Commit and ValidatorSet."""
+    return LightBlock(
+        signed_header=SignedHeader(header=Header.decode(bytes(header_bytes)),
+                                   commit=Commit.decode(bytes(commit_bytes))),
+        validators=ValidatorSet.decode(bytes(valset_bytes)),
+    )
 
 
 def entries_from_arrays(pub: np.ndarray, sig: np.ndarray, msgs,

@@ -1,12 +1,14 @@
-"""PartSetHeader, BlockID, CommitSig and Commit.
+"""Version, PartSetHeader, BlockID, Header, CommitSig, Commit and
+SignedHeader.
 
-Counterpart: tendermint_tpu/types/block.py (types/block.go). Only what
-commit verification needs: the proto encode/decode of these types and
-the canonical vote sign-bytes of a commit's signatures. A commit decoded
-from its wire bytes holds its signatures as columns (ops/entry_block.
-CommitBlock) behind a lazy list view (CommitSigs); a commit built from
-CommitSig objects holds a plain list, and commit_block() builds its
-columns afresh at every call.
+Counterpart: tendermint_tpu/types/block.py (types/block.go). What commit
+and light-client header verification need: the proto encode/decode of
+these types, their validate_basic checks, the header's 14-leaf Merkle
+hash (memoized on the frozen Header), and the canonical vote sign-bytes
+of a commit's signatures. A commit decoded from its wire bytes holds its
+signatures as columns (ops/entry_block.CommitBlock) behind a lazy list
+view (CommitSigs); a commit built from CommitSig objects holds a plain
+list, and commit_block() builds its columns afresh at every call.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..crypto import merkle, tmhash
 from ..ops import host
 from ..ops.entry_block import CommitBlock
 from ..wire import canonical as _canon
@@ -38,6 +41,34 @@ BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
 BLOCK_ID_FLAG_NIL = 3
 
+MAX_SIGNATURE_SIZE = 64  # ed25519 and sr25519 (types/vote.go:24)
+
+
+def cdc_encode_string(s: str) -> bytes:
+    """gogotypes.StringValue of s, b"" for the empty string
+    (types/encoding_helper.go): a leaf of the header's hash."""
+    if not s:
+        return b""
+    w = ProtoWriter()
+    w.write_string(1, s)
+    return w.bytes()
+
+
+def cdc_encode_int64(v: int) -> bytes:
+    if not v:
+        return b""
+    w = ProtoWriter()
+    w.write_varint(1, v)
+    return w.bytes()
+
+
+def cdc_encode_bytes(b: bytes) -> bytes:
+    if not b:
+        return b""
+    w = ProtoWriter()
+    w.write_bytes(1, b)
+    return w.bytes()
+
 
 def _decode_timestamp(data: bytes) -> Timestamp:
     f = decode_message(data)
@@ -45,6 +76,25 @@ def _decode_timestamp(data: bytes) -> Timestamp:
         seconds=to_signed64(field_int(f, 1)),
         nanos=to_signed32(field_int(f, 2)),
     )
+
+
+@dataclass(frozen=True)
+class Version:
+    """Consensus version (proto/tendermint/version)."""
+
+    block: int = 11  # version.BlockProtocol (version/version.go:25)
+    app: int = 0
+
+    def encode(self) -> bytes:
+        w = ProtoWriter()
+        w.write_varint(1, self.block)
+        w.write_varint(2, self.app)
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Version":
+        f = decode_message(data)
+        return cls(block=field_int(f, 1), app=field_int(f, 2))
 
 
 @dataclass(frozen=True)
@@ -65,6 +115,10 @@ class PartSetHeader:
     def decode(cls, data: bytes) -> "PartSetHeader":
         f = decode_message(data)
         return cls(total=field_int(f, 1), hash=field_bytes(f, 2))
+
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError("wrong PartSetHeader hash size")
 
 
 @dataclass(frozen=True)
@@ -101,6 +155,122 @@ class BlockID:
             ),
         )
 
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError("wrong BlockID hash size")
+        self.part_set_header.validate_basic()
+
+
+@dataclass(frozen=True)
+class Header:
+    """types/block.go:370-412."""
+
+    version: Version = field(default_factory=Version)
+    chain_id: str = ""
+    height: int = 0
+    time: Timestamp = field(default_factory=Timestamp.zero)
+    last_block_id: BlockID = field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+    # the memoized hash: the class is frozen, and init=False makes
+    # dataclasses.replace() start a copy without it
+    _hash_memo: Optional[bytes] = field(default=None, init=False, repr=False,
+                                        compare=False)
+
+    def hash(self) -> bytes:
+        """Merkle root of the 14 proto-encoded fields (types/block.go:
+        448-483); b"" (Go's nil) for a header without validators_hash."""
+        if not self.validators_hash:
+            return b""
+        h = self._hash_memo
+        if h is None:
+            h = merkle.hash_from_byte_slices([
+                self.version.encode(),
+                cdc_encode_string(self.chain_id),
+                cdc_encode_int64(self.height),
+                _canon.encode_timestamp(self.time),
+                self.last_block_id.encode(),
+                cdc_encode_bytes(self.last_commit_hash),
+                cdc_encode_bytes(self.data_hash),
+                cdc_encode_bytes(self.validators_hash),
+                cdc_encode_bytes(self.next_validators_hash),
+                cdc_encode_bytes(self.consensus_hash),
+                cdc_encode_bytes(self.app_hash),
+                cdc_encode_bytes(self.last_results_hash),
+                cdc_encode_bytes(self.evidence_hash),
+                cdc_encode_bytes(self.proposer_address),
+            ])
+            object.__setattr__(self, "_hash_memo", h)
+        return h
+
+    def encode(self) -> bytes:
+        w = ProtoWriter()
+        w.write_message(1, self.version.encode(), always=True)
+        w.write_string(2, self.chain_id)
+        w.write_varint(3, self.height)
+        w.write_message(4, _canon.encode_timestamp(self.time), always=True)
+        w.write_message(5, self.last_block_id.encode(), always=True)
+        w.write_bytes(6, self.last_commit_hash)
+        w.write_bytes(7, self.data_hash)
+        w.write_bytes(8, self.validators_hash)
+        w.write_bytes(9, self.next_validators_hash)
+        w.write_bytes(10, self.consensus_hash)
+        w.write_bytes(11, self.app_hash)
+        w.write_bytes(12, self.last_results_hash)
+        w.write_bytes(13, self.evidence_hash)
+        w.write_bytes(14, self.proposer_address)
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Header":
+        f = decode_message(data)
+        return cls(
+            version=Version.decode(field_bytes(f, 1)),
+            chain_id=field_bytes(f, 2).decode("utf-8"),
+            height=to_signed64(field_int(f, 3)),
+            time=_decode_timestamp(field_bytes(f, 4)),
+            last_block_id=BlockID.decode(field_bytes(f, 5)),
+            last_commit_hash=field_bytes(f, 6),
+            data_hash=field_bytes(f, 7),
+            validators_hash=field_bytes(f, 8),
+            next_validators_hash=field_bytes(f, 9),
+            consensus_hash=field_bytes(f, 10),
+            app_hash=field_bytes(f, 11),
+            last_results_hash=field_bytes(f, 12),
+            evidence_hash=field_bytes(f, 13),
+            proposer_address=field_bytes(f, 14),
+        )
+
+    def validate_basic(self) -> None:
+        """types/block.go:413-446."""
+        if len(self.chain_id) > 50:
+            raise ValueError("chain_id is too long")
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.height == 0:
+            raise ValueError("zero Height")
+        self.last_block_id.validate_basic()
+        for name, h in (
+            ("last_commit_hash", self.last_commit_hash),
+            ("data_hash", self.data_hash),
+            ("evidence_hash", self.evidence_hash),
+            ("last_results_hash", self.last_results_hash),
+            ("validators_hash", self.validators_hash),
+            ("next_validators_hash", self.next_validators_hash),
+            ("consensus_hash", self.consensus_hash),
+        ):
+            if h and len(h) != tmhash.SIZE:
+                raise ValueError(f"wrong {name} size")
+        if self.proposer_address and len(self.proposer_address) != tmhash.TRUNCATED_SIZE:
+            raise ValueError("invalid proposer_address size")
+
 
 @dataclass(frozen=True)
 class CommitSig:
@@ -134,6 +304,26 @@ class CommitSig:
             timestamp=_decode_timestamp(field_bytes(f, 3)),
             signature=field_bytes(f, 4),
         )
+
+    def validate_basic(self) -> None:
+        """types/block.go:702-741."""
+        if self.block_id_flag not in (BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT,
+                                      BLOCK_ID_FLAG_NIL):
+            raise ValueError(f"unknown BlockIDFlag: {self.block_id_flag}")
+        if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
+            if self.validator_address:
+                raise ValueError("validator address is present for absent CommitSig")
+            if not self.timestamp.is_zero():
+                raise ValueError("time is present for absent CommitSig")
+            if self.signature:
+                raise ValueError("signature is present for absent CommitSig")
+        else:
+            if len(self.validator_address) != tmhash.TRUNCATED_SIZE:
+                raise ValueError("expected ValidatorAddress size")
+            if not self.signature:
+                raise ValueError("signature is missing")
+            if len(self.signature) > MAX_SIGNATURE_SIZE:
+                raise ValueError("signature is too big")
 
 
 class CommitSigs(MutableSequence):
@@ -444,3 +634,50 @@ class Commit:
             block_id=BlockID.decode(field_bytes(f, 3)),
             signatures=_decode_commit_sigs(field_repeated_bytes(f, 4)),
         )
+
+    def validate_basic(self) -> None:
+        """types/block.go:779-800. The columns of a commit decoded from
+        its wire bytes passed _decode_sig_record, which is stricter than
+        CommitSig.validate_basic, so they stand in for the loop over
+        10,000 CommitSig objects; any other commit runs the loop."""
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_zero():
+                raise ValueError("commit cannot be for nil block")
+            sigs = self.signatures
+            if not sigs:
+                raise ValueError("no signatures in commit")
+            if isinstance(sigs, CommitSigs) and sigs.block() is not None:
+                return
+            for i, cs in enumerate(sigs):
+                try:
+                    cs.validate_basic()
+                except ValueError as e:
+                    raise ValueError(f"wrong CommitSig #{i}: {e}") from e
+
+
+@dataclass(frozen=True)
+class SignedHeader:
+    """Header + the commit that signed it (types/block.go:833-890)."""
+
+    header: Optional[Header] = None
+    commit: Optional[Commit] = None
+
+    def validate_basic(self, chain_id: str) -> None:
+        if self.header is None:
+            raise ValueError("missing header")
+        if self.commit is None:
+            raise ValueError("missing commit")
+        self.header.validate_basic()
+        self.commit.validate_basic()
+        if self.header.chain_id != chain_id:
+            raise ValueError(
+                f"header belongs to another chain {self.header.chain_id!r}, not {chain_id!r}"
+            )
+        if self.header.height != self.commit.height:
+            raise ValueError("header and commit height mismatch")
+        if self.header.hash() != self.commit.block_id.hash:
+            raise ValueError("commit signs a header other than this one")

@@ -4,17 +4,19 @@ Counterpart: tendermint_tpu/types/validator_set.py (types/validator.go,
 types/validator_set.go). What commit verification needs: construction
 of a new set (with the reference's proposer-priority rotation, so the
 proposer and the validator order match), proto encode/decode, size,
-total voting power, the proposer, the set's hash (the epoch cache's key)
-and its ed25519 key column. Integer operations follow Go's int64
-semantics (clipping adds, truncated division). The port changes no set
-after it is built (there is no update path), so the hash and the
-column are computed once per set and kept.
+total voting power, the proposer, the set's hash (the epoch cache's key),
+its ed25519 key column, and the lookups the light client's trusting
+check makes (get_by_address, get_by_index). Integer operations follow
+Go's int64 semantics (clipping adds, truncated division, safe_mul). The
+port changes no set after it is built (there is no update path), so the
+hash, the column and the address index are computed once per set and
+kept; an update path must reset all three.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,6 +42,14 @@ PRIORITY_WINDOW_SIZE_FACTOR = 2  # validator_set.go:30
 
 def _clip64(v: int) -> int:
     return max(INT64_MIN, min(INT64_MAX, v))
+
+
+def safe_mul(a: int, b: int) -> Tuple[int, bool]:
+    """(a * b, False), or (0, True) when the product leaves int64."""
+    v = a * b
+    if v > INT64_MAX or v < INT64_MIN:
+        return 0, True
+    return v, False
 
 
 def _go_div(a: int, b: int) -> int:
@@ -123,6 +133,7 @@ class ValidatorSet:
         self._total_voting_power = 0
         self._hash: Optional[bytes] = None
         self._ed_cols = None
+        self._by_addr: Optional[Dict[bytes, int]] = None
 
     @classmethod
     def new(cls, valz: Sequence[Validator]) -> "ValidatorSet":
@@ -165,6 +176,27 @@ class ValidatorSet:
 
     def size(self) -> int:
         return len(self.validators)
+
+    def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
+        """(row, copy of the validator) of the first validator with this
+        address, or (-1, None). The reference scans the set; the port
+        keeps an address -> row dict, built on the first lookup."""
+        if self._by_addr is None:
+            index: Dict[bytes, int] = {}
+            for i, v in enumerate(self.validators):
+                index.setdefault(v.address, i)
+            self._by_addr = index
+        i = self._by_addr.get(address, -1)
+        if i < 0:
+            return -1, None
+        return i, self.validators[i].copy()
+
+    def get_by_index(self, index: int) -> Tuple[Optional[bytes], Optional[Validator]]:
+        """(address, copy of the validator) at `index`, or (None, None)."""
+        if index < 0 or index >= len(self.validators):
+            return None, None
+        v = self.validators[index]
+        return v.address, v.copy()
 
     def total_voting_power(self) -> int:
         if self._total_voting_power == 0:
