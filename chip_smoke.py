@@ -77,6 +77,35 @@ Phases, in order:
        17; then sequentially from 1 to 3;
        (e4) one verify_adjacent on the per-signature kernels
        (TM_TPU_RLC=0);
+   (f) the asynchronous dispatcher (ops/pipeline.py; every ed25519
+       batch of 64 signatures or more above, slice (a)'s included, goes
+       through it, and every launch of (a) and (f) must come from its
+       one dispatch thread):
+       (f1) verify_commit on the 10,000-validator commit, RLC and
+       TM_TPU_RLC=0, cold then warm: launches per call, blame and low
+       power as in (a)-(c);
+       (f2) four threads call verify_commit on one warm set at once: all
+       return None; the launches are printed (k3_rlc below four is the
+       dispatcher fusing their batches, which depends on timing);
+       (f3) BASELINE.json config #5: verify_headers_pipelined over 1,000
+       adjacent headers of one 128-validator set (bench.py's
+       accelerator defaults, the chain built as
+       bench._build_header_chain builds it, 128,128 signatures): every
+       header verifies; a copy with a signature tampered at height 500
+       raises `header 500: wrong signature (entry i)`, i the index a
+       sequential loop of verify_commit_light blames; headers per
+       second, batches and launches, and from a profiler trace the
+       device busy time, its idle share, and the host-to-device copies
+       that ran while a kernel ran (their streams beside the kernels');
+       (f4) the batched light service (light/service.py) over slice
+       (e)'s chain: 1 -> 2, 1 -> 10, 1 -> 17 and 1 -> 2 with a tampered
+       signature submitted at once, each verdict equal to the
+       sequential light.verifier.verify's;
+       (f5) the verdicts of three batches held while eight more of the
+       same layout reuse the dispatcher's buffers: unchanged, and
+       host-owned;
+       (f6) a batch whose host prep raises (rows outside its set's
+       table) fails alone with a DispatchError; the next one verifies;
 6. timing, for each path (RLC cold, RLC warm, per-signature,
    per-signature warm, sr25519), on the decoded commit: the end-to-end
    verify_commit wall clock (warm, median of 20) and one call on the
@@ -98,8 +127,14 @@ Phases, in order:
    decode and hash, header hash, commit decode and materialization).
    The traces are kept in build/traces/.
 
+The profiler traces every thread the process starts after it (the
+dispatcher's spans run on its threads), so each traced window starts
+the device's dispatcher anew.
+
 It prints one JSON line of the light path's checks and times (with the
-card's name and power limit), one JSON line of kernel records, then the
+card's name and power limit), one of slice (f)'s, one JSON line of
+kernel records (the launches of slices (a)-(d) and of config #5's first
+run in (f3)), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -119,6 +154,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -128,8 +164,11 @@ from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
 from tendermint_tpu_torch.crypto import ed25519, sr25519
 from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, fe, host, kernels, rlc
+from tendermint_tpu_torch.ops import pipeline
 from tendermint_tpu_torch.db import MemDB
+from tendermint_tpu_torch.light import batch as light_batch
 from tendermint_tpu_torch.light import client as light_client
+from tendermint_tpu_torch.light import service as light_service
 from tendermint_tpu_torch.light import verifier as light_verifier
 from tendermint_tpu_torch.light.provider import ErrLightBlockNotFound, LightBlock, Provider
 from tendermint_tpu_torch.light.store import LightStore
@@ -147,6 +186,7 @@ from tendermint_tpu_torch.types.block import (
     Header,
     PartSetHeader,
     SignedHeader,
+    Version,
 )
 from tendermint_tpu_torch.types.validator_set import (
     ErrNotEnoughVotingPowerSigned,
@@ -177,6 +217,14 @@ LIGHT_PERIOD = 14 * 24 * 3600.0
 LIGHT_DRIFT = 10.0
 LIGHT_NOW = canonical.Timestamp(T0_SECONDS + 3600, 0)
 LIGHT_INSIDE = 100
+# slice (f): BASELINE.json config #5 at bench.py's accelerator defaults
+# (bench.py:1254-1255), built as bench._build_header_chain builds it
+HEADERS = 1000
+HEADER_VALS = 128
+HEADER_CHAIN = "bench-chain"
+HEADER_T0 = 1_600_000_000
+HEADER_TAMPER = (500, 17)  # (height, signature) tampered in (f3)
+CONCURRENT = 4  # callers in (f2)
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -187,15 +235,17 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # ed25519 paths take the fused commit prep, sr25519 the object path
 FUSED_STAGES = ("commit.prep",)
 OBJECT_STAGES = ("commit.select", "commit.sign_bytes")
+# (an ed25519 batch goes through the dispatcher: its prep on
+# the coalescer thread, the copy, launch and readback on the dispatch
+# thread, the wait, copy-out and blame pass in pipeline.resolve on the
+# resolver thread; these spans do not nest in one another)
+PIPELINE_STAGES = ("pipeline.h2d", "pipeline.d2h", "pipeline.resolve")
 PATHS = {
-    "rlc_cold": FUSED_STAGES + ("rlc.prep", "rlc.h2d", "rlc.kernels", "rlc.d2h",
-                                "rlc.expand"),
-    "rlc_warm": FUSED_STAGES + ("rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
-                                "rlc.d2h", "rlc.expand"),
-    "per_signature": FUSED_STAGES + ("verify.prep", "verify.h2d", "verify.kernels",
-                                     "verify.d2h"),
-    "per_signature_warm": FUSED_STAGES + ("verify.prep", "verify.gather", "verify.h2d",
-                                          "verify.kernels", "verify.d2h"),
+    "rlc_cold": FUSED_STAGES + ("rlc.prep", "rlc.kernels") + PIPELINE_STAGES,
+    "rlc_warm": FUSED_STAGES + ("rlc.prep", "rlc.gather", "rlc.kernels") + PIPELINE_STAGES,
+    "per_signature": FUSED_STAGES + ("verify.prep", "verify.kernels") + PIPELINE_STAGES,
+    "per_signature_warm": FUSED_STAGES + ("verify.prep", "verify.gather", "verify.kernels")
+    + PIPELINE_STAGES,
     "sr25519": OBJECT_STAGES + ("sr.prep", "sr.h2d", "sr.kernels", "sr.d2h"),
 }
 # the host library's calls in one verify_commit call of each path
@@ -889,8 +939,8 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
 
     bad, bad_msg, low, low_msg = _commits(vals, commit)
     launches = {}
-    with env("TM_TPU_RLC", None):
-        # (a) RLC: one set, cold then warm
+    with env("TM_TPU_RLC", None), launch_threads() as launchers:
+        # (a) RLC: one set, cold then warm, through the device's dispatcher
         epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
         kernels.reset_launches()
         per_call = []
@@ -934,6 +984,7 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
         log(f"slice (a): tampered signature #{TAMPER_AT} blamed warm (built from a list, and "
             f"decoded then mutated) and cold; verify_commit_light warm {light}; low power "
             "rejected")
+    check_dispatcher_launched(launchers, dev, "slice (a)")
 
     want = {"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1}
     with env("TM_TPU_RLC", "0"):
@@ -1247,8 +1298,7 @@ def light_phase(wire: dict, dev) -> dict:
 
 
 LIGHT_STAGES = ("light.checks", "light.store", "commit.prep", "commit.select",
-                "commit.sign_bytes", "rlc.prep", "rlc.gather", "rlc.h2d", "rlc.kernels",
-                "rlc.d2h", "rlc.expand")
+                "commit.sign_bytes", "rlc.prep", "rlc.gather", "rlc.kernels") + PIPELINE_STAGES
 
 
 def _run_stats(runs_ms: list) -> dict:
@@ -1297,7 +1347,8 @@ def light_timing(wire: dict, dev) -> dict:
                 fn(*kept)
                 runs["reused"].append((time.perf_counter() - s) * 1e3)
             pairs = [(fresh(t), fresh(u)) for _ in range(PROFILED)]
-            prof = traced_calls(name, [lambda p=p: fn(*p) for p in pairs], f"light_{name}")
+            prof = traced_calls(name, [lambda p=p: fn(*p) for p in pairs], f"light_{name}",
+                                warm=lambda: fn(fresh(t), fresh(u)))
             out[name] = {k: _run_stats(v) for k, v in runs.items()}
             out[name]["profiled"] = _stage_medians(prof)
             log(f"light timing [{name}]: fresh median {out[name]['fresh']['median_ms']:.2f} ms "
@@ -1317,7 +1368,8 @@ def light_timing(wire: dict, dev) -> dict:
             client().verify_light_block_at_height(17, LIGHT_NOW)
         c = client()
         prof = traced_calls("client", [lambda: c.verify_light_block_at_height(17, LIGHT_NOW)],
-                            "light_client_skipping")
+                            "light_client_skipping",
+                            warm=lambda: client().verify_light_block_at_height(17, LIGHT_NOW))
         out["client_skipping"] = _stage_medians(prof)
         log(f"light timing [client skipping 1 -> 17 from a fresh store holding the root, "
             f"every set warm]: "
@@ -1365,6 +1417,374 @@ def _stage_medians(prof: list) -> dict:
         out["device_busy_ms"] = statistics.median(p["device_busy_ms"] for p in prof)
         out["device_idle_share"] = statistics.median(
             1 - p["device_busy_ms"] / p["call_ms"] for p in prof)
+    return out
+
+
+# -- slice (f): the dispatcher ------------------------------------------------
+
+
+@contextlib.contextmanager
+def launch_threads():
+    """The idents of the threads that launch a kernel inside the block."""
+    idents = set()
+    real = kernels.launch
+
+    def spy(name, *args):
+        idents.add(threading.get_ident())
+        return real(name, *args)
+
+    kernels.launch = spy
+    try:
+        yield idents
+    finally:
+        kernels.launch = real
+
+
+def check_dispatcher_launched(launchers: set, dev, what: str) -> None:
+    """Every launch of `what` came from the device's one dispatch thread."""
+    v = pipeline.shared_verifier(dev)
+    check(launchers == {v._dispatch_thread.ident},
+          f"{what}: kernels launched from threads {launchers}, the dispatch thread is "
+          f"{v._dispatch_thread.ident}")
+    check(v.dispatch_thread_idents == {v._dispatch_thread.ident}
+          and threading.get_ident() not in v.dispatch_thread_idents,
+          f"{what}: the device was touched from {v.dispatch_thread_idents}")
+
+
+def _header_seed(i: int) -> bytes:
+    """bench._build_header_chain's key i."""
+    return (i + 7).to_bytes(32, "little")
+
+
+def _header_pub(i: int) -> bytes:
+    return _edwards.pubkey_from_seed(_header_seed(i))
+
+
+def _header_sign(job: tuple) -> bytes:
+    i, msg = job
+    return _edwards.sign(_header_seed(i), msg)
+
+
+def build_header_chain(pool) -> tuple:
+    """BASELINE.json config #5's chain as bench._build_header_chain builds
+    it at bench.py's accelerator defaults: HEADERS + 1 adjacent headers of
+    one set of HEADER_VALS validators of power 100, every one signing.
+    Returns the set's and each (header, commit)'s wire bytes."""
+    pubs = pool.map(_header_pub, range(HEADER_VALS))
+    vset = ValidatorSet.new([Validator.new(ed25519.PubKey(p), 100) for p in pubs])
+    key_of = {p: i for i, p in enumerate(pubs)}
+    order = [key_of[v.pub_key.bytes()] for v in vset.validators]
+    headers, jobs = [], []
+    prev = b"\x00" * 32
+    for h in range(1, HEADERS + 2):
+        ts = canonical.Timestamp(HEADER_T0 + h, 0)
+        hdr = Header(
+            version=Version(block=11, app=0), chain_id=HEADER_CHAIN, height=h, time=ts,
+            last_block_id=BlockID(prev, PartSetHeader(1, prev)) if h > 1 else BlockID(),
+            validators_hash=vset.hash(), next_validators_hash=vset.hash(),
+            consensus_hash=b"\x01" * 32, app_hash=b"",
+            proposer_address=vset.validators[0].address,
+        )
+        prev = hdr.hash()
+        bid = BlockID(prev, PartSetHeader(1, prev))
+        tpl = canonical.canonical_vote_template(
+            chain_id=HEADER_CHAIN, msg_type=canonical.SIGNED_MSG_TYPE_PRECOMMIT, height=h,
+            round_=0, block_id=bid.canonical())
+        msg = canonical.compose_vote_sign_bytes(tpl, ts)
+        jobs += [(i, msg) for i in order]
+        headers.append((hdr, bid, ts))
+    sigs = pool.map(_header_sign, jobs, chunksize=256)
+    chain = []
+    for k, (hdr, bid, ts) in enumerate(headers):
+        row = sigs[k * HEADER_VALS : (k + 1) * HEADER_VALS]
+        commit = Commit(hdr.height, 0, bid, [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, sig)
+                                             for v, sig in zip(vset.validators, row)])
+        chain.append((hdr.encode(), commit.encode()))
+    return vset.encode(), chain
+
+
+def _headers_from_wire(header_wire: tuple, tamper_at=None) -> tuple:
+    """(trusted signed header, [(signed header, set)]) decoded from the
+    wire; tamper_at = (height, index) flips that signature first."""
+    vbytes, chain = header_wire
+    vset = ValidatorSet.decode(vbytes)
+    shs = []
+    for hb, cb in chain:
+        commit = Commit.decode(cb)
+        if tamper_at is not None and commit.height == tamper_at[0]:
+            sigs = list(commit.signatures)
+            cs = sigs[tamper_at[1]]
+            sigs[tamper_at[1]] = dataclasses.replace(cs, signature=tamper(cs.signature))
+            commit = Commit.decode(Commit(commit.height, commit.round, commit.block_id,
+                                          sigs).encode())
+        shs.append(SignedHeader(Header.decode(hb), commit))
+    return shs[0], [(sh, vset) for sh in shs[1:]]
+
+
+def _overlap(trace_name: str) -> dict:
+    """From a kept trace: the host-to-device copies and the kernels (their
+    streams), and how many copies ran while a kernel ran."""
+    with open(TRACE_DIR / f"{trace_name}.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+
+    def iv(e):
+        return e["ts"], e["ts"] + e["dur"]
+
+    overlapped, overlap_us = 0, 0.0
+    for c in h2d:
+        a, b = iv(c)
+        cut = sum(max(0.0, min(b, y) - max(a, x)) for x, y in map(iv, kern))
+        overlapped += cut > 0
+        overlap_us += cut
+    return {
+        "h2d_copies": len(h2d),
+        "kernels": len(kern),
+        "h2d_streams": sorted({e.get("args", {}).get("stream") for e in h2d}, key=str),
+        "kernel_streams": sorted({e.get("args", {}).get("stream") for e in kern}, key=str),
+        "h2d_copies_overlapping_a_kernel": overlapped,
+        "h2d_overlap_ms": overlap_us / 1e3,
+    }
+
+
+def dispatcher_phase(vals, commit, ents: list, light_wire: dict, header_wire: tuple,
+                     dev) -> dict:
+    """Slice (f): the asynchronous dispatcher on the card. Returns its
+    checks' numbers and the launches of config #5's first run."""
+    out = {}
+
+    def vc(c, fn=validation.verify_commit):
+        return lambda: fn(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
+
+    bad, bad_msg, low, low_msg = _commits(vals, commit)
+    # (f1) verify_commit through the dispatcher: cold and warm, both paths
+    wants = {
+        None: ({"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1},
+               {"k1_rlc_cached": 1, "k2_rlc": 1, "k3_rlc": 1}),
+        "0": ({"k1_decompress": 1, "k2_table": 1, "k3_ladder": 1},
+              {"k1_decompress_cached": 1, "k2_table": 1, "k3_ladder": 1}),
+    }
+    with launch_threads() as launchers:
+        for flag, (cold, warm) in wants.items():
+            with env("TM_TPU_RLC", flag):
+                epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+                per_call = []
+                for _ in range(3):
+                    before = dict(kernels.LAUNCHES)
+                    vc(commit)()
+                    per_call.append(_launched(before))
+                check(per_call == [cold, dict(warm, epoch_coords=1), warm],
+                      f"(f1) TM_TPU_RLC={flag}: three calls launched {per_call}")
+                before = dict(kernels.LAUNCHES)
+                expect_error(vc(bad), ValueError, bad_msg)
+                check(_launched(before) == warm, f"(f1) the tampered call launched "
+                      f"{_launched(before)}")
+                expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+                epoch_cache.reset(depth=0)
+                expect_error(vc(bad), ValueError, bad_msg)
+                log(f"slice (f1): TM_TPU_RLC={flag} through the dispatcher: launches per call "
+                    f"{per_call}; tampered #{TAMPER_AT} blamed warm and cold; low power "
+                    "rejected")
+    check_dispatcher_launched(launchers, dev, "slice (f1)")
+
+    # (f2) four callers at once on one warm set
+    with env("TM_TPU_RLC", None):
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        for _ in range(2):
+            vc(commit)()
+        results = [None] * CONCURRENT
+        kernels.reset_launches()
+
+        def caller(k):
+            try:
+                vc(commit)()
+            except Exception as e:  # the caller's outcome, checked below
+                results[k] = e
+
+        threads = [threading.Thread(target=caller, args=(k,)) for k in range(CONCURRENT)]
+        with launch_threads() as launchers:
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            conc_ms = (time.perf_counter() - t) * 1e3
+        check(not any(th.is_alive() for th in threads), "(f2) a caller did not return")
+        check(results == [None] * CONCURRENT, f"(f2) the concurrent callers raised {results}")
+        conc = _launched({})
+        check_dispatcher_launched(launchers, dev, "slice (f2)")
+        out["concurrent"] = {"callers": CONCURRENT, "launches": conc, "wall_ms": conc_ms}
+        log(f"slice (f2): {CONCURRENT} concurrent verify_commit calls returned None in "
+            f"{conc_ms:.1f} ms; launches {conc} (k3_rlc below {CONCURRENT} is coalescing)")
+
+    # (f3) BASELINE.json config #5: pipelined adjacent headers
+    n_headers = len(header_wire[1]) - 1
+    with env("TM_TPU_RLC", None):
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        trusted, headers = _headers_from_wire(header_wire)
+
+        def run_headers(hs=headers):
+            pipeline.verify_headers_pipelined(HEADER_CHAIN, trusted, hs, device=dev)
+
+        kernels.reset_launches()
+        with launch_threads() as launchers:
+            t = time.perf_counter()
+            run_headers()
+            first_ms = (time.perf_counter() - t) * 1e3
+        header_launches = _launched({})
+        check_dispatcher_launched(launchers, dev, "slice (f3)")
+        n_sigs = sum(early_stop(sh.commit, vs, 2, 3) for sh, vs in headers)
+        batches = -(-n_sigs // backend.BUCKETS[-1])
+        # the dispatcher may fuse queued batches of one set (up to
+        # rlc.MAX_SIGS), so the launches are at most the batches
+        check(1 <= header_launches.get("k3_rlc", 0) <= batches,
+              f"(f3) {n_sigs} signatures in {batches} batches launched {header_launches}")
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run_headers()
+            runs.append((time.perf_counter() - t) * 1e3)
+        prof = traced_calls("verify_headers_pipelined", [run_headers], "headers_pipelined",
+                            warm=run_headers)[0]
+        # the same range one header at a time, the commit checks alone
+        t = time.perf_counter()
+        for sh, vs in headers:
+            validation.verify_commit_light(HEADER_CHAIN, vs, sh.commit.block_id,
+                                           sh.header.height, sh.commit, device=dev)
+        seq_ms = (time.perf_counter() - t) * 1e3
+        ov = _overlap("headers_pipelined")
+        med = statistics.median(runs)
+        # the tampered copy, blamed as a sequential loop blames it
+        ht, hi = HEADER_TAMPER
+        trusted_b, bad_headers = _headers_from_wire(header_wire, (ht, hi))
+        seq = None
+        for sh, vs in bad_headers:
+            try:
+                validation.verify_commit_light(HEADER_CHAIN, vs, sh.commit.block_id,
+                                               sh.header.height, sh.commit, device=dev)
+            except ValueError as e:
+                seq = (sh.header.height, str(e))
+                break
+        check(seq is not None and seq[0] == ht, f"(f3) the sequential loop found {seq}")
+        m = re.match(r"wrong signature \(#(\d+)\): ", seq[1])
+        check(m is not None, f"(f3) the sequential error {seq[1]:.80}")
+        expect_error(lambda: pipeline.verify_headers_pipelined(
+            HEADER_CHAIN, trusted_b, bad_headers, device=dev), ValueError,
+            f"header {ht}: wrong signature (entry {m.group(1)})")
+        out["headers"] = {
+            "headers": n_headers, "validators": HEADER_VALS, "signatures": n_sigs,
+            "batches": batches, "launches": header_launches, "first_ms": first_ms,
+            "runs_ms": runs, "median_ms": med, "headers_per_s": n_headers / (med / 1e3),
+            "sequential_ms": seq_ms, "sequential_headers_per_s": n_headers / (seq_ms / 1e3),
+            "profiled_call_ms": prof["call_ms"], "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": 1 - prof["device_busy_ms"] / prof["call_ms"],
+            "device_events": prof["device_events"], "spans_ms": prof["spans_ms"],
+            "overlap": ov, "tampered": {"height": ht, "entry": int(m.group(1))},
+        }
+        log(f"slice (f3): verify_headers_pipelined over {n_headers} headers of {HEADER_VALS} "
+            f"validators: {n_sigs} signatures in {batches} batches, launches "
+            f"{header_launches}; first run {first_ms:.1f} ms, then median {med:.1f} ms "
+            f"({n_headers / (med / 1e3):.0f} headers/s; one verify_commit_light a header in "
+            f"turn {seq_ms:.1f} ms, {n_headers / (seq_ms / 1e3):.0f} headers/s); traced run "
+            f"{prof['call_ms']:.1f} ms, "
+            f"device busy {prof['device_busy_ms']:.3f} ms, idle "
+            f"{out['headers']['device_idle_share']:.1%}; copies and kernels {ov}; the "
+            f"signature tampered at {ht}/{hi} blamed as entry {m.group(1)}, as the sequential "
+            "loop blames it")
+
+    # (f4) the light service over slice (e)'s chain
+    with env("TM_TPU_RLC", None):
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        blocks = {h: convert.light_block_from_wire(*w) for h, w in light_wire.items()}
+
+        def tampered2(sigs):
+            sigs[LIGHT_INSIDE] = dataclasses.replace(
+                sigs[LIGHT_INSIDE], signature=tamper(sigs[LIGHT_INSIDE].signature))
+
+        forged = _rewired(blocks[2], tampered2)
+        pairs = [(1, blocks[2]), (1, blocks[10]), (1, blocks[17]), (1, forged)]
+        reqs = [light_batch.HeaderRequest(blocks[t].signed_header, blocks[t].validators,
+                                          u.signed_header, u.validators, LIGHT_PERIOD,
+                                          LIGHT_DRIFT, now=LIGHT_NOW) for t, u in pairs]
+        want = []
+        for i, r in enumerate(reqs):
+            try:
+                light_verifier.verify(r.trusted_header, r.trusted_vals, r.untrusted_header,
+                                      r.untrusted_vals, r.trusting_period, r.now,
+                                      r.max_clock_drift, r.trust_level, device=dev)
+                err = None
+            except Exception as e:  # the sequential outcome is the expectation
+                err = e
+            want.append({"index": i, "height": str(r.untrusted_header.header.height),
+                         "ok": err is None, "error": None if err is None else str(err),
+                         "error_type": None if err is None else type(err).__name__})
+        svc = light_service.LightVerifyService(device=dev)
+        try:
+            kernels.reset_launches()
+            t = time.perf_counter()
+            got = svc.submit_many(reqs).results(timeout=300)
+            svc_ms = (time.perf_counter() - t) * 1e3
+            svc_launches = _launched({})
+        finally:
+            svc.close()
+        check(got == want, f"(f4) the light service gave {got}, the sequential verifier {want}")
+        check([v["ok"] for v in got] == [True, True, False, False], f"(f4) verdicts {got}")
+        out["light_service"] = {"requests": len(reqs), "ms": svc_ms, "launches": svc_launches,
+                                "verdicts": [(v["ok"], v["error_type"]) for v in got]}
+        log(f"slice (f4): the light service's {len(reqs)} verdicts (1 -> 2, 1 -> 10, 1 -> 17, "
+            f"1 -> 2 tampered) equal the sequential verifier's: "
+            f"{[(v['ok'], v['error_type']) for v in got]}; {svc_ms:.1f} ms, launches "
+            f"{svc_launches}")
+
+    # (f5) owned verdicts: the first three batches' arrays survive eight more
+    v = pipeline.shared_verifier(dev)
+    with env("TM_TPU_RLC", None):
+        n = min(1024, len(ents))
+        rows = []
+
+        def batch(k):
+            sub = list(ents[:n])
+            at = (37 * k) % n
+            p, m_, sg = sub[at]
+            sub[at] = (p, m_, tamper(sg))
+            want_row = np.ones(n, bool)
+            want_row[at] = False
+            return want_row, v.submit(EntryBlock.from_entries(sub)).result(timeout=120)
+
+        held = [batch(k) for k in range(3)]
+        for k in range(3, 11):
+            rows.append(batch(k))
+        for want_row, got_row in held + rows:
+            check(got_row.tolist() == want_row.tolist(), "(f5) a verdict row is wrong")
+        check(all(got_row.flags.owndata for _, got_row in held), "(f5) a verdict is a view")
+        check(v._pool.hits >= 8, f"(f5) the buffers were not reused (hits {v._pool.hits})")
+        log(f"slice (f5): the first three batches' verdicts unchanged after eight more of the "
+            f"same layout (pool hits {v._pool.hits}, misses {v._pool.misses})")
+
+    # (f6) a batch whose host prep fails fails alone
+    with env("TM_TPU_RLC", None):
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        epoch_cache.note_valset(vals)
+        key = epoch_cache.note_valset(vals)
+        n = min(256, len(ents))
+        poisoned = EntryBlock.from_entries(ents[:n])
+        poisoned.val_idx = np.full(n, 10 ** 6, dtype=np.int32)
+        poisoned.epoch_key = key
+        fut = v.submit(poisoned)
+        try:
+            fut.result(timeout=120)
+            check(False, "(f6) the poisoned batch resolved")
+        except pipeline.DispatchError as e:
+            check("batch prep failed" in str(e) and isinstance(e.__cause__, ValueError),
+                  f"(f6) the poisoned batch failed with {e!r}")
+            poison_msg = str(e)
+        after = v.submit(EntryBlock.from_entries(ents[:n])).result(timeout=120)
+        check(after.all() and after.shape == (n,), "(f6) the next batch did not verify")
+        log(f"slice (f6): a batch whose prep raised failed alone ({poison_msg:.100}); the next "
+            "batch verified")
+    check(v._dispatch_thread.is_alive() and v._resolve_thread.is_alive(),
+          "the dispatcher's threads died")
     return out
 
 
@@ -1487,14 +1907,22 @@ def _union_ms(intervals: list) -> float:
     return busy / 1e3
 
 
-def traced_calls(name: str, fns: list, trace_name: str) -> list:
+def traced_calls(name: str, fns: list, trace_name: str, warm=None) -> list:
     """Each fn() once inside a record_function(name) span, all under one
     torch.profiler trace (kept as build/traces/<trace_name>.json). Per
     call: its wall ms, the ms of each of the port's spans inside it by
     name, its device events by category, and the union of the card's
-    kernel and copy intervals inside it."""
+    kernel and copy intervals inside it. warm(), outside the spans, runs
+    first: the dispatcher started anew makes its buffers on first use."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # the dispatcher's spans run on its threads: the profiler traces every
+    # thread started after it, so the device's dispatcher starts anew inside
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts, experimental_config=cfg) as prof:
+        pipeline.reset_shared()
+        if warm is not None:
+            warm()
+        torch.cuda.synchronize()
         for fn in fns:
             with torch.profiler.record_function(name):
                 fn()
@@ -1534,11 +1962,10 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
     port's record_function spans), the rest of the call outside them, and
     the union of the card's kernel and copy intervals inside the call."""
     stages_of = PATHS[path]
-    calls = traced_calls(
-        "verify_commit",
-        [lambda: validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)]
-        * PROFILED,
-        f"verify_commit_{path}")
+    def call():
+        validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, commit, device=dev)
+
+    calls = traced_calls("verify_commit", [call] * PROFILED, f"verify_commit_{path}", warm=call)
     out = []
     for c in calls:
         names = set(c["spans_ms"])
@@ -1580,6 +2007,25 @@ def time_path(path: str, vals, commit, built, dev) -> dict:
             call(commit)
             e2e.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev)
+        batch_runs = {}
+        if PATH_SETUP[path][2] == "ed25519":
+            # the batch stage alone, on the commit's selected signatures:
+            # through the dispatcher, and the same prepare, launch and
+            # conclude on the caller's thread (the synchronous composition)
+            block, _ = validation.prepare_commit_batch(
+                CHAIN_ID, vals, commit, vals.total_voting_power() * 2 // 3,
+                validation._ignore_absent, validation._count_for_block, True, True)
+            sync_fn = verify.verify_batch_compact if rlc_flag == "0" else rlc.verify_batch_rlc
+            v = pipeline.shared_verifier(dev)
+            for name, fn in (("dispatched", lambda: v.submit(block).result(timeout=600)),
+                             ("synchronous", lambda: sync_fn(block, device=dev))):
+                check(bool(np.asarray(fn()).all()), f"the {path} batch stage ({name}) "
+                      "rejected a valid signature")
+                runs = batch_runs[name] = []
+                for _ in range(REPEATS):
+                    t = time.perf_counter()
+                    fn()
+                    runs.append(time.perf_counter() - t)
         t = time.perf_counter()
         call(built)
         built_ms = (time.perf_counter() - t) * 1e3
@@ -1595,6 +2041,11 @@ def time_path(path: str, vals, commit, built, dev) -> dict:
     log(f"timing [{path}]: verify_commit {N_VALIDATORS} validators median {e2e_ms:.2f} ms over "
         f"{REPEATS} runs (min {min(e2e) * 1e3:.2f}, max {max(e2e) * 1e3:.2f}; "
         f"{N_VALIDATORS / (e2e_ms / 1e3):.0f} sigs/s); peak memory {peak} bytes")
+    batch_ms = {k: statistics.median(r) * 1e3 for k, r in batch_runs.items()}
+    if batch_runs:
+        log(f"timing [{path}]: the batch stage alone, median over {REPEATS} runs: "
+            + ", ".join(f"{k} {batch_ms[k]:.2f} ms (min {min(r) * 1e3:.2f}, max "
+                        f"{max(r) * 1e3:.2f})" for k, r in batch_runs.items()))
     log(f"timing [{path}]: host library calls a call {calls}; one call on the commit built "
         f"from objects {built_ms:.2f} ms")
     log(f"timing [{path}]: {PROFILED} profiled calls, median {prof_ms:.2f} ms; stages (median ms) "
@@ -1608,6 +2059,8 @@ def time_path(path: str, vals, commit, built, dev) -> dict:
     return {
         "verify_commit_ms": e2e_ms,
         "verify_commit_runs_ms": [x * 1e3 for x in e2e],
+        "batch_stage_ms": batch_ms,
+        "batch_stage_runs_ms": {k: [x * 1e3 for x in r] for k, r in batch_runs.items()},
         "object_built_call_ms": built_ms,
         "host_calls": calls,
         "sigs_per_s": N_VALIDATORS / (e2e_ms / 1e3),
@@ -1768,6 +2221,12 @@ def main() -> int:
         log(f"data: the light chain (heights {list(LIGHT_HEIGHTS)}, {n_light} signatures by "
             f"{light_ranges()[-1][1]} keys) built and signed in {light_sign_s:.1f} s by "
             f"{workers} processes")
+        t = time.perf_counter()
+        header_wire = build_header_chain(pool)
+        header_sign_s = time.perf_counter() - t
+        log(f"data: config #5's chain ({HEADERS + 1} headers of {HEADER_VALS} validators, "
+            f"{(HEADERS + 1) * HEADER_VALS} signatures) built and signed in "
+            f"{header_sign_s:.1f} s by {workers} processes")
     table_pub = np.concatenate([
         np.frombuffer(b"".join(p for p, _, _ in edge), np.uint8).reshape(-1, 32),
         vals.ed25519_columns()[0],
@@ -1790,6 +2249,10 @@ def main() -> int:
     log(f"light phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    disp = dispatcher_phase(vals, wire["ed25519"], ents, light_wire, header_wire, dev)
+    log(f"dispatcher phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     paths = {}
     for p in PATHS:
         key_type = PATH_SETUP[p][2]
@@ -1802,7 +2265,8 @@ def main() -> int:
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
         for p, s in paths.items()))
     for r in records:
-        r["launches"] = launches[r["name"]]
+        # slices (a)-(d), and config #5's first run in slice (f)
+        r["launches"] = launches[r["name"]] + disp["headers"]["launches"].get(r["name"], 0)
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
         r.update(resources.get(r["name"], {}))
@@ -1810,6 +2274,8 @@ def main() -> int:
     light.update(card=card, n_validators=N_VALIDATORS, signatures=n_light,
                  signing_s=light_sign_s)
     print(json.dumps({"light": light}), flush=True)
+    disp.update(card=card, header_signing_s=header_sign_s)
+    print(json.dumps({"dispatcher": disp}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

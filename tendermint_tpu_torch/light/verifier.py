@@ -8,9 +8,10 @@ run in the prepare_* functions, which return the signature work as
 SigChecks; verify_* run them at once. The commit checks go through
 types/validation (verify_commit_light, and verify_commit_light_trusting
 against the trusted set), so through the port's kernels on `device`.
-Errors are the reference's, byte for byte. The reference's
-SigCheck.prepare, which ships a check through the asynchronous device
-pipeline, waits for the port's dispatcher.
+Errors are the reference's, byte for byte. SigCheck.prepare hands a
+check's signatures out as a batch and a conclude instead, for the
+batched light service (light/service.py), which ships them through the
+device's dispatcher (ops/pipeline.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, List
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..types import validation as _validation
 from ..types.block import SignedHeader
 from ..types.validation import (  # noqa: F401 — DEFAULT_TRUST_LEVEL: light.DefaultTrustLevel
     DEFAULT_TRUST_LEVEL,
@@ -99,26 +101,56 @@ def verify_new_header_and_vals(
 
 
 class SigCheck:
-    """One commit-signature check of a header verification: run_sync()
-    calls the types/validation entry point and raises what it raises,
-    wrapped as the reference wraps it."""
+    """One commit-signature check of a header verification (reference
+    light/verifier.py:94-154). run_sync() calls the types/validation
+    entry point and raises what it raises, wrapped as the reference
+    wraps it. prepare() returns (entries, conclude): the check's
+    EntryBlock (epoch metadata attached) to verify through the
+    dispatcher, and conclude(valid), which raises the same wrapped error
+    over the verdict row; or (None, None) when the check is done already:
+    below the batch threshold (the single-signature path on the host),
+    or after run_sync() for a set the seam cannot represent."""
 
-    __slots__ = ("kind", "_run", "_wrap")
+    __slots__ = ("kind", "_run", "_prep", "_wrap")
 
     def __init__(self, kind: str, run: Callable[[], None],
+                 prep: Callable[[], tuple],
                  wrap: Callable[[BaseException], BaseException]):
         self.kind = kind
         self._run = run
+        self._prep = prep
         self._wrap = wrap
+
+    def _raise(self, e: BaseException):
+        w = self._wrap(e)
+        if w is e:
+            raise e
+        raise w from e
 
     def run_sync(self) -> None:
         try:
             self._run()
         except Exception as e:  # noqa: BLE001 — the wrapper decides
-            w = self._wrap(e)
-            if w is e:
-                raise
-            raise w from e
+            self._raise(e)
+
+    def prepare(self):
+        try:
+            entries, conclude = self._prep()
+        except _validation.PrepareUnsupported:
+            self.run_sync()
+            return None, None
+        except Exception as e:  # noqa: BLE001 — the wrapper decides
+            self._raise(e)
+        if conclude is None:
+            return None, None
+
+        def _conclude(valid) -> None:
+            try:
+                conclude(valid)
+            except Exception as e:  # noqa: BLE001 — the wrapper decides
+                self._raise(e)
+
+        return entries, _conclude
 
 
 def _wrap_trusting(e: BaseException) -> BaseException:
@@ -148,6 +180,8 @@ def _light_check(chain_id: str, vals: ValidatorSet, block_id, height: int,
         "light",
         run=lambda: verify_commit_light(chain_id, vals, block_id, height, commit,
                                         device=device),
+        prep=lambda: _validation.prepare_commit_light(chain_id, vals, block_id, height,
+                                                      commit),
         wrap=_wrap_light,
     )
 
@@ -158,6 +192,8 @@ def _trusting_check(chain_id: str, vals: ValidatorSet, commit,
         "trusting",
         run=lambda: verify_commit_light_trusting(chain_id, vals, commit, trust_level,
                                                  device=device),
+        prep=lambda: _validation.prepare_commit_light_trusting(chain_id, vals, commit,
+                                                               trust_level),
         wrap=_wrap_trusting,
     )
 

@@ -1,18 +1,28 @@
 """Host side of the device verifier: row packing, challenges, s < L, the
-path switch, and the BatchVerifiers the commit path uses.
+path switch, the batch sizes of the dispatcher, and the BatchVerifiers
+the commit path uses.
 
 Counterpart: tendermint_tpu/ops/backend.py (_pack_rows, _challenges,
-_s_below_l, _use_rlc, Ed25519DeviceBatchVerifier). DeviceBatchVerifier
-holds what the ed25519 verifier here and the sr25519 one
-(ops/mixed.py) share: the reference's add() checks and the
-accumulate-then-verify of one EntryBlock. The ed25519 batch path is
-synchronous, one batch at a time with no async pipeline: the RLC path of
-ops/rlc.py (verify_batch_rlc, which takes a warm validator set's epoch
-table) or, with TM_TPU_RLC=0, the per-signature path of ops/verify.py
-(verify_batch_compact). The challenges come from the host library
-(ops/host.py, csrc/host_prep.cpp) in one call over the block's message
-buffer; _challenges, hashlib and Python big-int reductions, is the
-tests' oracle for it.
+_s_below_l, _use_rlc, BUCKETS :71, quantized_bucket :809, max_coalesce
+:818, Ed25519DeviceBatchVerifier :1030-1059). DeviceBatchVerifier holds
+what the ed25519 verifier here and the sr25519 one (ops/mixed.py)
+share: the reference's add() checks and the accumulate-then-verify of
+one EntryBlock. The ed25519 verifier verifies below DEVICE_THRESHOLD
+signatures on the host and sends every larger block through the shared
+asynchronous dispatcher of its device (ops/pipeline.shared_verifier),
+whose host prep (prepare_ed25519) picks the RLC path of ops/rlc.py or,
+with TM_TPU_RLC=0, the per-signature path of ops/verify.py. The
+reference verifies a block above BUCKETS[-1] synchronously in chunks;
+here the dispatcher splits it into the same chunks (max_coalesce()
+signatures), so every device launch of the path comes from the
+dispatch thread. The challenges
+come from the host library (ops/host.py, csrc/host_prep.cpp) in one
+call over the block's message buffer; _challenges, hashlib and Python
+big-int reductions, is the tests' oracle for it.
+
+The reference's backend._bucket_for (:90), the XLA path's bucket, has
+no counterpart: the port's per-signature path pads with
+verify.bucket_for (the reference's _pallas_bucket).
 """
 
 from __future__ import annotations
@@ -34,12 +44,38 @@ from .entry_block import EntryBlock
 # at a time (backend.DEVICE_THRESHOLD's default).
 DEVICE_THRESHOLD = 64
 
+# The per-signature path's buckets; the last is the largest batch the
+# verifier sends through the dispatcher (backend.BUCKETS).
+BUCKETS = per_sig.BUCKETS
+
 
 def use_rlc() -> bool:
     """The batch path, read from TM_TPU_RLC at each call (backend._use_rlc):
     unset or any value but "0" takes the RLC path, "0" the per-signature
     one."""
     return os.environ.get("TM_TPU_RLC", "1") != "0"
+
+
+def quantized_bucket(n: int) -> int:
+    """The signatures a device batch of n pads to on the path TM_TPU_RLC
+    picks now (backend.quantized_bucket)."""
+    return rlc.plan_bucket(n)[0] if use_rlc() else per_sig.bucket_for(n)
+
+
+def max_coalesce() -> int:
+    """The largest device batch the dispatcher fuses jobs into
+    (backend.max_coalesce): rlc.MAX_SIGS on the RLC path, BUCKETS[-1] on
+    the per-signature one."""
+    return rlc.MAX_SIGS if use_rlc() else BUCKETS[-1]
+
+
+def prepare_ed25519(entries):
+    """The dispatcher's host stage for an ed25519 block (the reference's
+    AsyncBatchVerifier._prepare, pipeline.py:496-629, Pallas branches):
+    TM_TPU_RLC read now picks rlc.prepare_batch or
+    verify.prepare_batch. The prepared batch carries its own launch and
+    conclude stages."""
+    return rlc.prepare_batch(entries) if use_rlc() else per_sig.prepare_batch(entries)
 
 
 _L_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8)
@@ -158,8 +194,10 @@ class DeviceBatchVerifier(BatchVerifier):
 
 
 class Ed25519DeviceBatchVerifier(DeviceBatchVerifier):
-    """ed25519 on `device`: below DEVICE_THRESHOLD signatures on the host,
-    else the RLC path or, with TM_TPU_RLC=0, the per-signature path."""
+    """ed25519 on `device` (backend.py:1030-1059): below DEVICE_THRESHOLD
+    signatures on the host; from there up through the device's shared
+    dispatcher, which splits a block above its batch cap, waiting at
+    most 600 s."""
 
     KEY_CLASS = _ed25519.PubKey
     KEY_NAME = "ed25519"
@@ -169,6 +207,6 @@ class Ed25519DeviceBatchVerifier(DeviceBatchVerifier):
         if len(block) < DEVICE_THRESHOLD:
             return np.array([_ed25519.verify_zip215(*e) for e in block.iter_entries()],
                             dtype=bool)
-        if use_rlc():
-            return rlc.verify_batch_rlc(block, device=self.device)
-        return per_sig.verify_batch_compact(block, device=self.device)
+        from .pipeline import shared_verifier
+
+        return shared_verifier(self.device).submit(block).result(timeout=600)

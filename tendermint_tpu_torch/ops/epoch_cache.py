@@ -121,7 +121,11 @@ class EpochEntry:
 
     def coords_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """((4*32, vp) int32 coordinates, (1, vp) int32 ok flags) on
-        `device`, built on first use there."""
+        `device`, built on first use there on the current stream. A
+        caller on another CUDA stream than the build's waits for the
+        build's event, and the tables are recorded as used on its stream,
+        so the caching allocator keeps their memory until its kernels
+        are done."""
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -129,8 +133,21 @@ class EpochEntry:
             t = self._tables.get(dev)
             if t is None:
                 pub_t = torch.from_numpy(np.ascontiguousarray(self.pub_rows.T)).to(dev)
-                t = self._tables[dev] = epoch_coords(pub_t)
-            return t
+                tables = epoch_coords(pub_t)
+                stream = built = None
+                if dev.type == "cuda":
+                    stream = torch.cuda.current_stream(dev)
+                    built = torch.cuda.Event()
+                    built.record(stream)
+                t = self._tables[dev] = (tables, stream, built)
+        tables, stream, built = t
+        if built is not None:
+            cur = torch.cuda.current_stream(dev)
+            if cur != stream:
+                cur.wait_event(built)
+                for x in tables:
+                    x.record_stream(cur)
+        return tables
 
 
 class EpochCache:

@@ -27,9 +27,14 @@ Global arrays keep the JAX layout: (rows, g) with the lane last, uint8
 bytes in, int32 limbs, flags and digits out; coordinates sit in 32-row
 slots (limbs 0..19, rows 20..31 zero). A wrapper runs the plain version
 for CPU tensors and launches its kernel for CUDA tensors; it counts its
-launches in kernels.LAUNCHES. verify_batch_rlc marks its stages (prep,
-gather on a warm epoch, h2d, kernels, d2h, expand) as torch.profiler
-record_function spans.
+launches in kernels.LAUNCHES. A batch runs in three stages, plain
+functions the synchronous verify_batch_rlc and the asynchronous
+dispatcher (ops/pipeline.py) share: prepare_batch (host only),
+launch_batch (device tensors in, the device lane verdicts out, on the
+current stream) and conclude_batch (the host lane verdicts to
+per-signature verdicts). Their work is marked by torch.profiler
+record_function spans: rlc.prep, rlc.gather on a warm epoch,
+rlc.kernels, rlc.expand; the synchronous path adds rlc.h2d and rlc.d2h.
 """
 
 from __future__ import annotations
@@ -452,41 +457,79 @@ def expand_lanes(lane_valid: np.ndarray, entries) -> np.ndarray:
     return per_sig
 
 
+class RlcBatch:
+    """One prepared RLC batch of at most MAX_SIGS signatures: the host
+    arrays to copy to the device (`args`, in launch order), its bucket,
+    and the epoch entry of a warm set (None when cold)."""
+
+    __slots__ = ("entries", "bucket", "ep", "args")
+
+    def __init__(self, entries, bucket: int, ep, args: tuple):
+        self.entries = entries
+        self.bucket = bucket
+        self.ep = ep
+        self.args = args
+
+    def launch(self, dev_args) -> torch.Tensor:
+        return launch_batch(self, dev_args)
+
+    def conclude(self, row: np.ndarray) -> np.ndarray:
+        return conclude_batch(self, row)
+
+
+def prepare_batch(entries) -> RlcBatch:
+    """The host stage (numpy and the host library only; touches no
+    CUDA): a block of a warm epoch (ops/epoch_cache.lookup finds its
+    table) gets prepare_rlc_cached's arrays, any other block, or an
+    evicted epoch, prepare_rlc's."""
+    if len(entries) > MAX_SIGS:
+        raise ValueError(f"an RLC batch holds at most {MAX_SIGS} signatures")
+    ep = epoch_cache.lookup(entries)
+    bucket, _ = plan_bucket(len(entries))
+    with record_function("rlc.prep"):
+        if ep is None:
+            args = prepare_rlc(entries, bucket)
+        else:
+            idx, r_rows, scal_rows, sok_rows = prepare_rlc_cached(entries, bucket, ep)
+            args = (idx, r_rows, scal_rows, np.ascontiguousarray(sok_rows.T))
+    return RlcBatch(entries, bucket, ep, args)
+
+
+def launch_batch(batch: RlcBatch, dev_args) -> torch.Tensor:
+    """The device stage: batch.args as tensors on one device -> the (1, g)
+    int32 lane verdicts there, launched on the current stream. A warm
+    batch builds its epoch's table on first use on that device."""
+    if batch.ep is not None:
+        with record_function("rlc.gather"):  # builds the table once
+            tables = batch.ep.coords_tables(dev_args[0].device)
+    with record_function("rlc.kernels"):
+        if batch.ep is None:
+            coords, ok, dig = k1_rlc(*dev_args[:3])
+        else:
+            coords, ok, dig = k1_rlc_cached(*tables, *dev_args[:3])
+        tbl = k2_rlc(coords)
+        return k3_rlc(tbl, dig, coords, ok, dev_args[3])
+
+
+def conclude_batch(batch: RlcBatch, row: np.ndarray) -> np.ndarray:
+    """The verdict stage: the (1, g) lane verdicts read back to the host
+    -> (n,) bool per-signature verdicts (expand_lanes)."""
+    with record_function("rlc.expand"):
+        return expand_lanes(np.asarray(row)[0].astype(bool), batch.entries)
+
+
 def verify_batch_rlc(entries, *, device) -> np.ndarray:
     """EntryBlock of any size -> (n,) bool per-signature ZIP-215 verdicts,
-    in chunks of at most MAX_SIGS signatures, the kernels on `device`. A
-    block of a warm epoch (ops/epoch_cache.lookup finds its table) takes
-    k1_rlc_cached; any other block, or an evicted epoch, takes k1_rlc."""
-    ep = epoch_cache.lookup(entries)
+    synchronously, in chunks of at most MAX_SIGS signatures, the kernels
+    on `device`: prepare_batch, the copy, launch_batch, the readback,
+    conclude_batch (the stages ops/pipeline.py runs on its threads)."""
     out = []
     for i in range(0, len(entries), MAX_SIGS):
-        chunk = entries[i : i + MAX_SIGS]
-        bucket, _ = plan_bucket(len(chunk))
-        if ep is None:
-            with record_function("rlc.prep"):
-                args = prepare_rlc(chunk, bucket)
-            with record_function("rlc.h2d"):
-                a_t, r_t, scal_t, sok_t = (torch.from_numpy(a).to(device) for a in args)
-            with record_function("rlc.kernels"):
-                coords, ok, dig = k1_rlc(a_t, r_t, scal_t)
-                tbl = k2_rlc(coords)
-                lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
-        else:
-            with record_function("rlc.prep"):
-                idx, r_rows, scal_rows, sok_rows = prepare_rlc_cached(chunk, bucket, ep)
-                sok_t = np.ascontiguousarray(sok_rows.T)
-            with record_function("rlc.gather"):  # builds the table once
-                ctbl, oktbl = ep.coords_tables(device)
-            with record_function("rlc.h2d"):
-                idx, r_rows, scal_rows, sok_t = (
-                    torch.from_numpy(a).to(device) for a in (idx, r_rows, scal_rows, sok_t)
-                )
-            with record_function("rlc.kernels"):
-                coords, ok, dig = k1_rlc_cached(ctbl, oktbl, idx, r_rows, scal_rows)
-                tbl = k2_rlc(coords)
-                lanes = k3_rlc(tbl, dig, coords, ok, sok_t)
+        batch = prepare_batch(entries[i : i + MAX_SIGS])
+        with record_function("rlc.h2d"):
+            dev_args = [torch.from_numpy(a).to(device) for a in batch.args]
+        lanes = launch_batch(batch, dev_args)
         with record_function("rlc.d2h"):  # waits for the kernels
-            lane_valid = lanes.cpu().numpy()[0].astype(bool)
-        with record_function("rlc.expand"):
-            out.append(expand_lanes(lane_valid, chunk))
+            row = lanes.cpu().numpy()
+        out.append(conclude_batch(batch, row))
     return np.concatenate(out) if out else np.zeros((0,), dtype=bool)

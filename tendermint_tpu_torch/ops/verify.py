@@ -29,9 +29,14 @@ the JAX layout: (rows, n) with the signature last; the warm K1 reads its
 per-signature rows row-major, (n, 32), as the host packs them, so the
 JAX pipeline's device gather and transposes do not exist. A wrapper runs
 the plain version for CPU tensors and launches its kernel for CUDA
-tensors, counting launches in kernels.LAUNCHES. verify_batch_compact
-marks its stages (prep, gather on a warm epoch, h2d, kernels, d2h) as
-torch.profiler record_function spans.
+tensors, counting launches in kernels.LAUNCHES. A batch runs in three
+stages, plain functions the synchronous verify_batch_compact and the
+asynchronous dispatcher (ops/pipeline.py) share: prepare_batch (host
+only), launch_batch (device tensors in, the device verdicts out, on the
+current stream) and conclude_batch. Their work is marked by
+torch.profiler record_function spans: verify.prep, verify.gather on a
+warm epoch, verify.kernels; the synchronous path adds verify.h2d and
+verify.d2h.
 """
 
 from __future__ import annotations
@@ -326,33 +331,75 @@ def verify_compact_cached(ctbl, oktbl, idx, r_rows, s_rows, k_rows, s_ok_t) -> t
     return k3_ladder(tbl, sdig, kdig, coords, ok, s_ok_t)
 
 
-def verify_batch_compact(entries, *, device) -> np.ndarray:
-    """EntryBlock of any size -> (n,) bool ZIP-215 verdicts, in chunks of
-    at most BUCKETS[-1] signatures, K1-K3 on `device`. A block of a warm
-    epoch (ops/epoch_cache.lookup finds its table) takes
-    k1_decompress_cached; any other block, or an evicted epoch, takes
-    k1_decompress."""
+class SigBatch:
+    """One prepared per-signature batch of at most BUCKETS[-1]
+    signatures: the host arrays to copy to the device (`args`, in launch
+    order), its bucket, and the epoch entry of a warm set (None when
+    cold)."""
+
+    __slots__ = ("entries", "bucket", "ep", "args")
+
+    def __init__(self, entries, bucket: int, ep, args: tuple):
+        self.entries = entries
+        self.bucket = bucket
+        self.ep = ep
+        self.args = args
+
+    def launch(self, dev_args) -> torch.Tensor:
+        return launch_batch(self, dev_args)
+
+    def conclude(self, row: np.ndarray) -> np.ndarray:
+        return conclude_batch(self, row)
+
+
+def prepare_batch(entries) -> SigBatch:
+    """The host stage (numpy and the host library only; touches no
+    CUDA): a block of a warm epoch (ops/epoch_cache.lookup finds its
+    table) gets prepare_compact_cached's arrays, any other block, or an
+    evicted epoch, prepare_compact's."""
+    if len(entries) > BUCKETS[-1]:
+        raise ValueError(f"a per-signature batch holds at most {BUCKETS[-1]} signatures")
     ep = epoch_cache.lookup(entries)
+    bucket = bucket_for(len(entries))
+    with record_function("verify.prep"):
+        if ep is None:
+            args = prepare_compact(entries, bucket)
+        else:
+            args = prepare_compact_cached(entries, bucket, ep)
+    return SigBatch(entries, bucket, ep, args)
+
+
+def launch_batch(batch: SigBatch, dev_args) -> torch.Tensor:
+    """The device stage: batch.args as tensors on one device -> the
+    (1, bucket) int32 verdicts there, launched on the current stream. A
+    warm batch builds its epoch's table on first use on that device."""
+    if batch.ep is None:
+        with record_function("verify.kernels"):
+            return verify_compact(*dev_args)
+    with record_function("verify.gather"):  # builds the table once
+        tables = batch.ep.coords_tables(dev_args[0].device)
+    with record_function("verify.kernels"):
+        return verify_compact_cached(*tables, *dev_args)
+
+
+def conclude_batch(batch: SigBatch, row: np.ndarray) -> np.ndarray:
+    """The verdict stage: the (1, bucket) verdicts read back to the host
+    -> (n,) bool, padding cut."""
+    return np.asarray(row)[0, : len(batch.entries)].astype(bool)
+
+
+def verify_batch_compact(entries, *, device) -> np.ndarray:
+    """EntryBlock of any size -> (n,) bool ZIP-215 verdicts,
+    synchronously, in chunks of at most BUCKETS[-1] signatures, K1-K3 on
+    `device`: prepare_batch, the copy, launch_batch, the readback,
+    conclude_batch (the stages ops/pipeline.py runs on its threads)."""
     out = []
     for i in range(0, len(entries), BUCKETS[-1]):
-        chunk = entries[i : i + BUCKETS[-1]]
-        bucket = bucket_for(len(chunk))
-        if ep is None:
-            with record_function("verify.prep"):
-                args = prepare_compact(chunk, bucket)
-            with record_function("verify.h2d"):
-                tensors = [torch.from_numpy(a).to(device) for a in args]
-            with record_function("verify.kernels"):
-                res = verify_compact(*tensors)
-        else:
-            with record_function("verify.prep"):
-                args = prepare_compact_cached(chunk, bucket, ep)
-            with record_function("verify.gather"):  # builds the table once
-                tables = ep.coords_tables(device)
-            with record_function("verify.h2d"):
-                tensors = [torch.from_numpy(a).to(device) for a in args]
-            with record_function("verify.kernels"):
-                res = verify_compact_cached(*tables, *tensors)
+        batch = prepare_batch(entries[i : i + BUCKETS[-1]])
+        with record_function("verify.h2d"):
+            dev_args = [torch.from_numpy(a).to(device) for a in batch.args]
+        res = launch_batch(batch, dev_args)
         with record_function("verify.d2h"):  # waits for the kernels
-            out.append(res.cpu().numpy()[0, : len(chunk)].astype(bool))
+            row = res.cpu().numpy()
+        out.append(conclude_batch(batch, row))
     return np.concatenate(out) if out else np.zeros((0,), dtype=bool)

@@ -565,6 +565,12 @@ class Commit:
             block_id=bid.canonical(),
         )
 
+    def hash(self) -> bytes:
+        """Merkle root of the CommitSigs' encodings (types/block.go
+        Commit.Hash). Not kept: a plain list of signatures can change
+        under the commit."""
+        return merkle.hash_from_byte_slices([cs.encode() for cs in self.signatures])
+
     def vote_sign_bytes(self, chain_id: str, idx: int) -> bytes:
         """Canonical sign bytes of the vote at idx (types/block.go:816-819)."""
         cs = self.signatures[idx]

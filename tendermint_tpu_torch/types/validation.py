@@ -25,6 +25,16 @@ record_function spans ("commit.prep" on the fused path, "commit.select"
 and "commit.sign_bytes" on the object path; "rlc.*", "verify.*" and
 "sr.*" in ops/), so one profiler trace of a call shows its host stages
 beside its device time.
+
+The batch path runs prepare (_prepare_block: selection, tally, the
+batch), verify, conclude (the blame), so selection, tally and blame live
+in one place for both callers of that split: _verify_commit_batch, and
+the asynchronous seam (prepare_commit_batch, prepare_commit_light,
+prepare_commit_range, prepare_commit_light_trusting; reference
+validation.py:183-370), which returns the batch and its conclude
+instead of verifying, for a caller that ships the batch through the
+dispatcher (ops/pipeline.py) itself: the light verifier's
+SigCheck.prepare and the batched light service.
 """
 
 from __future__ import annotations
@@ -240,42 +250,31 @@ def _fused_commit_prep(chain_id, vals, commit, voting_power_needed, ignore_sig,
     return commit_prep.prep_commit_from(commit, vals, chain_id, voting_power_needed, mode)
 
 
-def _verify_commit_batch(
-    chain_id: str,
-    vals: ValidatorSet,
-    commit: Commit,
-    voting_power_needed: int,
-    ignore_sig: Callable[[CommitSig], bool],
-    count_sig: Callable[[CommitSig], bool],
-    count_all_signatures: bool,
-    look_up_by_index: bool,
-    device,
-) -> None:
-    """validation.go:152-263. The fused prep selects by index, so a
-    lookup by address takes the object path."""
+def _batch_gate(vals: ValidatorSet, commit: Commit):
+    """The batch path's precondition (validation.go:152-160): a proposer
+    whose key type batches, and at least BATCH_VERIFY_THRESHOLD
+    signatures. Returns the proposer."""
     proposer = vals.get_proposer()
-    bv = _batch.create_batch_verifier(
-        proposer.pub_key if proposer else None, device=device
-    )
-    if bv is None or len(commit.signatures) < BATCH_VERIFY_THRESHOLD:
+    if (
+        proposer is None
+        or len(commit.signatures) < BATCH_VERIFY_THRESHOLD
+        or not _batch.supports_batch_verifier(proposer.pub_key)
+    ):
         raise RuntimeError(
             "unsupported signature algorithm or insufficient signatures for batch verification"
         )
-    fused = None
-    # sr25519 and mixed sets, and lookups by address: the object path
-    if look_up_by_index and vals.ed25519_columns() is not None:
-        with record_function("commit.prep"):
-            fused = _fused_commit_prep(chain_id, vals, commit, voting_power_needed,
-                                       ignore_sig, count_sig, count_all_signatures)
-    if fused is not None:
-        sel_idx, tallied, block = fused
-        if block is None:
-            raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
-        # the key type is the columns' (all ed25519, or no fused path);
-        # signature lengths are the (n, 64) column's
-        bv.add_block(block)
-        _verdict(bv, commit, sel_idx)
-        return
+    return proposer
+
+
+def select_block(chain_id: str, vals: ValidatorSet, commit: Commit, voting_power_needed: int,
+                 ignore_sig, count_sig, count_all_signatures: bool, look_up_by_index: bool):
+    """The object path's host half: selection and tally over CommitSig
+    objects, then the sign bytes and the batch. Returns (EntryBlock,
+    keys, sig_idxs, tallied): an all-ed25519 set's block carries the
+    selected validators' rows of vals (by address, not the signatures'
+    indices) and the set's epoch key, and keys is None; any other set's
+    block carries the keys' bytes and keys the PubKey objects, for the
+    batch verifier's type check."""
     with record_function("commit.select"):
         selected, tallied = _select_commit_sigs(
             vals, commit, voting_power_needed,
@@ -295,10 +294,8 @@ def _verify_commit_batch(
         # epoch cache
         cols = vals.ed25519_columns()
         if cols is not None:
-            # every key is ed25519 (JAX validation.py:357-383): gather the
-            # selected validators' rows of vals (by address, not the
-            # signatures' indices) and note vals in the epoch cache; the
-            # key type check is the column's
+            # every key is ed25519 (JAX validation.py:357-383): the key
+            # type check is the column's
             rows = np.asarray([row for _, row, _ in selected], dtype=np.int32)
             keys = None
             block = EntryBlock(cols[0][rows], sig, buf, offsets, val_idx=rows,
@@ -309,26 +306,169 @@ def _verify_commit_batch(
             if len(pub_b) != 32 * n:
                 # a wrong-size key must fail as per-entry add() does, not
                 # as a reshape error
-                raise TypeError(f"pubkey is not {proposer.pub_key.type()}")
+                raise TypeError(f"pubkey is not {vals.get_proposer().pub_key.type()}")
             block = EntryBlock(np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
                                sig, buf, offsets)
+    return block, keys, sig_idxs, tallied
+
+
+def _blame_conclude(sig_idxs, commit: Commit):
+    """The verdict half of the batch path over a validity row
+    (validation.go:242-248): all valid returns; otherwise the first
+    invalid row maps back through the selection to the commit's index of
+    its signature."""
+
+    def conclude(valid) -> None:
+        valid_arr = np.asarray(valid, dtype=bool)
+        if valid_arr.size and valid_arr.all():
+            return
+        if valid_arr.size:
+            idx = int(sig_idxs[int(np.argmin(valid_arr))])
+            raise ValueError(
+                f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+            )
+        raise RuntimeError("BUG: batch verification failed with no invalid signatures")
+
+    return conclude
+
+
+def _prepare_block(chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
+                   count_all_signatures, look_up_by_index):
+    """(EntryBlock, keys, conclude) of the batch path: the fused prep
+    for an all-ed25519 set looked up by index and a columnar commit,
+    else the object path (select_block)."""
+    if look_up_by_index and vals.ed25519_columns() is not None:
+        with record_function("commit.prep"):
+            fused = _fused_commit_prep(chain_id, vals, commit, voting_power_needed,
+                                       ignore_sig, count_sig, count_all_signatures)
+        if fused is not None:
+            sel_idx, tallied, block = fused
+            if block is None:
+                raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
+            # the key type is the columns' (all ed25519, or no fused path);
+            # signature lengths are the (n, 64) column's
+            return block, None, _blame_conclude(sel_idx, commit)
+    block, keys, sig_idxs, _ = select_block(
+        chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
+        count_all_signatures, look_up_by_index)
+    return block, keys, _blame_conclude(sig_idxs, commit)
+
+
+def _verify_commit_batch(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    ignore_sig: Callable[[CommitSig], bool],
+    count_sig: Callable[[CommitSig], bool],
+    count_all_signatures: bool,
+    look_up_by_index: bool,
+    device,
+) -> None:
+    """validation.go:152-263: prepare (_prepare_block), verify on the
+    proposer's key type's batch verifier, conclude (the blame)."""
+    proposer = _batch_gate(vals, commit)
+    bv = _batch.create_batch_verifier(proposer.pub_key, device=device)
+    block, keys, conclude = _prepare_block(
+        chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
+        count_all_signatures, look_up_by_index)
     bv.add_block(block, keys=keys)
-    _verdict(bv, commit, sig_idxs)
+    conclude(bv.verify()[1])
 
 
-def _verdict(bv, commit: Commit, sig_idxs) -> None:
-    """Verify what bv holds; blame the first bad signature by its index
-    in the commit (sig_idxs maps the batch's rows to it)."""
-    ok, valid_sigs = bv.verify()
-    if ok:
-        return
-    valid_arr = np.asarray(valid_sigs, dtype=bool)
-    if not valid_arr.all() and valid_arr.size:
-        idx = int(sig_idxs[int(np.argmin(valid_arr))])
-        raise ValueError(
-            f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+# -- the asynchronous seam -------------------------------------------------------
+
+
+class PrepareUnsupported(Exception):
+    """prepare_commit_batch cannot represent this commit's set as one
+    ed25519 EntryBlock (an sr25519 or mixed set): the caller takes the
+    synchronous path, which handles every case."""
+
+
+def prepare_commit_batch(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    ignore_sig: Callable[[CommitSig], bool],
+    count_sig: Callable[[CommitSig], bool],
+    count_all_signatures: bool,
+    look_up_by_index: bool,
+):
+    """The host half of _verify_commit_batch (reference :297): selection,
+    double votes, lengths and the tally, by the fused prep or the object
+    path, but the EntryBlock (validator rows and epoch key attached) is
+    returned with conclude(valid), which raises the batch path's blame
+    over a validity row. Raises what _verify_commit_batch raises before
+    its verify, or PrepareUnsupported for a set that is not all
+    ed25519."""
+    _batch_gate(vals, commit)
+    if vals.ed25519_columns() is None:
+        raise PrepareUnsupported("validator set is not single-scheme columnar")
+    block, _keys, conclude = _prepare_block(
+        chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
+        count_all_signatures, look_up_by_index)
+    return block, conclude
+
+
+def prepare_commit_light(chain_id: str, vals: ValidatorSet, block_id: BlockID,
+                         height: int, commit: Commit):
+    """verify_commit_light's host half (reference :190): the set and
+    commit checks, then prepare_commit_batch with the light predicates.
+    Returns (entries, conclude), or (None, None) when the commit took
+    the single-signature path below the batch threshold and is verified
+    already (on the host)."""
+    _verify_basic_vals_and_commit(vals, commit, height, block_id)
+    voting_power_needed = vals.total_voting_power() * 2 // 3
+    if not _should_batch_verify(vals, commit):
+        _verify_commit_single(chain_id, vals, commit, voting_power_needed,
+                              _ignore_not_for_block, _count_all, False, True)
+        return None, None
+    return prepare_commit_batch(chain_id, vals, commit, voting_power_needed,
+                                _ignore_not_for_block, _count_all, False, True)
+
+
+def prepare_commit_range(chain_id: str, vals: ValidatorSet, items):
+    """The range form (reference :213): items are (height, block_id,
+    commit) of one validator set, in order. Returns (prepared, synced):
+    [(height, entries, conclude)] to verify on the device, and the
+    heights that took the single-signature path and are verified. A host
+    failure raises what verify_commit_light raises for its height."""
+    prepared = []
+    synced = []
+    for height, block_id, commit in items:
+        entries, conclude = prepare_commit_light(chain_id, vals, block_id, height, commit)
+        if entries is None:
+            synced.append(height)
+        else:
+            prepared.append((height, entries, conclude))
+    return prepared, synced
+
+
+def prepare_commit_light_trusting(chain_id: str, vals: ValidatorSet, commit: Commit,
+                                  trust_level: Fraction):
+    """verify_commit_light_trusting's host half (reference :242): the nil
+    and overflow checks, the selection by address with double votes and
+    the trust-level tally. Returns as prepare_commit_light does."""
+    if vals is None:
+        raise ValueError("nil validator set")
+    if trust_level.denominator == 0:
+        raise ValueError("trustLevel has zero Denominator")
+    if commit is None:
+        raise ValueError("nil commit")
+    total_mul, overflow = safe_mul(vals.total_voting_power(), trust_level.numerator)
+    if overflow:
+        raise OverflowError(
+            "int64 overflow while calculating voting power needed; "
+            "please provide smaller trustLevel numerator"
         )
-    raise RuntimeError("BUG: batch verification failed with no invalid signatures")
+    voting_power_needed = total_mul // trust_level.denominator
+    if not _should_batch_verify(vals, commit):
+        _verify_commit_single(chain_id, vals, commit, voting_power_needed,
+                              _ignore_not_for_block, _count_all, False, False)
+        return None, None
+    return prepare_commit_batch(chain_id, vals, commit, voting_power_needed,
+                                _ignore_not_for_block, _count_all, False, False)
 
 
 def _verify_commit_single(

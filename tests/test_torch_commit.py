@@ -169,8 +169,8 @@ def test_large_commit_takes_the_rlc_batch_path(large, monkeypatch):
     vset, bid, commit = large
     assert vset.size() >= backend.DEVICE_THRESHOLD
     calls = []
-    real = rlc.verify_batch_rlc
-    monkeypatch.setattr(rlc, "verify_batch_rlc",
+    real = rlc.prepare_batch  # the dispatcher's host stage on the RLC path
+    monkeypatch.setattr(rlc, "prepare_batch",
                         lambda *a, **k: calls.append(len(a[0])) or real(*a, **k))
     _, got = _both("verify_commit", vset, bid, HEIGHT, _tampered(commit, 40))
     assert got[1].startswith("wrong signature (#40): ")

@@ -485,7 +485,7 @@ def _port_outcome(mode, pvals, pbid, height, pc):
 def test_verify_commit_runs_the_fused_path(signed, fused_only, mode, path, monkeypatch):
     if path == "per_signature":
         monkeypatch.setenv("TM_TPU_RLC", "0")
-        monkeypatch.setattr(rlc, "verify_batch_rlc", _raise)
+        monkeypatch.setattr(rlc, "prepare_batch", _raise)
     from tendermint_tpu_torch.ops import verify
 
     monkeypatch.setattr(verify, "BLOCK", 16)  # the per-signature bucket: 80, not 512

@@ -159,10 +159,26 @@ def test_tm_tpu_rlc_picks_the_path_at_call_time(env, path, monkeypatch):
         monkeypatch.setenv("TM_TPU_RLC", env)
     assert backend.use_rlc() == (path == "rlc")
     calls = []
-    monkeypatch.setattr(rlc, "verify_batch_rlc",
-                        lambda b, device: calls.append("rlc") or np.ones(len(b), bool))
-    monkeypatch.setattr(verify, "verify_batch_compact",
-                        lambda b, device: calls.append("per_sig") or np.ones(len(b), bool))
+
+    class AllValid:
+        """A prepared batch whose launch gives every row valid."""
+
+        bucket = 1
+        args = (np.zeros(1, np.uint8),)
+
+        def __init__(self, n):
+            self.n = n
+
+        def launch(self, dev_args):
+            return torch.ones((1, self.n), dtype=torch.int32)
+
+        def conclude(self, row):
+            return row[0].astype(bool)
+
+    # the dispatcher's host stage of each path
+    monkeypatch.setattr(rlc, "prepare_batch", lambda b: calls.append("rlc") or AllValid(len(b)))
+    monkeypatch.setattr(verify, "prepare_batch",
+                        lambda b: calls.append("per_sig") or AllValid(len(b)))
     bv = backend.Ed25519DeviceBatchVerifier(device=torch.device("cpu"))
     entries = _edge_entries()
     bv.add_block(EntryBlock.from_entries(entries * (backend.DEVICE_THRESHOLD // len(entries) + 1)))
