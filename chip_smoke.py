@@ -17,7 +17,10 @@ Phases, in order:
    vote sign bytes, the reduction mod L) with the host C++ compiler;
    then the data: a 10,000-validator ed25519 and sr25519 commit, each
    also decoded from its wire bytes (the columnar commit the timed calls
-   use);
+   use); a 10,240-validator secp256k1 commit (bench.py schemes' set,
+   power 100 each) and BASELINE.json config #4 (2,048 ed25519, 1,792
+   sr25519 and 256 secp256k1 signatures, as bench._bench_mixed_curve
+   builds it), all signed by the spawn pool;
 3. host: each C helper of the host library on the 10,000-validator
    inputs against its Python or numpy oracle (commit_prep.
    _prep_commit_numpy, backend._challenges, rlc._rlc_scalars_py with
@@ -25,13 +28,20 @@ Phases, in order:
    `% L`), outputs equal byte for byte; the C time (median of
    HOST_REPS) on the library's threads and on one, the oracle's time,
    and the host's CPU model and count;
-4. kernels: each of the eleven CUDA entries on the card against its plain
+4. kernels: each of the thirteen CUDA entries on the card against its plain
    PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
    and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
-   signature. Coordinates are compared after canonicalisation (the raw
+   signature; and the two secp256k1 kernels (secp_verify,
+   secp_verify_cached) at 16 and 10,240 rows over the secp256k1 edge
+   battery (tampered s, wrong message, high S, a 63-byte signature, r =
+   n, r = 0, s = 0, a key off the curve, an 04 prefix), two crafted rows
+   where only the r + n candidate matches (one with it withheld),
+   padding and the commit's signatures with one tampered: verdicts and
+   the canonical final (X, Y, Z) exactly, the battery against the
+   oracle. Coordinates are compared after canonicalisation (the raw
    limbs of k2_table's table and of the coordinates of the four K1s,
    the epoch table and k1r_decode, rows 20..31 of each slot included),
    flags, digits and verdicts exactly, and the verdicts against the
@@ -106,6 +116,24 @@ Phases, in order:
        host-owned;
        (f6) a batch whose host prep raises (rows outside its set's
        table) fails alone with a DispatchError; the next one verifies;
+   (g) the secp256k1 lane (ops/secp_verify.py, csrc/secp256k1.cu):
+       (g1) the 10,240-validator secp256k1 commit, decoded from its wire
+       bytes, through prepare_commit_light, the shared dispatcher and
+       conclude: cold (secp_verify), then warm (secp_verify_cached, the
+       set's table uploaded once), one launch a call from the dispatch
+       thread and no ed25519 kernel, 6,827 signatures to the light stop;
+       a signature tampered at #4321 blamed warm and cold, one past the
+       stop accepted, a commit below 2/3 refused;
+       (g2) config #4 through ops/mixed.verify_mixed: all True; one
+       tampered row in each lane, exactly those three False; each
+       lane's kernels launched once a call; median of 20 and signatures
+       a second;
+       (g3) Secp256k1DeviceBatchVerifier and backend.verify_batch over
+       the battery, equal to the oracle;
+       (g4) a 10,240-signature secp256k1 block, then an uncached
+       ed25519 block and an uncached secp256k1 block submitted at once
+       while it runs: no batch holds two schemes, each job's verdicts
+       right;
 6. timing, for each path (RLC cold, RLC warm, per-signature,
    per-signature warm, sr25519), on the decoded commit: the end-to-end
    verify_commit wall clock (warm, median of 20) and one call on the
@@ -125,16 +153,20 @@ Phases, in order:
    fresh store holding only the root, traced with light.store too; and
    the host costs of a freshly decoded 10,000-validator block (set
    decode and hash, header hash, commit decode and materialization).
-   The traces are kept in build/traces/.
+   Then the warm secp256k1 light call of (g1): 20 calls (median, min,
+   max), and 5 traced for its stages (commit.select, commit.sign_bytes,
+   secp.prep, pipeline.*) and the card's busy time. The traces are kept
+   in build/traces/.
 
 The profiler traces every thread the process starts after it (the
 dispatcher's spans run on its threads), so each traced window starts
 the device's dispatcher anew.
 
 It prints one JSON line of the light path's checks and times (with the
-card's name and power limit), one of slice (f)'s, one JSON line of
-kernel records (the launches of slices (a)-(d) and of config #5's first
-run in (f3)), then the
+card's name and power limit), one of slice (f)'s, one of slice (g)'s,
+one JSON line of kernel records (the launches of slices (a)-(d) and of
+config #5's first run in (f3); the secp256k1 kernels' of the cold and
+warm calls of (g1) and the first config #4 call of (g2)), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -162,9 +194,10 @@ import torch
 
 from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
-from tendermint_tpu_torch.crypto import ed25519, sr25519
+from tendermint_tpu_torch.crypto import _weierstrass, ed25519, secp256k1, sr25519
 from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, fe, host, kernels, rlc
-from tendermint_tpu_torch.ops import pipeline
+from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify
+from tendermint_tpu_torch.ops import sc_secp as secp_sc
 from tendermint_tpu_torch.db import MemDB
 from tendermint_tpu_torch.light import batch as light_batch
 from tendermint_tpu_torch.light import client as light_client
@@ -225,6 +258,18 @@ HEADER_CHAIN = "bench-chain"
 HEADER_T0 = 1_600_000_000
 HEADER_TAMPER = (500, 17)  # (height, signature) tampered in (f3)
 CONCURRENT = 4  # callers in (f2)
+# slice (g): bench.py schemes' set (10,240 secp256k1 validators of power
+# 100), its light stop (the signatures past 2/3 of the power), a
+# signature tampered past it, the kernel shapes, BASELINE.json config
+# #4 (ed25519, sr25519, secp256k1 signatures; bench._bench_mixed_curve)
+# and (g4)'s ed25519 block
+SECP_VALIDATORS = 10_240
+SECP_POWER = 100
+SECP_LIGHT_STOP = 6_827
+SECP_LATE_TAMPER = 9_000
+SECP_SHAPES = (16, 10_240)
+MIXED = (2_048, 1_792, 256)
+G4_ED = 1_000
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -311,6 +356,16 @@ WIDE_PER_POINT = (15_941, 3_104)
 # the programming guide gives no rate for it)
 WIDE_PER_SM_CLOCK = 27.11
 WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2, "epoch_coords": 1}
+# The secp256k1 kernels (csrc/secp256k1.cu) form 32 x 32 -> 64 products
+# only: 72 a multiply (64 schoolbook, 8 folding the high half), 44 a
+# squaring (28 cross products, 8 squares, 8 folding), 8 a multiply by 21;
+# the multiplies by 2, 3 and 8 are shifts and additions. A signature's
+# operations of each kind, as the source's header states them (the CPU
+# stand-in of tests/test_torch_secp.py counts the products). Bound: these
+# products at WIDE_PER_SM_CLOCK a clock an SM.
+SECP_OPS = {"mul": 2_475, "sq": 260, "x21": 412, "x2": 130, "x3": 271, "x8": 130}
+SECP_WIDE = {"mul": 72, "sq": 44, "x21": 8}
+SECP_WIDE_PER_SIG = sum(SECP_OPS[k] * w for k, w in SECP_WIDE.items())
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
     "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
@@ -323,13 +378,16 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3_ladder": ("verify.cu", "tendermint_tpu/ops/pallas_verify.py:329"),
     "k1r_decode": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:75"),
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
+    "secp_verify": ("secp256k1.cu", "tendermint_tpu/ops/secp_verify.py:139"),
+    "secp_verify_cached": ("secp256k1.cu", "tendermint_tpu/ops/secp_verify.py:205"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
 # canonicalisation; the rest, and every output of the four K1s, the epoch
 # table, k2_table and k1r_decode, raw
 SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
                 "epoch_coords": (), "k1_decompress": (), "k1_decompress_cached": (),
-                "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": ()}
+                "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": (),
+                "secp_verify": (), "secp_verify_cached": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -524,6 +582,58 @@ def sr_edge_entries() -> list:
     return out
 
 
+def _secp_sk(i: int) -> "secp256k1.PrivKey":
+    """Validator i's secp256k1 key: every slice's key i is the same key."""
+    return secp256k1.PrivKey(hashlib.sha256(b"chip-smoke secp validator %d %d" % (SEED, i))
+                             .digest())
+
+
+def secp_edge_entries() -> list:
+    """secp256k1 (pub33, msg, sig) entries over every accept and reject
+    branch: valid signatures of four keys; a tampered s (still lower-S),
+    a wrong message, the high-S twin of a valid signature, a 63-byte
+    signature, r = n, r = 0, s = 0, a key whose x is not on the curve, a
+    key with the uncompressed prefix 04."""
+    out = []
+    for i in range(4):
+        sk = secp256k1.PrivKey(bytes([i + 1]) * 32)
+        msg = b"secp-edge-%d" % i
+        out.append((sk.pub_key().bytes(), msg, sk.sign(msg)))
+    pk, msg, sig = out[0]
+    n = secp256k1.N
+    s = int.from_bytes(sig[32:], "big")
+    out.append((pk, msg, sig[:63] + bytes([sig[63] ^ 1])))
+    out.append((pk, b"other", sig))
+    out.append((pk, msg, sig[:32] + (n - s).to_bytes(32, "big")))
+    out.append((pk, msg, sig[:63]))
+    out.append((pk, msg, n.to_bytes(32, "big") + sig[32:]))
+    out.append((pk, msg, bytes(32) + sig[32:]))
+    out.append((pk, msg, sig[:32] + bytes(32)))
+    x = 5  # x^3 + 7 = 132 is not a square mod p
+    assert _weierstrass.decompress(b"\x02" + x.to_bytes(32, "big")) is None
+    out.append((b"\x02" + x.to_bytes(32, "big"), msg, sig))
+    out.append((b"\x04" + pk[1:], msg, sig))
+    return out
+
+
+def secp_wrap_rows() -> tuple:
+    """Two kernel rows whose ladder ends at a point P with x(P) >= n:
+    Q = P, u1 = 0, u2 = 1, candidates (x - n, x) and (x - n, x - n).
+    Only the second candidate matches: the first row verifies, the
+    second does not. Returns (qx, qy, scalars, signs, r1, r2, ok_host)
+    rows of both, as secp_verify.prepare_rows lays them out."""
+    n = secp256k1.N
+    x = n
+    while _weierstrass.decompress(b"\x02" + x.to_bytes(32, "big")) is None:
+        x += 1
+    qx, qy = _weierstrass.decompress(b"\x02" + x.to_bytes(32, "big"))
+    f = secp_verify.field_to_limbs
+    scal = secp_sc.scalars_to_limbs([0, 0, 1, 0]).reshape(1, 4, -1)
+    return (f([qx, qx]), f([qy, qy]), np.concatenate([scal, scal]),
+            np.zeros((2, 4), dtype=np.int32), f([x - n, x - n]), f([x, x - n]),
+            np.ones(2, dtype=bool))
+
+
 def sr_inputs(commit_ents: list, edge: list, n: int, pool) -> tuple:
     """An EntryBlock for n sr25519 signatures: the edge battery, commit
     signatures with one tampered, and 3 padding signatures; and the
@@ -575,7 +685,7 @@ def kernel_resources(ptxas: str) -> dict:
     out, name = {}, None
     for line in ptxas.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"for _ZN3edw\d+(\w+?)_kernelE", line)
+            m = re.search(r"for _ZN(?:3edw|4secp)\d+(\w+?)_kernelE", line)
             name = m.group(1) if m and m.group(1) in KERNELS else None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1788,6 +1898,344 @@ def dispatcher_phase(vals, commit, ents: list, light_wire: dict, header_wire: tu
     return out
 
 
+# -- slice (g): the secp256k1 lane and config #4 ------------------------------
+
+
+def _sign_secp_validator(i: int) -> tuple:
+    """(pub33, timestamp, sig) of secp256k1 validator i's precommit for
+    BLOCK (as _sign_validator)."""
+    sk = _secp_sk(i)
+    ts = canonical.Timestamp(T0_SECONDS, 1000 * i + 1)
+    msg = canonical.compose_vote_sign_bytes(_vote_template(), ts)
+    return sk.pub_key().bytes(), ts, sk.sign(msg)
+
+
+def build_secp_commit(pool) -> tuple:
+    """(ValidatorSet, Commit) of SECP_VALIDATORS secp256k1 validators of
+    power SECP_POWER (bench.py schemes' set), all signing."""
+    signed = pool.map(_sign_secp_validator, range(SECP_VALIDATORS), chunksize=64)
+    vals = ValidatorSet.new([Validator.new(secp256k1.PubKey(pub), SECP_POWER)
+                             for pub, _, _ in signed])
+    by_pub = {pub: (ts, sig) for pub, ts, sig in signed}
+    sigs = []
+    for v in vals.validators:
+        ts, sig = by_pub[v.pub_key.bytes()]
+        sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, sig))
+    return vals, Commit(HEIGHT, ROUND, BLOCK, sigs)
+
+
+def _mixed_sign(job: tuple) -> bytes:
+    kind, i = job
+    if kind == "ed25519":
+        return ed25519.gen_priv_key(i.to_bytes(32, "little")).sign(b"mx-ed-%d" % i)
+    if kind == "sr25519":
+        return sr25519.gen_priv_key(b"\x09" * 32).sign(b"mx-sr-%d" % i)
+    return _secp_sk(-1).sign(b"mx-secp-%d" % i)
+
+
+def build_mixed(pool) -> list:
+    """BASELINE.json config #4 as bench._bench_mixed_curve builds it:
+    2,048 ed25519 signatures by distinct keys, 1,792 by one sr25519 key,
+    256 by one secp256k1 key (a seeded key here; bench.py draws one),
+    shuffled by random.Random(5). (PubKey, msg, sig) triples."""
+    jobs = [(k, i) for k, n in zip(("ed25519", "sr25519", "secp256k1"), MIXED)
+            for i in range(n)]
+    sigs = pool.map(_mixed_sign, jobs, chunksize=32)
+    sr_pk = sr25519.gen_priv_key(b"\x09" * 32).pub_key()
+    secp_pk = _secp_sk(-1).pub_key()
+    out = []
+    for (kind, i), sig in zip(jobs, sigs):
+        if kind == "ed25519":
+            out.append((ed25519.gen_priv_key(i.to_bytes(32, "little")).pub_key(),
+                        b"mx-ed-%d" % i, sig))
+        elif kind == "sr25519":
+            out.append((sr_pk, b"mx-sr-%d" % i, sig))
+        else:
+            out.append((secp_pk, b"mx-secp-%d" % i, sig))
+    random.Random(5).shuffle(out)
+    return out
+
+
+def _secp_oracle(entry: tuple) -> bool:
+    pub, msg, sig = entry
+    return len(pub) == 33 and secp256k1.PubKey(pub).verify_signature(msg, sig)
+
+
+def secp_kernel_inputs(commit_ents: list, edge: list, n: int) -> tuple:
+    """The uncached kernel's arrays for n rows: the edge battery, the two
+    crafted rows of secp_wrap_rows, commit signatures with one tampered,
+    and 3 padding rows (at 16 rows: the battery, the crafted rows and
+    one padding row); the expected verdicts (the battery's from the
+    oracle, the commit rows known: signed, one tampered); the items."""
+    body = list(commit_ents[: max(n - len(edge) - 2 - 3, 0)])
+    if body:
+        pk, msg, sig = body[len(body) // 2]
+        body[len(body) // 2] = (pk, msg, tamper(sig))
+    items = edge + [edge[0], edge[0]] + body  # the crafted rows' items are overwritten
+    args = list(secp_verify.prepare_rows(items, n))
+    at = slice(len(edge), len(edge) + 2)
+    for a, w in zip(args, secp_wrap_rows()):
+        a[at] = w
+    want = np.ones(n, dtype=bool)
+    want[: len(edge)] = [_secp_oracle(e) for e in edge]
+    want[len(edge) + 1] = False
+    if body:
+        want[len(edge) + 2 + len(body) // 2] = False
+    return args, want, items
+
+
+def secp_kernel_phase(stats: dict, commit_ents: list, table_pub: np.ndarray, dev) -> dict:
+    """Both secp256k1 kernels against their plain versions on the card at
+    SECP_SHAPES rows, verdicts and canonical final coordinates exactly,
+    the verdicts against the expected ones. The cached kernel reads a
+    table of table_pub's keys (the battery's and the set's) in shuffled
+    order. Returns the edge battery's oracle verdicts."""
+    edge = secp_edge_entries()
+    oracle = [_secp_oracle(e) for e in edge]
+    order = np.random.default_rng(SEED).permutation(len(table_pub))
+    ep = epoch_cache.EpochEntry(b"smoke secp table", table_pub[order], scheme="secp256k1")
+    tables = ep.secp_tables(dev)
+    where = {table_pub[j].tobytes(): k for k, j in enumerate(order)}
+    for n in SECP_SHAPES:
+        args, want, items = secp_kernel_inputs(commit_ents, edge, n)
+        t = [torch.from_numpy(a).to(dev) for a in args]
+        label = f"{n} secp256k1 rows"
+        out, _ = hold(stats, "secp_verify", label,
+                      lambda: secp_verify.verify_plain(*t, want_xyz=True),
+                      lambda: secp_verify.secp_verify(*t, want_xyz=True))
+        got = out.cpu().numpy()
+        check(bool((got == want).all()), f"secp256k1 verdicts at {label} differ from the "
+              f"expected at {np.nonzero(got != want)[0][:8].tolist()}")
+        # the cached kernel: the same signatures, keys from the table
+        crafted = (len(edge), len(edge) + 1)
+        real = [i for i in range(len(items)) if i not in crafted]
+        vidx = np.array([where[items[i][0]] for i in real], dtype=np.int32)
+        cargs = secp_verify.prepare_rows_cached([items[i] for i in real], vidx, n, ep.vp - 1,
+                                                ep.n_vals)
+        ct = [torch.from_numpy(a).to(dev) for a in cargs]
+        cout, _ = hold(stats, "secp_verify_cached", label,
+                       lambda: secp_verify.verify_cached_plain(*tables, *ct, want_xyz=True),
+                       lambda: secp_verify.secp_verify_cached(*tables, *ct, want_xyz=True))
+        cwant = np.ones(n, dtype=bool)
+        cwant[: len(real)] = [want[i] for i in real]
+        cgot = cout.cpu().numpy()
+        check(bool((cgot == cwant).all()), f"cached secp256k1 verdicts at {label} differ at "
+              f"{np.nonzero(cgot != cwant)[0][:8].tolist()}")
+        log(f"kernels: {label}: cold and warm verdicts as expected, {int((~got).sum())} reject "
+            f"cold, {int((~cgot).sum())} warm")
+    check(oracle == [True] * 4 + [False] * (len(edge) - 4),
+          f"the secp256k1 battery's oracle verdicts {oracle}")
+    return {"battery": oracle}
+
+
+def _light_call(vals, commit, dev) -> tuple:
+    """prepare_commit_light -> the shared dispatcher -> conclude: (the
+    batch size, the launches of the call)."""
+    before = dict(kernels.LAUNCHES)
+    entries, conclude = validation.prepare_commit_light(CHAIN_ID, vals, BLOCK, HEIGHT, commit)
+    conclude(pipeline.shared_verifier(dev).submit(entries).result(timeout=600))
+    return len(entries), _launched(before)
+
+
+def _secp_commits(vals, commit) -> tuple:
+    """(tampered at TAMPER_AT, its message, tampered past the light stop,
+    below 2/3, its message)."""
+    bad, bad_msg, low, low_msg = _commits(vals, commit)
+    late = Commit(commit.height, commit.round, commit.block_id, list(commit.signatures))
+    cs = late.signatures[SECP_LATE_TAMPER]
+    late.signatures[SECP_LATE_TAMPER] = dataclasses.replace(cs, signature=tamper(cs.signature))
+    return bad, bad_msg, late, low, low_msg
+
+
+def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev) -> dict:
+    """Slice (g) on the card: (g1) the secp256k1 commit through the light
+    path's prepare seam and the dispatcher, cold and warm; (g2) config
+    #4 through verify_mixed; (g3) Secp256k1DeviceBatchVerifier and
+    backend.verify_batch over the battery; (g4) an ed25519 and a
+    secp256k1 block submitted at once while the card is busy. Returns the
+    launches of (g1) and (g2) and the checks' numbers."""
+    out = {}
+    bad, bad_msg, late, low, low_msg = _secp_commits(vals, commit)
+    needed = vals.total_voting_power() * 2 // 3
+    stop = needed // SECP_POWER + 1
+    with launch_threads() as launchers:
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        kernels.reset_launches()
+        n_cold, cold = _light_call(vals, commit, dev)
+        n_warm, warm = _light_call(vals, commit, dev)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check((n_cold, n_warm) == (stop, stop) == (SECP_LIGHT_STOP, SECP_LIGHT_STOP),
+              f"(g1) batches of {n_cold} and {n_warm} signatures, wanted {SECP_LIGHT_STOP}")
+        check((cold, warm) == ({"secp_verify": 1}, {"secp_verify_cached": 1}),
+              f"(g1) the cold and warm calls launched {cold}, {warm}")
+        before = dict(kernels.LAUNCHES)
+        expect_error(lambda: _light_call(vals, bad, dev), ValueError, bad_msg)
+        check(_launched(before) == {"secp_verify_cached": 1}, "(g1) the tampered commit did "
+              "not run warm")
+        _, late_l = _light_call(vals, late, dev)
+        check(late_l == {"secp_verify_cached": 1}, f"(g1) the late tamper launched {late_l}")
+        before = dict(kernels.LAUNCHES)
+        expect_error(lambda: _light_call(vals, low, dev), ErrNotEnoughVotingPowerSigned, low_msg)
+        check(_launched(before) == {}, "(g1) the low-power commit launched a kernel")
+        epoch_cache.reset(depth=0)
+        before = dict(kernels.LAUNCHES)
+        expect_error(lambda: _light_call(vals, bad, dev), ValueError, bad_msg)
+        check(_launched(before) == {"secp_verify": 1}, "(g1) the tampered commit did not run "
+              "cold")
+        log(f"slice (g1): {SECP_VALIDATORS}-validator secp256k1 commit, {n_cold} signatures to "
+            f"the light stop; cold {cold}, warm {warm}; tampered #{TAMPER_AT} blamed warm and "
+            f"cold, tampered #{SECP_LATE_TAMPER} (past the stop) accepted, low power rejected")
+    check_dispatcher_launched(launchers, dev, "slice (g1)")
+
+    # (g2) config #4
+    tampered = list(mixed_ents)
+    bad_rows = []
+    for kind in ("ed25519", "sr25519", "secp256k1"):
+        i = next(j for j, e in enumerate(tampered) if e[0].type() == kind)
+        pk, msg, sig = tampered[i]
+        tampered[i] = (pk, msg, sig[:63] + bytes([sig[63] ^ 1]))
+        bad_rows.append(i)
+    epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+    before = dict(kernels.LAUNCHES)
+    res = mixed.verify_mixed(mixed_ents, device=dev)
+    lane_l = _launched(before)
+    check(all(res) and len(res) == sum(MIXED), "(g2) the clean config #4 batch did not verify")
+    want_l = {"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1, "k1r_decode": 1, "k2_table": 1,
+              "k3r_ladder": 1, "secp_verify": 1}
+    check(lane_l == want_l, f"(g2) verify_mixed launched {lane_l}, wanted {want_l}")
+    for k, v in lane_l.items():
+        launches[k] = launches.get(k, 0) + v
+    res = mixed.verify_mixed(tampered, device=dev)
+    falses = [i for i, r in enumerate(res) if not r]
+    check(falses == sorted(bad_rows), f"(g2) rejected rows {falses[:8]}, wanted {bad_rows}")
+    runs = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        mixed.verify_mixed(mixed_ents, device=dev)
+        runs.append((time.perf_counter() - t) * 1e3)
+    out["mixed"] = dict(_run_stats(runs), sigs_per_s=sum(MIXED) / statistics.median(runs) * 1e3,
+                        launches=lane_l)
+    log(f"slice (g2): config #4 ({'+'.join(map(str, MIXED))}) through verify_mixed launched "
+        f"{lane_l}; the three tampered rows {sorted(bad_rows)} rejected alone; median "
+        f"{out['mixed']['median_ms']:.2f} ms over {REPEATS} (min {min(runs):.2f}, max "
+        f"{max(runs):.2f}), {out['mixed']['sigs_per_s']:.0f} signatures/s")
+
+    # (g3) the secp256k1 batch verifier and the synchronous backend path
+    items = [e for e, _ in zip(secp_edge_entries(), battery) if len(e[2]) == 64]
+    want = [ok for e, ok in zip(secp_edge_entries(), battery) if len(e[2]) == 64]
+    bv = mixed.Secp256k1DeviceBatchVerifier(device=dev)
+    for pub, msg, sig in items:
+        bv.add(secp256k1.PubKey(pub), msg, sig)
+    before = dict(kernels.LAUNCHES)
+    check(bv.verify() == (False, want), "(g3) Secp256k1DeviceBatchVerifier differs")
+    got = backend.verify_batch(EntryBlock.from_entries(items, scheme="secp256k1"), device=dev)
+    check(got.tolist() == want, "(g3) backend.verify_batch differs from the oracle")
+    check(_launched(before) == {"secp_verify": 2}, f"(g3) launched {_launched(before)}")
+    log(f"slice (g3): Secp256k1DeviceBatchVerifier and backend.verify_batch over the "
+        f"{len(items)}-entry battery equal the oracle")
+
+    # (g4) an ed25519 and a secp256k1 block, both uncached, at once
+    prepared = []
+
+    def recording(entries):
+        prepared.append((entries.scheme, len(entries)))
+        return backend.prepare_block(entries)
+
+    busy_ents = commit_entries(commit, vals)
+    busy = EntryBlock.from_entries(busy_ents, scheme="secp256k1")
+    ed_block = EntryBlock.from_entries(ed_ents[:G4_ED])
+    ed_want = np.ones(G4_ED, dtype=bool)
+    secp_block = EntryBlock.from_entries(items, scheme="secp256k1")
+    v = pipeline.AsyncBatchVerifier(dev, prepare=recording)
+    try:
+        futs = [v.submit(busy), v.submit(ed_block), v.submit(secp_block)]
+        got = [f.result(timeout=600) for f in futs]
+    finally:
+        v.close()
+    check(got[0].all() and got[1].tolist() == ed_want.tolist() and got[2].tolist() == want,
+          "(g4) a job's verdicts are wrong")
+    check([p for p in prepared if p[0] == "ed25519"] == [("ed25519", G4_ED)]
+          and sum(n for s, n in prepared if s == "secp256k1") == len(busy) + len(items),
+          f"(g4) prepared batches {prepared}")
+    out["g4_prepared"] = prepared
+    log(f"slice (g4): batches prepared {prepared}: the ed25519 block never fused with a "
+        "secp256k1 one; each job's verdicts right")
+    return out, launches
+
+
+SECP_STAGES = ("commit.select", "commit.sign_bytes", "pipeline.prep", "secp.prep",
+               "pipeline.h2d", "secp.gather", "secp.kernels", "pipeline.d2h",
+               "pipeline.resolve")
+
+
+def secp_timing(vals, commit, dev) -> dict:
+    """(g1)'s warm call timed: REPEATS calls (median, min, max), then
+    PROFILED calls traced for the stages and the card's busy time."""
+    epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+
+    def call():
+        _light_call(vals, commit, dev)
+
+    call()
+    call()
+    runs = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        call()
+        runs.append((time.perf_counter() - t) * 1e3)
+    prof = traced_calls("secp_light", [call] * PROFILED, "secp_light", warm=call)
+    stages = {s: statistics.median(p["spans_ms"].get(s, 0.0) for p in prof) for s in SECP_STAGES}
+    prof_ms = statistics.median(p["call_ms"] for p in prof)
+    busy = idle = None
+    if sum(sum(p["device_events"].values()) for p in prof):
+        busy = statistics.median(p["device_busy_ms"] for p in prof)
+        idle = statistics.median(1 - p["device_busy_ms"] / p["call_ms"] for p in prof)
+    out = dict(_run_stats(runs), profiled_call_ms=prof_ms, stages_ms=stages,
+               device_busy_ms=busy, device_idle_share=idle,
+               device_events=prof[0]["device_events"],
+               sigs_per_s=SECP_LIGHT_STOP / statistics.median(runs) * 1e3)
+    log(f"timing [secp256k1 light, warm]: median {out['median_ms']:.2f} ms over {REPEATS} "
+        f"(min {min(runs):.2f}, max {max(runs):.2f}); {PROFILED} profiled calls, median "
+        f"{prof_ms:.2f} ms; stages (median ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + (f"; device busy {busy:.3f} ms, idle {idle:.1%}" if busy is not None
+           else "; the trace holds no device events: busy and idle not measured"))
+    return out
+
+
+def secp_products() -> dict:
+    """The multiplies, squarings and small-constant multiplies (by
+    constant) of one row of the plain secp256k1 ladder, counted on the
+    CPU: they must equal the source's (SECP_OPS), so an operation the
+    count misses cannot lower the bound without an error."""
+    from tendermint_tpu_torch.ops import fe_secp
+
+    counts = dict.fromkeys(SECP_OPS, 0)
+    real_mul, real_sq, real_small = fe_secp.mul, fe_secp.sq, fe_secp.mul_small
+
+    def mul(a, b):
+        counts["mul"] += 1
+        return real_mul(a, b)
+
+    def sq(a):
+        counts["sq"] += 1
+        return real_mul(a, a)
+
+    def mul_small(a, k):
+        counts[f"x{k}"] += 1
+        return real_small(a, k)
+
+    args = [torch.from_numpy(a) for a in secp_verify.prepare_rows([], 1)]
+    fe_secp.mul, fe_secp.sq, fe_secp.mul_small = mul, sq, mul_small
+    try:
+        secp_verify.verify_plain(*args)
+    finally:
+        fe_secp.mul, fe_secp.sq, fe_secp.mul_small = real_mul, real_sq, real_small
+    check(counts == SECP_OPS, f"the plain secp256k1 ladder forms {counts} a row, "
+          f"the source states {SECP_OPS}")
+    return counts
+
+
 # -- timing --------------------------------------------------------------------
 
 
@@ -2073,8 +2521,8 @@ def time_path(path: str, vals, commit, built, dev) -> dict:
     }
 
 
-def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
-                  sm_clock_hz: float) -> list:
+def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp_ents: list,
+                  dev, sm_clock_hz: float) -> list:
     """Each kernel's CUDA-event time on the main path's inputs, beside its
     bound; returns the kernel records without launches and plain times."""
     M = rlc.M
@@ -2114,6 +2562,20 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
     check(bool(rout[0, : len(sr_block)].all().item()),
           "the sr25519 commit's signatures did not all verify")
 
+    n_secp = secp_verify.bucket_for(len(secp_ents))
+    sargs = [torch.from_numpy(a).to(dev) for a in secp_verify.prepare_rows(secp_ents, n_secp)]
+    sout = secp_verify.secp_verify(*sargs)
+    check(bool(sout[: len(secp_ents)].all().item()),
+          "the secp256k1 commit's signatures did not all verify")
+    sep = epoch_cache.EpochEntry(secp_vals.hash(), secp_vals.secp256k1_columns()[0],
+                                 scheme="secp256k1")
+    stables = sep.secp_tables(dev)
+    scargs = [torch.from_numpy(a).to(dev) for a in secp_verify.prepare_rows_cached(
+        secp_ents, np.arange(len(secp_ents), dtype=np.int32), n_secp, sep.vp - 1, sep.n_vals)]
+    scout = secp_verify.secp_verify_cached(*stables, *scargs)
+    check(bool(scout[: len(secp_ents)].all().item()),
+          "the secp256k1 commit's signatures did not all verify warm")
+
     runs = {
         "k1_rlc": (lambda: rlc.k1_rlc(a_t, r_t, scal_t), (a_t, r_t, scal_t, coords, ok, dig), g),
         "k1_rlc_cached": (lambda: rlc.k1_rlc_cached(*warm), warm + (wc, wo, wd), g),
@@ -2132,6 +2594,9 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
         "k1r_decode": (lambda: osr.k1r_decode(*sr[:6]), tuple(sr[:6]) + (rc, ro, rs, rk), n_sr),
         "k3r_ladder": (lambda: osr.k3r_ladder(rt, rs, rk, rc, ro, sr[6]),
                        (rt, rs, rk, rc, ro, sr[6], rout), n_sr),
+        "secp_verify": (lambda: secp_verify.secp_verify(*sargs), tuple(sargs) + (sout,), n_secp),
+        "secp_verify_cached": (lambda: secp_verify.secp_verify_cached(*stables, *scargs),
+                               tuple(stables) + tuple(scargs) + (scout,), n_secp),
     }
     products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr))
     wide = wide_multiplies()
@@ -2144,6 +2609,12 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
     ops = dict(products)
     for name, points in WIDE_POINTS_PER_UNIT.items():
         ops[name] = wide["slots"] * points
+    # the secp256k1 kernels: wide products only, counted from the plain
+    # ladder (secp_products) as the source states them
+    secp_counts = secp_products()
+    log(f"timing: a secp256k1 row: {secp_counts}, {SECP_WIDE_PER_SIG} 32 x 32 -> 64 products")
+    for name in ("secp_verify", "secp_verify_cached"):
+        ops[name] = SECP_WIDE_PER_SIG * INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
     int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
     records = []
     for name, (fn, tensors, units) in runs.items():
@@ -2164,7 +2635,7 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, dev,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "ops_per_unit": ops[name],
-            "products_per_unit": products[name],
+            "products_per_unit": products.get(name, SECP_WIDE_PER_SIG),
             "units": units,
             "bytes": io_bytes,
         })
@@ -2227,6 +2698,22 @@ def main() -> int:
         log(f"data: config #5's chain ({HEADERS + 1} headers of {HEADER_VALS} validators, "
             f"{(HEADERS + 1) * HEADER_VALS} signatures) built and signed in "
             f"{header_sign_s:.1f} s by {workers} processes")
+        t = time.perf_counter()
+        secp_vals, secp_commit = build_secp_commit(pool)
+        secp_sign_s = time.perf_counter() - t
+        t = time.perf_counter()
+        mixed_ents = build_mixed(pool)
+        mixed_sign_s = time.perf_counter() - t
+        log(f"data: {SECP_VALIDATORS}-validator secp256k1 commit signed in {secp_sign_s:.1f} s, "
+            f"config #4 ({'+'.join(map(str, MIXED))} signatures) in {mixed_sign_s:.1f} s, by "
+            f"{workers} processes")
+    secp_wire = Commit.decode(secp_commit.encode())
+    secp_ents = commit_entries(secp_commit, secp_vals)
+    secp_table_pub = np.concatenate([
+        np.frombuffer(b"".join(sorted({p for p, _, _ in secp_edge_entries()})), np.uint8)
+        .reshape(-1, 33),
+        secp_vals.secp256k1_columns()[0],
+    ])
     table_pub = np.concatenate([
         np.frombuffer(b"".join(p for p, _, _ in edge), np.uint8).reshape(-1, 32),
         vals.ed25519_columns()[0],
@@ -2238,6 +2725,7 @@ def main() -> int:
 
     t = time.perf_counter()
     kstats = kernel_phase(inputs, sr_in, table_pub, dev)
+    secp_battery = secp_kernel_phase(kstats, secp_ents, secp_table_pub, dev)["battery"]
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -2253,20 +2741,30 @@ def main() -> int:
     log(f"dispatcher phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    secp, secp_launches = secp_phase(secp_vals, secp_wire, mixed_ents, ents, secp_battery, dev)
+    log(f"secp256k1 phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     paths = {}
     for p in PATHS:
         key_type = PATH_SETUP[p][2]
         paths[p] = time_path(p, sets[key_type][0], wire[key_type], sets[key_type][1], dev)
     records = kernel_timing(vals, EntryBlock.from_entries(ents),
-                            EntryBlock.from_entries(sr_ents), dev, sm_clock_hz)
+                            EntryBlock.from_entries(sr_ents), secp_vals, secp_ents, dev,
+                            sm_clock_hz)
     light["timing"] = light_timing(light_wire, dev)
+    secp["timing"] = secp_timing(secp_vals, secp_wire, dev)
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
     log("paths (median ms): " + ", ".join(
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
         for p, s in paths.items()))
     for r in records:
-        # slices (a)-(d), and config #5's first run in slice (f)
-        r["launches"] = launches[r["name"]] + disp["headers"]["launches"].get(r["name"], 0)
+        # slices (a)-(d), config #5's first run in slice (f); the secp256k1
+        # kernels' in slice (g1) and (g2)
+        if r["name"].startswith("secp_"):
+            r["launches"] = secp_launches[r["name"]]
+        else:
+            r["launches"] = launches[r["name"]] + disp["headers"]["launches"].get(r["name"], 0)
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
         r.update(resources.get(r["name"], {}))
@@ -2276,6 +2774,9 @@ def main() -> int:
     print(json.dumps({"light": light}), flush=True)
     disp.update(card=card, header_signing_s=header_sign_s)
     print(json.dumps({"dispatcher": disp}), flush=True)
+    secp.update(card=card, n_validators=SECP_VALIDATORS, signing_s=secp_sign_s,
+                mixed_signing_s=mixed_sign_s)
+    print(json.dumps({"secp": secp}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ ValidatorSet.encode() and Commit.encode(), the reference's wire format),
 a light block as its header's, commit's and set's encodings (the JAX
 package's SignedHeader has no encode of its own; its LightStore writes
 the header and the commit apart), and a signature batch as numpy
-columns.
+columns. A set of any key type the port has (ed25519, secp256k1,
+sr25519) crosses this way, so the two packages' ValidatorSet.hash()
+agree.
 """
 
 from __future__ import annotations

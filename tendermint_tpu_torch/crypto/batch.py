@@ -4,7 +4,11 @@ Counterpart: tendermint_tpu/crypto/batch.py (crypto/batch/batch.go:11-33).
 ed25519 keys get the port's device verifier
 (ops/backend.Ed25519DeviceBatchVerifier), sr25519 keys the sr25519 one
 (ops/mixed.Sr25519DeviceBatchVerifier), bound here directly: there is no
-injectable factory, and no other key type batches.
+injectable factory, and no other key type batches. secp256k1 keys get
+None, as in the reference (batch.go:26-33): their device lane is reached
+through the commit path's prepare seam and ops/mixed.py, and
+ops/mixed.Secp256k1DeviceBatchVerifier is made by callers that ask for
+it.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""PubKey <-> proto conversion, ed25519 and sr25519.
+"""PubKey <-> proto conversion, ed25519, secp256k1 and sr25519.
 
 Counterpart: tendermint_tpu/crypto/encoding.py (crypto/encoding/codec.go).
 tendermint.crypto.PublicKey is a oneof: field 1 is the ed25519 key,
-field 3 the sr25519 key; the port carries no secp256k1 (field 2) or BLS
-key yet.
+field 2 the secp256k1 key, field 3 the sr25519 key; the port carries no
+BLS key (the JAX package's field 4) yet.
 """
 
 from __future__ import annotations
@@ -11,9 +11,14 @@ from __future__ import annotations
 from ..wire.proto import ProtoWriter, decode_message, field_bytes
 from . import PubKey
 from . import ed25519 as _ed25519
+from . import secp256k1 as _secp256k1
 from . import sr25519 as _sr25519
 
-_FIELDS = {_ed25519.KEY_TYPE: (1, _ed25519.PubKey), _sr25519.KEY_TYPE: (3, _sr25519.PubKey)}
+_FIELDS = {
+    _ed25519.KEY_TYPE: (1, _ed25519.PubKey),
+    _secp256k1.KEY_TYPE: (2, _secp256k1.PubKey),
+    _sr25519.KEY_TYPE: (3, _sr25519.PubKey),
+}
 
 
 def pubkey_to_proto(pk: PubKey) -> bytes:

@@ -23,6 +23,14 @@ big-int reductions, is the tests' oracle for it.
 The reference's backend._bucket_for (:90), the XLA path's bucket, has
 no counterpart: the port's per-signature path pads with
 verify.bucket_for (the reference's _pallas_bucket).
+
+secp256k1 (reference :102-109, :492-575, :864): a block of scheme
+secp256k1 pads to SECP_BUCKETS and verifies through ops/secp_verify.py's
+kernels, cached when the epoch cache holds its set; prepare_block is
+the dispatcher's host stage for a block of either scheme, and
+verify_batch the synchronous path. The reference's prepare_batch_secp
+and prepare_batch_secp_cached are secp_verify.prepare_batch here, as
+the ed25519 preps are rlc.prepare_batch and verify.prepare_batch.
 """
 
 from __future__ import annotations
@@ -32,11 +40,13 @@ import os
 from typing import List, Tuple
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 from ..crypto import BatchVerifier, PubKey
 from ..crypto import ed25519 as _ed25519
 from ..crypto._edwards import L
-from . import host, rlc
+from . import epoch_cache, host, rlc, secp_verify
 from . import verify as per_sig
 from .entry_block import EntryBlock
 
@@ -56,17 +66,42 @@ def use_rlc() -> bool:
     return os.environ.get("TM_TPU_RLC", "1") != "0"
 
 
-def quantized_bucket(n: int) -> int:
-    """The signatures a device batch of n pads to on the path TM_TPU_RLC
-    picks now (backend.quantized_bucket)."""
+# The secp256k1 lane's buckets (backend.SECP_BUCKETS): a finer floor,
+# since its ladder's time is linear in the rows, padding included.
+SECP_BUCKETS = secp_verify.BUCKETS
+
+
+def quantized_bucket(n: int, scheme: str = "ed25519") -> int:
+    """The signatures a device batch of n of `scheme` pads to
+    (backend.quantized_bucket, and _secp_bucket_for for secp256k1): for
+    ed25519 on the path TM_TPU_RLC picks now."""
+    if scheme == "secp256k1":
+        return secp_verify.bucket_for(n)
     return rlc.plan_bucket(n)[0] if use_rlc() else per_sig.bucket_for(n)
 
 
-def max_coalesce() -> int:
-    """The largest device batch the dispatcher fuses jobs into
-    (backend.max_coalesce): rlc.MAX_SIGS on the RLC path, BUCKETS[-1] on
-    the per-signature one."""
+def max_coalesce(scheme: str = "ed25519") -> int:
+    """The largest device batch of `scheme` the dispatcher fuses jobs into
+    (backend.max_coalesce): SECP_BUCKETS[-1] for secp256k1; for ed25519
+    rlc.MAX_SIGS on the RLC path, BUCKETS[-1] on the per-signature one."""
+    if scheme == "secp256k1":
+        return SECP_BUCKETS[-1]
     return rlc.MAX_SIGS if use_rlc() else BUCKETS[-1]
+
+
+def prepare_secp(entries) -> "secp_verify.SecpBatch":
+    """The dispatcher's host stage for a secp256k1 block (the reference's
+    _prepare, pipeline.py:535-552): the cached kernel's arrays when the
+    epoch cache holds the block's set, else the uncached one's. There is
+    no RLC and no blame pass."""
+    return secp_verify.prepare_batch(entries, epoch_cache.lookup(entries))
+
+
+def prepare_block(entries):
+    """The dispatcher's host stage, by the block's scheme."""
+    if getattr(entries, "scheme", "ed25519") == "secp256k1":
+        return prepare_secp(entries)
+    return prepare_ed25519(entries)
 
 
 def prepare_ed25519(entries):
@@ -150,6 +185,7 @@ class DeviceBatchVerifier(BatchVerifier):
 
     KEY_CLASS: type = PubKey
     KEY_NAME = ""
+    SCHEME = "ed25519"  # the EntryBlock scheme of the accumulated entries
     SIGNATURE_SIZE = 64
 
     def __init__(self, device):
@@ -175,7 +211,7 @@ class DeviceBatchVerifier(BatchVerifier):
         if len(block):
             # keep submission order: flush interleaved add() entries first
             if self._entries:
-                self._blocks.append(EntryBlock.from_entries(self._entries))
+                self._blocks.append(EntryBlock.from_entries(self._entries, scheme=self.SCHEME))
                 self._entries = []
             self._blocks.append(block)
 
@@ -185,8 +221,9 @@ class DeviceBatchVerifier(BatchVerifier):
     def verify(self) -> Tuple[bool, List[bool]]:
         blocks = list(self._blocks)
         if self._entries:
-            blocks.append(EntryBlock.from_entries(self._entries))
-        block = EntryBlock.concat(blocks)
+            blocks.append(EntryBlock.from_entries(self._entries, scheme=self.SCHEME))
+        block = EntryBlock.concat(blocks) if blocks else EntryBlock.from_entries(
+            [], scheme=self.SCHEME)
         if len(block) == 0:
             return False, []
         res = np.asarray(self._verify_block(block), dtype=bool)
@@ -210,3 +247,38 @@ class Ed25519DeviceBatchVerifier(DeviceBatchVerifier):
         from .pipeline import shared_verifier
 
         return shared_verifier(self.device).submit(block).result(timeout=600)
+
+
+# -- the synchronous batch path -----------------------------------------------
+
+
+def verify_batch_secp(entries: EntryBlock, *, device) -> np.ndarray:
+    """A secp256k1 EntryBlock of any size -> (n,) bool verdicts,
+    synchronously on the caller's thread (reference :547-575): chunks of
+    SECP_BUCKETS[-1], each prepared (cached when the epoch cache holds
+    the block's set), copied, launched and read back."""
+    if entries.scheme != "secp256k1":
+        raise ValueError(f"a {entries.scheme} block is not secp256k1")
+    out = []
+    cap = max_coalesce("secp256k1")
+    for i in range(0, len(entries), cap):
+        batch = prepare_secp(entries[i : i + cap])
+        with record_function("secp.h2d"):
+            dev_args = [torch.from_numpy(a).to(device) for a in batch.args]
+        res = batch.launch(dev_args)
+        with record_function("secp.d2h"):  # waits for the kernel
+            row = res.cpu().numpy()
+        out.append(batch.conclude(row))
+    return np.concatenate(out) if out else np.zeros((0,), dtype=bool)
+
+
+def verify_batch(entries, *, device) -> np.ndarray:
+    """The synchronous direct path (reference :864): an EntryBlock of any
+    size -> (n,) bool verdicts on `device`, by its scheme: secp256k1
+    through verify_batch_secp, ed25519 through the path TM_TPU_RLC picks
+    (rlc.verify_batch_rlc, verify.verify_batch_compact)."""
+    if entries.scheme == "secp256k1":
+        return verify_batch_secp(entries, device=device)
+    if use_rlc():
+        return rlc.verify_batch_rlc(entries, device=device)
+    return per_sig.verify_batch_compact(entries, device=device)

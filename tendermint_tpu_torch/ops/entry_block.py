@@ -15,8 +15,15 @@ and, for a commit's block, the epoch metadata of ops/epoch_cache.py:
     val_idx   (n,) int32    each signature's row in its validator set
     epoch_key bytes         the set's hash(), set when the set is warm
 
-Slicing keeps both; concat keeps them only when every block has rows
-and all share one key (rows of different sets index different tables).
+Every row of a block shares one signature scheme (`scheme`, "ed25519"
+unless said; ops/pipeline.py prepares a block by its scheme). A
+secp256k1 key is 33 bytes: the block keeps its SEC1 prefix byte in
+`pub_aux` (n,) uint8 and X in `pub`, so every block's pub column is
+(n, 32); pub_bytes(i) joins them again.
+
+Slicing keeps all of these; concat keeps the epoch metadata only when
+every block has rows and all share one key (rows of different sets
+index different tables), and refuses blocks of different schemes.
 
 A CommitBlock holds a commit's signatures as columns, filled once at
 wire decode (types/block.py); ops/commit_prep.py turns it into an
@@ -33,11 +40,13 @@ Entry = Tuple[bytes, bytes, bytes]
 
 
 class EntryBlock:
-    __slots__ = ("pub", "sig", "msgs", "offsets", "val_idx", "epoch_key")
+    __slots__ = ("pub", "sig", "msgs", "offsets", "val_idx", "epoch_key", "scheme",
+                 "pub_aux")
 
     def __init__(self, pub: np.ndarray, sig: np.ndarray, msgs,
                  offsets: np.ndarray, val_idx: np.ndarray = None,
-                 epoch_key: bytes = None):
+                 epoch_key: bytes = None, scheme: str = "ed25519",
+                 pub_aux: np.ndarray = None):
         n = pub.shape[0]
         if (
             pub.dtype != np.uint8 or sig.dtype != np.uint8
@@ -53,26 +62,39 @@ class EntryBlock:
             raise ValueError("offsets run outside the message buffer")
         if val_idx is not None and val_idx.shape != (n,):
             raise ValueError("val_idx must be (n,)")
+        if (pub_aux is None) != (scheme != "secp256k1"):
+            raise ValueError("a secp256k1 block, and only one, carries pub_aux")
+        if pub_aux is not None and (pub_aux.dtype != np.uint8 or pub_aux.shape != (n,)):
+            raise ValueError("pub_aux must be (n,) uint8")
         self.pub = pub
         self.sig = sig
         self.msgs = msgs
         self.offsets = offsets
         self.val_idx = val_idx
         self.epoch_key = epoch_key
+        self.scheme = scheme
+        self.pub_aux = pub_aux
 
     @classmethod
-    def from_entries(cls, entries: Sequence[Entry]) -> "EntryBlock":
-        """(pub32, msg, sig64) triples -> columns."""
+    def from_entries(cls, entries: Sequence[Entry], scheme: str = "ed25519") -> "EntryBlock":
+        """(pub, msg, sig64) triples -> columns; pub is 32 bytes, or 33
+        (SEC1 compressed) for scheme "secp256k1"."""
         n = len(entries)
-        if any(len(pk) != 32 or len(s) != 64 for pk, _, s in entries):
-            raise ValueError("entries must be (pub32, msg, sig64) triples")
-        pub = np.frombuffer(b"".join(pk for pk, _, _ in entries),
-                            dtype=np.uint8).reshape(n, 32)
+        klen = 33 if scheme == "secp256k1" else 32
+        if any(len(pk) != klen or len(s) != 64 for pk, _, s in entries):
+            raise ValueError(f"entries must be (pub{klen}, msg, sig64) triples")
+        raw = np.frombuffer(b"".join(pk for pk, _, _ in entries),
+                            dtype=np.uint8).reshape(n, klen)
+        pub_aux = None
+        if klen == 33:
+            pub_aux = np.ascontiguousarray(raw[:, 0])
+            raw = np.ascontiguousarray(raw[:, 1:])
         sig = np.frombuffer(b"".join(s for _, _, s in entries),
                             dtype=np.uint8).reshape(n, 64)
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum([len(m) for _, m, _ in entries], out=offsets[1:])
-        return cls(pub, sig, b"".join(m for _, m, _ in entries), offsets)
+        return cls(raw, sig, b"".join(m for _, m, _ in entries), offsets,
+                   scheme=scheme, pub_aux=pub_aux)
 
     def __len__(self) -> int:
         return self.pub.shape[0]
@@ -81,9 +103,16 @@ class EntryBlock:
         o = self.offsets
         return bytes(memoryview(self.msgs)[int(o[i]) : int(o[i + 1])])
 
+    def pub_bytes(self, i: int) -> bytes:
+        """Row i's key as the scheme writes it (the prefix byte joined
+        again for secp256k1)."""
+        if self.pub_aux is not None:
+            return bytes([int(self.pub_aux[i])]) + self.pub[i].tobytes()
+        return self.pub[i].tobytes()
+
     def entry(self, i: int) -> Entry:
         """ONE (pub, msg, sig) tuple — the blame path's per-lane re-verify."""
-        return self.pub[i].tobytes(), self.msg(i), self.sig[i].tobytes()
+        return self.pub_bytes(i), self.msg(i), self.sig[i].tobytes()
 
     def iter_entries(self) -> Iterator[Entry]:
         for i in range(len(self)):
@@ -122,17 +151,23 @@ class EntryBlock:
             o[start : stop + 1] - base,
             val_idx=None if self.val_idx is None else self.val_idx[start:stop],
             epoch_key=self.epoch_key,
+            scheme=self.scheme,
+            pub_aux=None if self.pub_aux is None else self.pub_aux[start:stop],
         )
 
     @staticmethod
     def concat(blocks: Sequence["EntryBlock"]) -> "EntryBlock":
         """One np.concatenate per column + one msgs join; a single
-        non-empty block passes through by identity."""
+        non-empty block passes through by identity. Blocks of different
+        schemes raise: their rows would meet the wrong kernel."""
+        if len({b.scheme for b in blocks}) > 1:
+            raise ValueError("cannot concat EntryBlocks of different schemes")
+        scheme = blocks[0].scheme if blocks else "ed25519"
         blocks = [b for b in blocks if len(b)]
         if len(blocks) == 1:
             return blocks[0]
         if not blocks:
-            return EntryBlock.from_entries([])
+            return EntryBlock.from_entries([], scheme=scheme)
         msgs = []
         offsets = [np.zeros(1, dtype=np.int64)]
         base = 0
@@ -152,6 +187,9 @@ class EntryBlock:
             np.concatenate(offsets),
             val_idx=np.concatenate([b.val_idx for b in blocks]) if same_epoch else None,
             epoch_key=key if same_epoch else None,
+            scheme=scheme,
+            pub_aux=(np.concatenate([b.pub_aux for b in blocks])
+                     if scheme == "secp256k1" else None),
         )
 
 

@@ -1,6 +1,7 @@
 """Validator-set epoch cache: device tables of the committee's points.
 
-Counterpart: tendermint_tpu/ops/epoch_cache.py (ed25519 only). A
+Counterpart: tendermint_tpu/ops/epoch_cache.py (its ed25519 and
+secp256k1 tables). A
 validator set stays the same from one height to the next, so the keys
 of every commit after the first are ones the device has already
 decompressed. The cache keys on ValidatorSet.hash(). The first sight of
@@ -9,17 +10,27 @@ the second sight on the set is warm: types/validation.py attaches the
 set's key (`epoch_key`) and each signature's validator row (`val_idx`)
 to the EntryBlock, and ops/rlc.py's k1_rlc_cached (or, on the
 per-signature path, ops/verify.py's k1_decompress_cached) reads A from
-the set's table instead of decompressing it. sr25519 sets are never
-noted: they have no ed25519 columns.
+the set's table instead of decompressing it. An all-secp256k1 set is
+noted too (reference :410-419): its warm batches take
+ops/secp_verify.py's cached kernel. sr25519 and mixed sets are never
+noted: they have neither column.
 
-    coords_tables(device)  (4*32, vp) int32 decompressed extended
-                           coordinates in the kernels' 32-row slots and
-                           (1, vp) int32 ok flags, built once per device
-                           by the epoch_coords kernel (csrc/rlc.cu)
+    coords_tables(device)  ed25519: (4*32, vp) int32 decompressed
+                           extended coordinates in the kernels' 32-row
+                           slots and (1, vp) int32 ok flags, built once
+                           per device by the epoch_coords kernel
+                           (csrc/rlc.cu)
+    secp_tables(device)    secp256k1 (reference :221-247): (vp, 8) int32
+                           affine x and y words and (vp,) bool ok flags,
+                           decompressed once per set on the host
+                           (secp_verify.table_columns) and uploaded once
+                           per device
 
-Rows are padded to vp = max(next_pow2(v + 1), 16) with the identity
-encoding, so column vp - 1 is always the identity: padding signatures
-gather it.
+Rows are padded to vp = max(next_pow2(v + 1), 16) with the scheme's
+padding key (ed25519: the identity encoding; secp256k1: the compressed
+generator, reference _secp_pad_pub :74), so row vp - 1 is always a
+padding row: padding signatures gather it. `lookup` hands a block only
+the entry of its own scheme.
 
 TM_TPU_EPOCH_CACHE=N sets the LRU depth (0 disables the cache); unset,
 the depth is 8. An evicted or unknown key makes `lookup` return None and
@@ -36,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..crypto import _weierstrass
 from . import fe, kernels, point
 
 DEFAULT_DEPTH = 8
@@ -43,6 +55,8 @@ TABLE_ROWS = 4 * 32
 
 _IDENT_ENC = np.zeros(32, dtype=np.uint8)
 _IDENT_ENC[0] = 1  # y = 1: the identity point's encoding
+# the compressed secp256k1 generator, the padding rows of a secp256k1 set
+_SECP_PAD = np.frombuffer(_weierstrass.compress(_weierstrass.G), dtype=np.uint8)
 
 
 def _next_pow2(n: int) -> int:
@@ -100,46 +114,72 @@ def table_columns(entries, bucket: int, ep: "EpochEntry") -> np.ndarray:
 
 
 class EpochEntry:
-    """One validator set's keys: `pub_rows` (vp, 32) on the host, padded
-    with identity rows, and its device tables, built lazily once per
-    device under the entry's lock."""
+    """One validator set's keys: `pub_rows` (vp, 32) on the host (vp, 33
+    for secp256k1), padded with the scheme's padding key, and its device
+    tables, built lazily once per device under the entry's lock."""
 
-    __slots__ = ("key", "n_vals", "vp", "pub_rows", "_mtx", "_tables")
+    __slots__ = ("key", "n_vals", "vp", "pub_rows", "scheme", "_mtx", "_tables")
 
-    def __init__(self, key: bytes, pub_col: np.ndarray):
+    def __init__(self, key: bytes, pub_col: np.ndarray, scheme: str = "ed25519"):
         v = pub_col.shape[0]
         vp = max(_next_pow2(v + 1), 16)
-        rows = np.empty((vp, 32), dtype=np.uint8)
+        pad = _SECP_PAD if scheme == "secp256k1" else _IDENT_ENC
+        rows = np.empty((vp, pad.shape[0]), dtype=np.uint8)
         rows[:v] = pub_col
-        rows[v:] = _IDENT_ENC
+        rows[v:] = pad
         self.key = key
         self.n_vals = v
         self.vp = vp
         self.pub_rows = rows
+        self.scheme = scheme
         self._mtx = threading.Lock()
         self._tables: dict = {}
 
     def coords_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """((4*32, vp) int32 coordinates, (1, vp) int32 ok flags) on
-        `device`, built on first use there on the current stream. A
-        caller on another CUDA stream than the build's waits for the
-        build's event, and the tables are recorded as used on its stream,
-        so the caching allocator keeps their memory until its kernels
-        are done."""
+        `device` (an ed25519 set), built on first use there on the
+        current stream; see _on_device."""
+        if self.scheme != "ed25519":
+            raise ValueError(f"a {self.scheme} set has no ed25519 table")
+        return self._on_device("coords", device, lambda dev: epoch_coords(
+            torch.from_numpy(np.ascontiguousarray(self.pub_rows.T)).to(dev)))
+
+    def secp_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """((vp, 8) int32 x, (vp, 8) int32 y, (vp,) bool ok) on `device`
+        (a secp256k1 set): each key decompressed on the host once per set
+        (secp_verify.table_columns: a key that does not decompress is G
+        with ok False, a padding row G with ok True), uploaded on first
+        use there on the current stream; see _on_device."""
+        if self.scheme != "secp256k1":
+            raise ValueError(f"a {self.scheme} set has no secp256k1 table")
+        from . import secp_verify
+
+        def build(dev):
+            # table_columns appends the padding row itself
+            cols = secp_verify.table_columns([r.tobytes() for r in self.pub_rows[: self.vp - 1]])
+            return tuple(torch.from_numpy(c).to(dev) for c in cols)
+
+        return self._on_device("secp", device, build)
+
+    def _on_device(self, kind: str, device, build) -> tuple:
+        """The tables `kind` on `device`, made by build(dev) on first use
+        there on the current stream. A caller on another CUDA stream than
+        the build's waits for the build's event, and the tables are
+        recorded as used on its stream, so the caching allocator keeps
+        their memory until its kernels are done."""
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         with self._mtx:
-            t = self._tables.get(dev)
+            t = self._tables.get((kind, dev))
             if t is None:
-                pub_t = torch.from_numpy(np.ascontiguousarray(self.pub_rows.T)).to(dev)
-                tables = epoch_coords(pub_t)
+                tables = build(dev)
                 stream = built = None
                 if dev.type == "cuda":
                     stream = torch.cuda.current_stream(dev)
                     built = torch.cuda.Event()
                     built.record(stream)
-                t = self._tables[dev] = (tables, stream, built)
+                t = self._tables[(kind, dev)] = (tables, stream, built)
         tables, stream, built = t
         if built is not None:
             cur = torch.cuda.current_stream(dev)
@@ -170,7 +210,8 @@ class EpochCache:
                 self._entries.move_to_end(key)
             return e
 
-    def note(self, key: bytes, pub_col: np.ndarray) -> Optional[EpochEntry]:
+    def note(self, key: bytes, pub_col: np.ndarray,
+             scheme: str = "ed25519") -> Optional[EpochEntry]:
         """The entry of a warm set (seen before: a hit); a cold set is
         registered (a miss, evicting the least recent beyond `depth`) and
         gives None, so its first commit verifies cold."""
@@ -181,7 +222,7 @@ class EpochCache:
                 self.hits += 1
                 return e
             self.misses += 1
-            self._entries[key] = EpochEntry(key, pub_col)
+            self._entries[key] = EpochEntry(key, pub_col, scheme)
             while len(self._entries) > self.depth:
                 self._entries.popitem(last=False)
                 self.evictions += 1
@@ -227,25 +268,31 @@ def reset(depth: Optional[int] = None) -> None:
 
 def note_valset(vals) -> Optional[bytes]:
     """Register or refresh `vals`; its key when the set is warm (seen
-    before) and all-ed25519, else None."""
+    before) and all-ed25519 or all-secp256k1, else None."""
     c = cache()
     if c is None:
         return None
-    cols = vals.ed25519_columns()
+    cols, scheme = vals.ed25519_columns(), "ed25519"
+    if cols is None:
+        cols, scheme = vals.secp256k1_columns(), "secp256k1"
     if cols is None:
         return None
     key = vals.hash()
-    return key if c.note(key, cols[0]) is not None else None
+    return key if c.note(key, cols[0], scheme) is not None else None
 
 
 def lookup(entries) -> Optional[EpochEntry]:
     """The epoch entry of an EntryBlock, or None (no key or rows, an
-    evicted key, or the cache disabled)."""
+    evicted key, the cache disabled, or an entry of another scheme than
+    the block's: its table would feed the wrong kernel)."""
     key = getattr(entries, "epoch_key", None)
     if key is None or getattr(entries, "val_idx", None) is None:
         return None
     c = cache()
-    return None if c is None else c.get(key)
+    e = None if c is None else c.get(key)
+    if e is not None and e.scheme != getattr(entries, "scheme", "ed25519"):
+        return None
+    return e
 
 
 def stats() -> dict:

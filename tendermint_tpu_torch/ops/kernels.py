@@ -10,7 +10,8 @@ file. nvcc's `-Xptxas -v` report (registers, spills) is kept beside it.
 
 Every kernel wrapper launches through `launch`, which counts the
 launches per kernel in LAUNCHES (plain-version calls on CPU tensors are
-not launches).
+not launches). A pointer argument given as None is a null pointer (the
+secp256k1 kernels' optional coordinate output).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu")
+SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu")
 HEADERS = ("fe25519.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,6 +52,8 @@ _ENTRIES = {
     "k3_ladder": (7, 1),
     "k1r_decode": (10, 1),
     "k3r_ladder": (7, 1),
+    "secp_verify": (9, 1),
+    "secp_verify_cached": (11, 2),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}
@@ -166,16 +169,17 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
 
 def launch(name: str, *args) -> None:
     """Call the C entry tm_<name> on the current stream of its tensors'
-    device: tensors first, then ints, as _ENTRIES lists them. The entry
-    returns cudaGetLastError() of its launch; a launch counts in
-    LAUNCHES only when that is 0."""
+    device: tensors first (None for a null pointer), then ints, as
+    _ENTRIES lists them. The entry returns cudaGetLastError() of its
+    launch; a launch counts in LAUNCHES only when that is 0."""
     lib = library()
     n_ptr, n_int = _ENTRIES[name]
     ptrs, ints = args[:n_ptr], args[n_ptr:]
-    if len(ints) != n_int or not all(isinstance(t, torch.Tensor) for t in ptrs):
+    if (len(ints) != n_int or not isinstance(ptrs[0], torch.Tensor)
+            or not all(t is None or isinstance(t, torch.Tensor) for t in ptrs)):
         raise TypeError(f"{name} takes {n_ptr} tensors and {n_int} ints")
     dev = ptrs[0].device
-    cargs = [ctypes.c_void_p(t.data_ptr()) for t in ptrs]
+    cargs = [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs]
     cargs += [ctypes.c_int(int(i)) for i in ints]
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):

@@ -9,8 +9,10 @@ submitted from any thread and come back as futures of (n,) bool
 verdicts. Three threads:
 
   coalescer   drains submit()s in arrival order, fuses jobs of one
-              epoch into device batches up to max_batch(), and runs
-              each batch's host prep; it touches no CUDA
+              epoch and one scheme into device batches up to
+              max_batch(), and runs each batch's host prep (by the
+              block's scheme: ed25519's RLC or per-signature prep,
+              secp256k1's); it touches no CUDA
   dispatcher  the only thread that allocates device tensors, issues
               copies or launches kernels: it copies batch k+1's inputs
               through pinned staging on a copy stream (ops/device_pool)
@@ -50,8 +52,7 @@ with their fuse caps, the ingress reservation, preemption and the prep
 pool; they come with their first callers (ops/ingress.py, blocksync
 replay), and until then every job is the consensus class's, served in
 arrival order. Also the mesh coalescer (_worker_mesh :870,
-_prepare_mesh :638); the BLS and secp256k1 prep branches (:516-552), so
-every block is ed25519 and there is no scheme gate; the op-graph branch
+_prepare_mesh :638); the BLS prep branch (:516-534); the op-graph branch
 (:604-628); the devcheck canaries and lint-bug seams; the metrics and
 tracer flows; commit_entries_legacy (:1383), whose work the object path
 of types/validation does here. The reference's TM_TPU_POOL_DEPTH is the
@@ -135,9 +136,10 @@ class AsyncBatchVerifier:
     with `args` (the numpy arrays to copy), `bucket`, `launch(dev_args)`
     (device tensors in, the device verdicts out, on the current stream)
     and `conclude(row)` (the host copy of those verdicts -> (n,) bool).
-    The default is backend.prepare_ed25519; tests pass stand-ins.
-    `max_batch` caps a device batch (default backend.max_coalesce(),
-    read at each submit)."""
+    The default is backend.prepare_block (by the block's scheme); tests
+    pass stand-ins. A device batch is capped at
+    backend.max_coalesce(scheme), read at each submit, and at `max_batch`
+    where that is given."""
 
     def __init__(self, device=None, depth: int = 3, pool_depth: Optional[int] = None, *,
                  prepare=None, max_batch: Optional[int] = None):
@@ -145,7 +147,7 @@ class AsyncBatchVerifier:
         self._depth = max(int(depth), 1)
         self._pool = _dpool.DeviceBufferPool(
             self._depth + 1 if pool_depth is None else pool_depth, self.device)
-        self._prepare = prepare or backend.prepare_ed25519
+        self._prepare = prepare or backend.prepare_block
         self._max_batch = max_batch
         self._q: queue.Queue = queue.Queue()
         self._dispatch_q: queue.Queue = queue.Queue()
@@ -171,8 +173,9 @@ class AsyncBatchVerifier:
 
     # -- intake ------------------------------------------------------------
 
-    def max_batch(self) -> int:
-        return backend.max_coalesce() if self._max_batch is None else self._max_batch
+    def max_batch(self, scheme: str = "ed25519") -> int:
+        cap = backend.max_coalesce(scheme)
+        return cap if self._max_batch is None else min(cap, self._max_batch)
 
     def submit(self, entries) -> Future:
         """A future of the (n,) bool verdicts of `entries` (an EntryBlock,
@@ -183,7 +186,7 @@ class AsyncBatchVerifier:
         if self._broken is not None:
             raise RuntimeError(f"the device failed: {self._broken!r}")
         block = _as_block(entries)
-        max_b = self.max_batch()
+        max_b = self.max_batch(block.scheme)
         if len(block) > max_b:
             return self._submit_chunked(block, max_b)
         job = _Job(block)
@@ -227,9 +230,11 @@ class AsyncBatchVerifier:
     # -- coalescer ---------------------------------------------------------
 
     def _worker(self) -> None:
-        """Fuse queued jobs of one epoch key into a batch up to
-        max_batch(), peel trailing jobs while that lands the batch in a
-        smaller bucket, prepare it and hand it to the dispatcher."""
+        """Fuse queued jobs of one epoch key and one scheme into a batch
+        up to max_batch(), peel trailing jobs while that lands the batch
+        in a smaller bucket, prepare it and hand it to the dispatcher.
+        Two blocks of different schemes never fuse (two cold blocks both
+        have the epoch key None)."""
         hold: Optional[_Job] = None
         try:
             while True:
@@ -244,10 +249,11 @@ class AsyncBatchVerifier:
                 jobs = [job]
                 total = len(job.entries)
                 key0 = job.entries.epoch_key
+                scheme0 = job.entries.scheme
                 # while the device is busy a short linger fuses stragglers
                 busy = self._inflight > 0 or self._dispatch_q.qsize() > 0
                 deadline = time.monotonic() + 0.008 if busy else 0.0
-                limit = self.max_batch()
+                limit = self.max_batch(scheme0)
                 while total < limit:
                     try:
                         nxt = self._q.get_nowait()
@@ -259,7 +265,8 @@ class AsyncBatchVerifier:
                             nxt = self._q.get(timeout=wait)
                         except queue.Empty:
                             break
-                    if total + len(nxt.entries) > limit or nxt.entries.epoch_key != key0:
+                    if (total + len(nxt.entries) > limit or nxt.entries.epoch_key != key0
+                            or nxt.entries.scheme != scheme0):
                         hold = nxt
                         break
                     jobs.append(nxt)
@@ -267,10 +274,10 @@ class AsyncBatchVerifier:
                 # a total just past a bucket pays its padding: peel trailing
                 # jobs back while that lands the batch in a smaller bucket
                 while len(jobs) > 1 and hold is None:
-                    b = backend.quantized_bucket(total)
+                    b = backend.quantized_bucket(total, scheme0)
                     if b - total <= max(b // 8, 1024):
                         break
-                    if backend.quantized_bucket(total - len(jobs[-1].entries)) >= b:
+                    if backend.quantized_bucket(total - len(jobs[-1].entries), scheme0) >= b:
                         break
                     hold = jobs.pop()
                     total -= len(hold.entries)
@@ -418,8 +425,10 @@ def commit_entries(chain_id: str, vals, commit, voting_power_needed: int) -> Tup
     voting_power_needed (validation.go:152 with countAllSignatures
     false), and the power tallied, by the fused commit prep
     (ops/commit_prep.py). A commit the fused prep cannot take goes
-    through the object path of types/validation; a set that is not all
-    ed25519 raises TypeError."""
+    through the object path of types/validation, as does an
+    all-secp256k1 set (reference :1420-1429: its block is of scheme
+    secp256k1, with the set's rows and epoch key); any other set raises
+    TypeError."""
     from ..types import validation as _validation
     from ..types.validator_set import ErrNotEnoughVotingPowerSigned
 
@@ -432,9 +441,9 @@ def commit_entries(chain_id: str, vals, commit, voting_power_needed: int) -> Tup
         if block is None:
             raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
         return block, tallied
-    if vals.ed25519_columns() is None:
+    if vals.ed25519_columns() is None and vals.secp256k1_columns() is None:
         raise TypeError("pubkey is not ed25519")
-    block, _sig_idxs, tallied = _validation.select_block(
+    block, _keys, _sig_idxs, tallied = _validation.select_block(
         chain_id, vals, commit, voting_power_needed, _validation._ignore_not_for_block,
         _validation._count_all, False, True)
     return block, tallied
@@ -450,7 +459,8 @@ def verify_commits_pipelined(chain_id: str, jobs: Sequence[Tuple[object, object,
     jobs are packed into full batches of backend.BUCKETS[-1] (a job may
     straddle two) and sent through `verifier` (default the device's
     shared one); a bad signature is blamed by its index within its job,
-    `wrong signature (entry i)`."""
+    `wrong signature (entry i)`. A batch holds one scheme: a job whose
+    scheme differs from the running batch's starts a new one."""
     from ..types.validation import _verify_basic_vals_and_commit
 
     v = verifier or shared_verifier(device)
@@ -480,6 +490,8 @@ def verify_commits_pipelined(chain_id: str, jobs: Sequence[Tuple[object, object,
         except (ValueError, RuntimeError) as e:
             errors[i] = str(e)
             continue
+        if cur and cur[0].scheme != entries.scheme:
+            flush()
         pos = 0
         while pos < len(entries):
             take = min(len(entries) - pos, max_b - cur_n)

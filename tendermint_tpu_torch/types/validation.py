@@ -34,7 +34,12 @@ prepare_commit_range, prepare_commit_light_trusting; reference
 validation.py:183-370), which returns the batch and its conclude
 instead of verifying, for a caller that ships the batch through the
 dispatcher (ops/pipeline.py) itself: the light verifier's
-SigCheck.prepare and the batched light service.
+SigCheck.prepare and the batched light service. The seam also batches
+an all-secp256k1 set (_should_batch_prepare, reference :73-89), which
+crypto.batch cannot: its block is of scheme secp256k1, with the set's
+rows and epoch key, for ops/secp_verify.py's kernels; the synchronous
+verify_commit* keep the reference's routing and verify such a set one
+signature at a time on the host.
 """
 
 from __future__ import annotations
@@ -88,6 +93,17 @@ def _should_batch_verify(vals: ValidatorSet, commit: Commit) -> bool:
     return len(commit.signatures) >= BATCH_VERIFY_THRESHOLD and _batch.supports_batch_verifier(
         proposer.pub_key if proposer else None
     )
+
+
+def _should_batch_prepare(vals: ValidatorSet, commit: Commit) -> bool:
+    """The prepare seam's batch gate (reference :73-89): the reference's
+    per-key gate, or an all-secp256k1 set, which the device's secp256k1
+    lane batches though crypto.batch has no secp256k1 verifier
+    (batch.go:26-33); its verdicts and blame are the single path's."""
+    if _should_batch_verify(vals, commit):
+        return True
+    return (len(commit.signatures) >= BATCH_VERIFY_THRESHOLD
+            and vals.secp256k1_columns() is not None)
 
 
 def _ignore_absent(c: CommitSig) -> bool:
@@ -250,15 +266,17 @@ def _fused_commit_prep(chain_id, vals, commit, voting_power_needed, ignore_sig,
     return commit_prep.prep_commit_from(commit, vals, chain_id, voting_power_needed, mode)
 
 
-def _batch_gate(vals: ValidatorSet, commit: Commit):
+def _batch_gate(vals: ValidatorSet, commit: Commit, secp_lane: bool = False):
     """The batch path's precondition (validation.go:152-160): a proposer
     whose key type batches, and at least BATCH_VERIFY_THRESHOLD
-    signatures. Returns the proposer."""
+    signatures; with secp_lane (the prepare seam, reference :318-334), an
+    all-secp256k1 set passes too. Returns the proposer."""
     proposer = vals.get_proposer()
     if (
         proposer is None
         or len(commit.signatures) < BATCH_VERIFY_THRESHOLD
-        or not _batch.supports_batch_verifier(proposer.pub_key)
+        or not (_batch.supports_batch_verifier(proposer.pub_key)
+                or (secp_lane and vals.secp256k1_columns() is not None))
     ):
         raise RuntimeError(
             "unsupported signature algorithm or insufficient signatures for batch verification"
@@ -272,9 +290,10 @@ def select_block(chain_id: str, vals: ValidatorSet, commit: Commit, voting_power
     objects, then the sign bytes and the batch. Returns (EntryBlock,
     keys, sig_idxs, tallied): an all-ed25519 set's block carries the
     selected validators' rows of vals (by address, not the signatures'
-    indices) and the set's epoch key, and keys is None; any other set's
-    block carries the keys' bytes and keys the PubKey objects, for the
-    batch verifier's type check."""
+    indices) and the set's epoch key, and keys is None, as does an
+    all-secp256k1 set's, of scheme secp256k1 (reference :357-383); any
+    other set's block carries the keys' bytes and keys the PubKey
+    objects, for the batch verifier's type check."""
     with record_function("commit.select"):
         selected, tallied = _select_commit_sigs(
             vals, commit, voting_power_needed,
@@ -289,17 +308,26 @@ def select_block(chain_id: str, vals: ValidatorSet, commit: Commit, voting_power
         n = len(selected)
         sig = np.frombuffer(b"".join(sigs[i].signature for i in sig_idxs),
                             dtype=np.uint8).reshape(n, 64)
-        # columns exist only for an all-ed25519 set: an sr25519 or mixed
-        # set takes the per-key path below and is never noted in the
-        # epoch cache
+        # columns exist only for an all-ed25519 or all-secp256k1 set: an
+        # sr25519 or mixed set takes the per-key path below and is never
+        # noted in the epoch cache
         cols = vals.ed25519_columns()
+        scols = None if cols is not None else vals.secp256k1_columns()
+        rows = np.asarray([row for _, row, _ in selected], dtype=np.int32)
         if cols is not None:
             # every key is ed25519 (JAX validation.py:357-383): the key
             # type check is the column's
-            rows = np.asarray([row for _, row, _ in selected], dtype=np.int32)
             keys = None
             block = EntryBlock(cols[0][rows], sig, buf, offsets, val_idx=rows,
                                epoch_key=epoch_cache.note_valset(vals))
+        elif scols is not None:
+            # every key is secp256k1: the 33-byte keys split into the
+            # prefix column and X
+            keys = None
+            raw = scols[0][rows]
+            block = EntryBlock(np.ascontiguousarray(raw[:, 1:]), sig, buf, offsets,
+                               val_idx=rows, epoch_key=epoch_cache.note_valset(vals),
+                               scheme="secp256k1", pub_aux=np.ascontiguousarray(raw[:, 0]))
         else:
             keys = [val.pub_key for _, _, val in selected]
             pub_b = b"".join(k.bytes() for k in keys)
@@ -381,8 +409,8 @@ def _verify_commit_batch(
 
 class PrepareUnsupported(Exception):
     """prepare_commit_batch cannot represent this commit's set as one
-    ed25519 EntryBlock (an sr25519 or mixed set): the caller takes the
-    synchronous path, which handles every case."""
+    EntryBlock of one scheme (an sr25519 or mixed set): the caller takes
+    the synchronous path, which handles every case."""
 
 
 def prepare_commit_batch(
@@ -400,10 +428,11 @@ def prepare_commit_batch(
     path, but the EntryBlock (validator rows and epoch key attached) is
     returned with conclude(valid), which raises the batch path's blame
     over a validity row. Raises what _verify_commit_batch raises before
-    its verify, or PrepareUnsupported for a set that is not all
-    ed25519."""
-    _batch_gate(vals, commit)
-    if vals.ed25519_columns() is None:
+    its verify, or PrepareUnsupported for a set that is neither all
+    ed25519 nor all secp256k1 (reference :297-384: a secp256k1 set's
+    block is of scheme secp256k1, for the device's secp256k1 lane)."""
+    _batch_gate(vals, commit, secp_lane=True)
+    if vals.ed25519_columns() is None and vals.secp256k1_columns() is None:
         raise PrepareUnsupported("validator set is not single-scheme columnar")
     block, _keys, conclude = _prepare_block(
         chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
@@ -417,10 +446,11 @@ def prepare_commit_light(chain_id: str, vals: ValidatorSet, block_id: BlockID,
     commit checks, then prepare_commit_batch with the light predicates.
     Returns (entries, conclude), or (None, None) when the commit took
     the single-signature path below the batch threshold and is verified
-    already (on the host)."""
+    already (on the host). An all-secp256k1 set batches (the reference's
+    gate, _should_batch_prepare)."""
     _verify_basic_vals_and_commit(vals, commit, height, block_id)
     voting_power_needed = vals.total_voting_power() * 2 // 3
-    if not _should_batch_verify(vals, commit):
+    if not _should_batch_prepare(vals, commit):
         _verify_commit_single(chain_id, vals, commit, voting_power_needed,
                               _ignore_not_for_block, _count_all, False, True)
         return None, None
@@ -463,7 +493,7 @@ def prepare_commit_light_trusting(chain_id: str, vals: ValidatorSet, commit: Com
             "please provide smaller trustLevel numerator"
         )
     voting_power_needed = total_mul // trust_level.denominator
-    if not _should_batch_verify(vals, commit):
+    if not _should_batch_prepare(vals, commit):
         _verify_commit_single(chain_id, vals, commit, voting_power_needed,
                               _ignore_not_for_block, _count_all, False, False)
         return None, None

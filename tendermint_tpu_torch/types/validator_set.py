@@ -22,6 +22,7 @@ import numpy as np
 
 from ..crypto import PubKey
 from ..crypto import ed25519 as _ed25519
+from ..crypto import secp256k1 as _secp256k1
 from ..crypto import merkle
 from ..crypto.encoding import pubkey_from_proto, pubkey_to_proto
 from ..wire.proto import (
@@ -133,6 +134,7 @@ class ValidatorSet:
         self._total_voting_power = 0
         self._hash: Optional[bytes] = None
         self._ed_cols = None
+        self._secp_cols = None
         self._by_addr: Optional[Dict[bytes, int]] = None
 
     @classmethod
@@ -235,25 +237,37 @@ class ValidatorSet:
             )
         return self._hash
 
+    def _columns(self, key_cls, size: int) -> tuple:
+        """(pub (n, size) uint8, power (n,) int64) when every key is a
+        key_cls, else ()."""
+        vals = self.validators
+        n = len(vals)
+        if n and all(isinstance(v.pub_key, key_cls) for v in vals):
+            pub_b = b"".join(v.pub_key.bytes() for v in vals)
+            if len(pub_b) == size * n:
+                return (
+                    np.frombuffer(pub_b, dtype=np.uint8).reshape(n, size),
+                    np.fromiter((v.voting_power for v in vals), dtype=np.int64, count=n),
+                )
+        return ()
+
     def ed25519_columns(self) -> Optional[tuple]:
         """(pub (n, 32) uint8, power (n,) int64) over the set, or None
         unless every key is ed25519: the commit path gathers its
         signatures' keys from here, and the epoch cache builds its table
         from the pub column."""
         if self._ed_cols is None:
-            vals = self.validators
-            n = len(vals)
-            cols = ()
-            if n and all(isinstance(v.pub_key, _ed25519.PubKey) for v in vals):
-                pub_b = b"".join(v.pub_key.bytes() for v in vals)
-                if len(pub_b) == 32 * n:
-                    cols = (
-                        np.frombuffer(pub_b, dtype=np.uint8).reshape(n, 32),
-                        np.fromiter((v.voting_power for v in vals),
-                                    dtype=np.int64, count=n),
-                    )
-            self._ed_cols = cols
+            self._ed_cols = self._columns(_ed25519.PubKey, 32)
         return self._ed_cols or None
+
+    def secp256k1_columns(self) -> Optional[tuple]:
+        """(pub (n, 33) uint8, power (n,) int64) over the set, or None
+        unless every key is secp256k1 (reference validator_set.py:305-337):
+        the secp256k1 lane's counterpart of ed25519_columns, cached beside
+        it (an update of the set must clear both, with the hash)."""
+        if self._secp_cols is None:
+            self._secp_cols = self._columns(_secp256k1.PubKey, 33)
+        return self._secp_cols or None
 
     def validate_basic(self) -> None:
         if not self.validators:

@@ -544,3 +544,40 @@ def test_epoch_coords_matches_plain(battery, cuda, rows):
         assert torch.equal(g, w)
     if rows > 1:
         assert 0 < int(want[1].sum()) < rows and bool(want[1][0, live:].all())
+
+
+@pytest.mark.parametrize("rows", [1, 16, 200])
+def test_secp_kernels_match_plain(cuda, rows):
+    """secp_verify and secp_verify_cached against their plain versions:
+    verdicts and the canonical final (X, Y, Z), outputs allocated on
+    -1-filled memory. Over chip_smoke.py's secp256k1 edge battery and the
+    two crafted rows where only the r + n candidate matches (padding
+    where rows > 15); 1 and 200 rows leave threads of the last block past
+    the end. The cached kernel reads a table of the battery's keys in
+    reverse order."""
+    import chip_smoke
+    from tendermint_tpu_torch.ops import secp_verify as sv
+
+    edge = chip_smoke.secp_edge_entries()
+    items = (edge * (rows // len(edge) + 1))[: max(rows - 2, 1)]
+    args = list(sv.prepare_rows(items, rows))
+    if rows > 2:
+        for a, w in zip(args, chip_smoke.secp_wrap_rows()):
+            a[rows - 2 :] = w
+    t = [torch.from_numpy(a).to(cuda) for a in args]
+    want = sv.verify_plain(*t, want_xyz=True)
+    _garbage_pool(cuda, (rows, 3, sv.NW))
+    got = sv.secp_verify(*t, want_xyz=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    pubs = sorted({p for p, _, _ in edge})[::-1]
+    tbl = [torch.from_numpy(a).to(cuda) for a in sv.table_columns(pubs)]
+    vidx = np.array([pubs.index(p) for p, _, _ in items], dtype=np.int32)
+    ct = [torch.from_numpy(a).to(cuda)
+          for a in sv.prepare_rows_cached(items, vidx, rows, len(pubs), len(pubs))]
+    want = sv.verify_cached_plain(*tbl, *ct, want_xyz=True)
+    got = sv.secp_verify_cached(*tbl, *ct, want_xyz=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if rows > 2:
+        assert 0 < int(want[0].sum()) < rows

@@ -356,7 +356,7 @@ def test_default_verifier_splits_an_oversized_block_in_the_dispatcher(monkeypatc
         return Tagged(entries, [])
 
     monkeypatch.setattr(backend, "prepare_ed25519", prepare)
-    monkeypatch.setattr(backend, "max_coalesce", lambda: 64)
+    monkeypatch.setattr(backend, "max_coalesce", lambda scheme="ed25519": 64)
     bv = backend.Ed25519DeviceBatchVerifier(device=torch.device("cpu"))
     valid = np.arange(150) % 11 != 4
     bv.add_block(_block_of(150, 9, valid))
