@@ -20,7 +20,9 @@ Phases, in order:
    use); a 10,240-validator secp256k1 commit (bench.py schemes' set,
    power 100 each) and BASELINE.json config #4 (2,048 ed25519, 1,792
    sr25519 and 256 secp256k1 signatures, as bench._bench_mixed_curve
-   builds it), all signed by the spawn pool;
+   builds it), and slice (h)'s 128-validator BLS12-381 committee (keys by
+   successive addition of g1, their statuses) and its windows of
+   aggregated commits, all signed by the spawn pool;
 3. host: each C helper of the host library on the 10,000-validator
    inputs against its Python or numpy oracle (commit_prep.
    _prep_commit_numpy, backend._challenges, rlc._rlc_scalars_py with
@@ -28,7 +30,7 @@ Phases, in order:
    `% L`), outputs equal byte for byte; the C time (median of
    HOST_REPS) on the library's threads and on one, the oracle's time,
    and the host's CPU model and count;
-4. kernels: each of the thirteen CUDA entries on the card against its plain
+4. kernels: each of the fifteen CUDA entries on the card against its plain
    PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
    and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
@@ -45,7 +47,13 @@ Phases, in order:
    limbs of k2_table's table and of the coordinates of the four K1s,
    the epoch table and k1r_decode, rows 20..31 of each slot included),
    flags, digits and verdicts exactly, and the verdicts against the
-   oracles;
+   oracles; and (h1) the two BLS12-381 kernels (bls_miller,
+   bls_finalexp fused and by rows) at K = 4 over an 8-key committee and
+   K = 16 over a 128-key one, over the BLS battery (valid commits, a
+   wrong signature, a malformed, an identity and a non-subgroup G2
+   signature, signers taking two crafted non-subgroup G1 keys, an
+   identity aggregate, pad commits): apk, f_j and the residues word for
+   word, and the codes they give equal to the battery's;
 5. slice: `types.validation.verify_commit` on the 10,000-validator
    commit decoded from its wire bytes on the card, on each path with the
    launch counters set to 0 just before it and read just after:
@@ -134,6 +142,22 @@ Phases, in order:
        ed25519 block and an uncached secp256k1 block submitted at once
        while it runs: no batch holds two schemes, each job's verdicts
        right;
+   (h) the BLS12-381 aggregated-commit lane (ops/bls_verify.py,
+       csrc/bls12381.cu):
+       (h2) bench.py bls's acceptance shape (AGG_r01.json): 128
+       validators of power 100 (sk_i = i + 1), windows of 16 aggregated
+       commits with every signer, through
+       types.validation.prepare_aggregated_commit(k_hint=16), the
+       shared dispatcher and conclude, the launch counters set to 0
+       before each window: one warm-up window, three timed (median of
+       the host prep, launch A's two kernels, end to end, aggregated
+       commits a second), each exactly one launch A of width 16 and one
+       final exponentiation row (the fused one); then a window with
+       commit 7 carrying another height's aggregate: its exact blame,
+       the other 15 accepted, launch B run once (16 rows);
+       (h3) verify_aggregated_commit (the host walk) on two commits of
+       that window and backend.verify_batch_bls_codes on the whole of
+       it give the same verdicts and blame;
 6. timing, for each path (RLC cold, RLC warm, per-signature,
    per-signature warm, sr25519), on the decoded commit: the end-to-end
    verify_commit wall clock (warm, median of 20) and one call on the
@@ -155,8 +179,11 @@ Phases, in order:
    decode and hash, header hash, commit decode and materialization).
    Then the warm secp256k1 light call of (g1): 20 calls (median, min,
    max), and 5 traced for its stages (commit.select, commit.sign_bytes,
-   secp.prep, pipeline.*) and the card's busy time. The traces are kept
-   in build/traces/.
+   secp.prep, pipeline.*) and the card's busy time. Then the BLS kernels
+   at (h2)'s shape (K = 16, the epoch table's 256 rows): bls_miller and
+   the fused bls_finalexp over KERNEL_REPS launches, launch B's 16 rows
+   over BLS_ROWS_REPS, beside their bounds. The traces are kept in
+   build/traces/.
 
 The profiler traces every thread the process starts after it (the
 dispatcher's spans run on its threads), so each traced window starts
@@ -164,9 +191,10 @@ the device's dispatcher anew.
 
 It prints one JSON line of the light path's checks and times (with the
 card's name and power limit), one of slice (f)'s, one of slice (g)'s,
-one JSON line of kernel records (the launches of slices (a)-(d) and of
-config #5's first run in (f3); the secp256k1 kernels' of the cold and
-warm calls of (g1) and the first config #4 call of (g2)), then the
+one of slice (h)'s, one JSON line of kernel records (the launches of
+slices (a)-(d) and of config #5's first run in (f3); the secp256k1
+kernels' of the cold and warm calls of (g1) and the first config #4
+call of (g2); the BLS kernels' of (h2)'s five windows), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -194,8 +222,10 @@ import torch
 
 from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
-from tendermint_tpu_torch.crypto import _weierstrass, ed25519, secp256k1, sr25519
-from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, fe, host, kernels, rlc
+from tendermint_tpu_torch.crypto import _weierstrass, bls12381, ed25519, secp256k1, sr25519
+from tendermint_tpu_torch.libs.bits import BitArray
+from tendermint_tpu_torch.ops import backend, bls_verify, commit_prep, epoch_cache, fe, host
+from tendermint_tpu_torch.ops import kernels, rlc
 from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify
 from tendermint_tpu_torch.ops import sc_secp as secp_sc
 from tendermint_tpu_torch.db import MemDB
@@ -207,9 +237,10 @@ from tendermint_tpu_torch.light.provider import ErrLightBlockNotFound, LightBloc
 from tendermint_tpu_torch.light.store import LightStore
 from tendermint_tpu_torch.ops import verify
 from tendermint_tpu_torch.ops import sr25519 as osr
-from tendermint_tpu_torch.ops.entry_block import EntryBlock
+from tendermint_tpu_torch.ops.entry_block import AggBlock, EntryBlock
 from tendermint_tpu_torch.types import validation
 from tendermint_tpu_torch.types.block import (
+    AggregatedCommit,
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
     BLOCK_ID_FLAG_NIL,
@@ -270,6 +301,19 @@ SECP_LATE_TAMPER = 9_000
 SECP_SHAPES = (16, 10_240)
 MIXED = (2_048, 1_792, 256)
 G4_ED = 1_000
+# slice (h): (h1)'s (K, committee keys) shapes; (h2)'s committee
+# (bench.py bls, AGG_r01.json: 128 validators of power 100, sk_i = i + 1),
+# its window of aggregated commits, the timed windows after one warm-up,
+# and the commit tampered in the last window
+BLS_SHAPES = ((4, 8), (16, 128))
+BLS_VALIDATORS = 128
+BLS_POWER = 100
+BLS_WINDOW = 16
+BLS_WINDOWS = 3
+BLS_TAMPER = 7
+BLS_CHAIN = "bls-bench"
+BLS_BLOCK = BlockID(hash=b"\x20" * 32, part_set_header=PartSetHeader(total=1, hash=b"\x20" * 32))
+BLS_ROWS_REPS = 3  # launch B timings (each about a second)
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -366,6 +410,42 @@ WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2, "epoch_coords": 1}
 SECP_OPS = {"mul": 2_475, "sq": 260, "x21": 412, "x2": 130, "x3": 271, "x8": 130}
 SECP_WIDE = {"mul": 72, "sq": 44, "x21": 8}
 SECP_WIDE_PER_SIG = sum(SECP_OPS[k] * w for k, w in SECP_WIDE.items())
+# The BLS12-381 kernels (csrc/bls12381.cu) form 32 x 32 -> 64 products in
+# their Montgomery product only, 288 a product (12 rows of 12 for a b and
+# 12 for m p). A Miller step is an Fp12 square (57 Fp products), two line
+# evaluations (4) and two products by a line (54); a final exponentiation
+# 4,314 squares and 2,124 products (108) and 24 conversions (the CPU
+# stand-in of tests/test_torch_bls.py counts them: bls_fp_products).
+BLS_WIDE_PER_FP = 288
+BLS_STEP_PRODUCTS = 57 + 2 * (4 + 54)
+BLS_FINALEXP_PRODUCTS = 4_314 * 57 + 2_124 * 108 + 24
+# The BLS bounds count what the function needs on this run's data, not
+# what these kernels do (bls_bound_products): Fp products of the cheapest
+# published formulas, 288 wide products each at WIDE_PER_SM_CLOCK a clock
+# an SM. A signer's key added into the sum: a mixed addition, 11 (RCB16
+# Algorithm 8, a = 0). On the Fp6-over-Fp2 tower (the flat tower's
+# coefficients reordered): an Fp12 product 54 (Karatsuba: 18 Fp2
+# products of 3), a square 36 (two Fp6 products), a product by a sparse
+# line 39 (13 Fp2 products, Aranha et al. 2011), a cyclotomic square 18
+# (Granger-Scott: 9 Fp2 squares of 2), a Frobenius 15 (p, p^3) or 10
+# (p^2), an inversion 97 with its one Fp inversion counted as nothing.
+# A line at the projective apk takes 4 (c Z, lam X), at -g1 2 (lam x).
+# A commit's two Miller loops share their squares (one multi-Miller loop
+# gives f_j = f_0 f_1); the first square and the first two line products
+# act on 1 or on a line and count nothing, nor does a skipped add's line
+# (XI Y alone, a factor in Fp). A final exponentiation: the easy part
+# (an inversion, two products, a p^2 Frobenius) and the hard part of
+# Fuentes-Castaneda, Knapp and Rodriguez-Henriquez as the arkworks and
+# zkcrypto crates run it (five exponentiations by |x| = 0xd201000000010000,
+# 63 cyclotomic squares and 5 products each; 2 cyclotomic squares, 10
+# products, the p, p^2 and p^3 Frobenius), which gives a fixed power of
+# the exact value, 1 exactly where the exact value is.
+BLS_MIXED_ADD = 11
+BLS_F12_MUL, BLS_F12_SQ, BLS_LINE_MUL, BLS_CYCLO_SQ = 54, 36, 39, 18
+BLS_LINE_EVAL = (4, 2)  # at the apk, at -g1
+BLS_EASY_PART = 97 + 2 * 54 + 10
+BLS_HARD_PART = 5 * (63 * 18 + 5 * 54) + 2 * 18 + 10 * 54 + 15 + 10 + 15
+BLS_FINALEXP_BOUND = BLS_EASY_PART + BLS_HARD_PART
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
     "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
@@ -380,6 +460,8 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k3r_ladder": ("sr25519.cu", "tendermint_tpu/ops/pallas_sr25519.py:98"),
     "secp_verify": ("secp256k1.cu", "tendermint_tpu/ops/secp_verify.py:139"),
     "secp_verify_cached": ("secp256k1.cu", "tendermint_tpu/ops/secp_verify.py:205"),
+    "bls_miller": ("bls12381.cu", "tendermint_tpu/ops/bls_verify.py:247"),
+    "bls_finalexp": ("bls12381.cu", "tendermint_tpu/ops/bls_verify.py:300"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
 # canonicalisation; the rest, and every output of the four K1s, the epoch
@@ -387,7 +469,8 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
 SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
                 "epoch_coords": (), "k1_decompress": (), "k1_decompress_cached": (),
                 "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": (),
-                "secp_verify": (), "secp_verify_cached": ()}
+                "secp_verify": (), "secp_verify_cached": (), "bls_miller": (),
+                "bls_finalexp": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -685,7 +768,7 @@ def kernel_resources(ptxas: str) -> dict:
     out, name = {}, None
     for line in ptxas.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"for _ZN(?:3edw|4secp)\d+(\w+?)_kernelE", line)
+            m = re.search(r"for _ZN(?:3edw|4secp|3bls)\d+(\w+?)_kernelE", line)
             name = m.group(1) if m and m.group(1) in KERNELS else None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -2646,6 +2729,448 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
     return records
 
 
+# -- slice (h): the BLS12-381 aggregated-commit lane ----------------------------
+
+
+def bls_bad_g1(count: int) -> list:
+    """The first `count` on-curve G1 points outside the prime-order
+    subgroup, by smallest x (tools/prep_bench.py's crafting), compressed."""
+    out, x = [], 1
+    while len(out) < count:
+        y = bls12381.fp_sqrt((x * x * x + bls12381.B) % bls12381.P)
+        if y is not None and not bls12381.g1_in_subgroup((x, y)):
+            out.append(bls12381.g1_compress((x, y)))
+        x += 1
+    return out
+
+
+def bls_bad_g2() -> bytes:
+    """The first on-curve G2 point (c, 0) outside the subgroup, compressed."""
+    c = 1
+    while True:
+        x = (c, 0)
+        y = bls12381.f2_sqrt(bls12381.f2_add(bls12381.f2_mul(x, bls12381.f2_sqr(x)),
+                                             bls12381.f2_scalar(bls12381.XI, bls12381.B)))
+        if y is not None and not bls12381.g2_in_subgroup((x, y)):
+            return bls12381.g2_compress((x, y))
+        c += 1
+
+
+def bls_keys(n: int) -> list:
+    """The compressed keys of sk = 1..n, by successive addition of g1
+    (pk_(i+1) = pk_i + g1), not n scalar multiplications."""
+    out, pt = [], None
+    for _ in range(n):
+        pt = bls12381.g1_add(pt, bls12381.G1_GEN)
+        out.append(bls12381.g1_compress(pt))
+    return out
+
+
+def bls_battery_committee(n: int) -> list:
+    """(h1)'s committee of n keys: sk = 1..n-3 at rows 0..n-4, two
+    crafted non-subgroup keys at rows n-3 and n-2, and at row n-1 the key
+    of sk = r - 10, which cancels rows 0..3 (sk 1 + 2 + 3 + 4 = 10)."""
+    cancel = bls12381.g1_neg(bls12381.g1_mul(10, bls12381.G1_GEN))
+    return bls_keys(n - 3) + bls_bad_g1(2) + [bls12381.g1_compress(cancel)]
+
+
+def bls_battery(n: int, msg: bytes) -> tuple:
+    """(h1)'s commits over bls_battery_committee(n), all signing `msg`, and
+    their expected verdict codes: valid (every honest key, then rows 0
+    and 2), a wrong signature, a malformed, an identity and a
+    non-subgroup signature, signers taking both crafted keys (the lower
+    row blamed) and an identity aggregate (rows 0..3 and n-1) under a
+    valid signature."""
+    h = bls12381.hash_to_g2(msg)
+
+    def sig(s: int) -> bytes:
+        return bls12381.g2_compress(bls12381.g2_mul(s, h))
+
+    def bits(rows) -> np.ndarray:
+        b = np.zeros(n, dtype=bool)
+        b[list(rows)] = True
+        return b
+
+    honest = range(n - 3)
+    items = [
+        (bits(honest), msg, sig(sum(i + 1 for i in honest))),
+        (bits([0, 2]), msg, sig(4)),
+        (bits([0, 1]), msg, sig(5)),  # signs 3
+        (bits([0, 1]), msg, b"\xff" * 96),
+        (bits([0, 1]), msg, bytes([0xC0]) + bytes(95)),
+        (bits([0, 1]), msg, bls_bad_g2()),
+        (bits([1, n - 2, n - 3]), msg, sig(2)),
+        (bits([0, 1, 2, 3, n - 1]), msg, sig(2)),
+    ]
+    codes = [bls_verify.CODE_VALID, bls_verify.CODE_VALID, bls_verify.CODE_PAIRING,
+             bls_verify.CODE_SIG["malformed"], bls_verify.CODE_SIG["identity"],
+             bls_verify.CODE_SIG["subgroup"], bls_verify.CODE_PUB_BASE + n - 3,
+             bls_verify.CODE_APK_IDENTITY]
+    return items, codes
+
+
+def bls_fp_products(name: str, k: int, vp: int) -> int:
+    """The Fp products (BLS_WIDE_PER_FP multiply-adds each) of one launch,
+    as csrc/bls12381.cu's header counts them: bls_miller over k commits
+    and vp table rows; bls_finalexp fused over k rows (k = rows for
+    launch B, each its own exponentiation)."""
+    if name == "bls_miller":
+        return k * (14 * vp + 127 * 12 + 2 * BLS_STEP_PRODUCTS * bls_verify.N_ATE + 6 + 108 + 15)
+    if name == "bls_finalexp_fused":
+        return BLS_FINALEXP_PRODUCTS + 120 * (k - 1)
+    return k * BLS_FINALEXP_PRODUCTS
+
+
+def bls_bound_products(name: str, masks: np.ndarray, coeffs: np.ndarray) -> int:
+    """The Fp products the function of one launch needs on these inputs
+    (the BLS bound's counts above): bls_miller over masks (k, vp) and
+    coeffs (k, 2, N_ATE, 2, 2, 2, 12), from each commit's signers and
+    nonzero lines; bls_finalexp fused over the k rows
+    (bls_finalexp_fused), or each row alone."""
+    k = masks.shape[0]
+    if name == "bls_finalexp_fused":
+        return BLS_F12_MUL * (k - 1) + BLS_FINALEXP_BOUND
+    if name == "bls_finalexp":
+        return k * BLS_FINALEXP_BOUND
+    signers = masks.reshape(k, -1).sum(axis=1)
+    lines = coeffs.reshape(k, 2, -1, 2, 4 * bls_verify.NW).any(axis=-1).sum(axis=(2, 3))
+    total = 0
+    for j in range(k):
+        total += (BLS_MIXED_ADD * max(int(signers[j]) - 1, 0)
+                  + BLS_F12_SQ * (bls_verify.N_ATE - 1)
+                  + sum(e * int(n) for e, n in zip(BLS_LINE_EVAL, lines[j]))
+                  + BLS_LINE_MUL * (int(lines[j].sum()) - 2))
+    return total
+
+
+def bls_codes(apk, res, fused, ok, reasons) -> tuple:
+    """The verdict codes run_verify and verdict_codes give from launch A's
+    apk and fused residue and launch B's residues (read back), and
+    whether the fused residue was 1."""
+    apk_nz = apk[:, 2].any(axis=1)
+    lane_ok = np.asarray(ok) & apk_nz
+    pair_ok = np.array([bls_verify.residue_is_one(r) for r in res])
+    codes = bls_verify.verdict_codes(lane_ok & pair_ok, lane_ok & ~pair_ok, apk_nz, reasons)
+    return codes, bls_verify.residue_is_one(fused)
+
+
+def bls_kernel_phase(stats: dict, dev) -> dict:
+    """(h1): both BLS kernels against their plain versions on the card, at
+    each (K, committee) of BLS_SHAPES, over the battery (and pad commits
+    past it): apk, f_j, the fused residue and launch B's residues word
+    for word, and the codes they give equal to the battery's."""
+    msg = b"chip smoke (h1) aggregate"
+    out = {}
+    for k, n in BLS_SHAPES:
+        pubs = bls_battery_committee(n)
+        items, want = bls_battery(n, msg)
+        pub48 = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 48)
+        tables = [torch.from_numpy(a).to(dev) for a in bls_verify.table_columns_g1(pubs)]
+        bad = bls_verify.bad_rows(pub48)
+        check(bad == [n - 3, n - 2], f"(h1) the crafted keys' rows {bad}")
+        got = []
+        for c in range(0, len(items), k):
+            chunk = items[c : c + k]
+            masks, coeffs, ok, reasons = bls_verify.prepare_commits(chunk, k, n + 1, bad)
+            t = tables + [torch.from_numpy(masks).to(dev), torch.from_numpy(coeffs).to(dev)]
+            label = f"K = {k}, {n} keys, commits {c}..{c + len(chunk) - 1}"
+            apk, f = hold(stats, "bls_miller", label, lambda: bls_verify.verify_plain(*t),
+                          lambda: bls_verify.bls_miller(*t))
+            res = hold(stats, "bls_finalexp", label + " rows",
+                       lambda: bls_verify.finalexp_plain(f), lambda: bls_verify.bls_finalexp(f))
+            fused = hold(stats, "bls_finalexp", label + " fused",
+                         lambda: bls_verify.finalexp_plain(f, fused=True),
+                         lambda: bls_verify.bls_finalexp(f, fused=True))
+            codes, one = bls_codes(apk.cpu().numpy(), res.cpu().numpy(), fused[0].cpu().numpy(),
+                                   ok, reasons)
+            check(one == bool((codes == bls_verify.CODE_VALID).all()),
+                  f"(h1) the fused residue is {'1' if one else 'not 1'} at {label}")
+            got.extend(codes[: len(chunk)].tolist())
+            check((codes[len(chunk):] == bls_verify.CODE_VALID).all(),
+                  f"(h1) a pad commit failed at {label}")
+        check(got == want, f"(h1) codes {got} at K = {k}, {n} keys, wanted {want}")
+        out[f"K{k}_n{n}"] = got
+        log(f"slice (h1): K = {k} over {n} keys: both kernels equal their plain versions "
+            f"word for word; codes {got} as expected")
+    return out
+
+
+def _bls_agg(height: int, n: int, signature: bytes = b"") -> "AggregatedCommit":
+    """(h2)'s aggregated commit at `height` over n validators, every one
+    signing."""
+    full = BitArray(n)
+    for i in range(n):
+        full.set_index(i, True)
+    return AggregatedCommit(height=height, round=0, block_id=BLS_BLOCK, signature=signature,
+                            signers=full)
+
+
+def _bls_sign(job: tuple) -> bytes:
+    """job (height, n): the aggregate of n validators' signatures at
+    `height`, (sum sk) H(m), sk_i = i + 1."""
+    height, n = job
+    msg = _bls_agg(height, n).sign_bytes(BLS_CHAIN)
+    return bls12381.g2_compress(bls12381.g2_mul(n * (n + 1) // 2, bls12381.hash_to_g2(msg)))
+
+
+def build_bls_data(pool) -> dict:
+    """(h2)'s committee (bench.py bls: BLS_VALIDATORS validators of power
+    BLS_POWER, sk_i = i + 1), the key statuses (in this process: they
+    are memoized here), and the windows' commits, signed by the pool (a
+    warm-up, BLS_WINDOWS timed, one tampered)."""
+    t = time.perf_counter()
+    keys = bls_keys(BLS_VALIDATORS)
+    derive_s = time.perf_counter() - t
+    t = time.perf_counter()
+    check(all(bls12381.pubkey_status(k)[1] is None for k in keys), "a committee key is bad")
+    status_s = time.perf_counter() - t
+    vset = ValidatorSet.new([Validator.new(bls12381.PubKey(k), BLS_POWER) for k in keys])
+    t = time.perf_counter()
+    heights = range(1, 1 + (BLS_WINDOWS + 2) * BLS_WINDOW)
+    sigs = pool.map(_bls_sign, [(h, BLS_VALIDATORS) for h in heights])
+    aggs = [_bls_agg(h, BLS_VALIDATORS, s) for h, s in zip(heights, sigs)]
+    windows = [aggs[w * BLS_WINDOW : (w + 1) * BLS_WINDOW] for w in range(BLS_WINDOWS + 2)]
+    # the tampered commit carries another height's (valid) aggregate
+    windows[-1][BLS_TAMPER].signature = windows[0][0].signature
+    sign_s = time.perf_counter() - t
+    log(f"data: {BLS_VALIDATORS} bls12381 keys derived in {derive_s:.2f} s, their statuses in "
+        f"{status_s:.1f} s; {len(windows) * BLS_WINDOW} aggregated commits signed in "
+        f"{sign_s:.1f} s")
+    return {"vset": vset, "windows": windows, "derive_s": derive_s, "status_s": status_s,
+            "sign_s": sign_s}
+
+
+@contextlib.contextmanager
+def bls_spies():
+    """Record each BLS kernel launch's rows and CUDA events, and the
+    dispatcher's host prep of each BLS batch, inside the block."""
+    rec = {"prep": [], "miller": [], "finalexp": []}
+    real_prep = bls_verify.prepare_batch
+    real_miller, real_fe = bls_verify.bls_miller, bls_verify.bls_finalexp
+
+    def prep(block, ep=None):
+        t = time.perf_counter()
+        out = real_prep(block, ep)
+        rec["prep"].append((len(block), (time.perf_counter() - t) * 1e3))
+        return out
+
+    def timed(kind, real, rows):
+        def call(*args, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            stop.record()
+            rec[kind].append((rows(*args, **kw), start, stop))
+            return out
+        return call
+
+    bls_verify.prepare_batch = prep
+    bls_verify.bls_miller = timed("miller", real_miller, lambda gx, gy, m, c: m.shape[0])
+    bls_verify.bls_finalexp = timed("finalexp", real_fe,
+                                    lambda f, fused=False: 1 if fused else f.shape[0])
+    try:
+        yield rec
+    finally:
+        bls_verify.prepare_batch = real_prep
+        bls_verify.bls_miller, bls_verify.bls_finalexp = real_miller, real_fe
+
+
+def bls_run_window(vset, window: list, dev) -> tuple:
+    """A window through prepare_aggregated_commit (k_hint the window),
+    the shared dispatcher and conclude: (per commit None or its blame,
+    end-to-end ms)."""
+    t = time.perf_counter()
+    pairs = [validation.prepare_aggregated_commit(BLS_CHAIN, vset, BLS_BLOCK, agg.height, agg,
+                                                  k_hint=len(window)) for agg in window]
+    v = pipeline.shared_verifier(dev)
+    futs = [v.submit(blk) for blk, _ in pairs]
+    out = []
+    for (_, conclude), fut in zip(pairs, futs):
+        try:
+            conclude(fut.result(timeout=600))
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def bls_host_steps(vset) -> dict:
+    """The host prep of one aggregated commit (at a height no window
+    uses, so nothing is memoized), step by step, ms: H(m), the
+    signature's status (decompression, subgroup check), the weighted G2
+    points z H and z sigma, their line coefficients."""
+    agg = _bls_agg(10**6, vset.size())
+    msg = agg.sign_bytes(BLS_CHAIN)
+    out = {}
+
+    def step(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        out[name] = (time.perf_counter() - t) * 1e3
+        return r
+
+    h = step("hash_to_g2", lambda: bls12381.hash_to_g2(msg))
+    sig = bls12381.g2_compress(bls12381.g2_mul(vset.size() * (vset.size() + 1) // 2, h))
+    s, _ = step("signature_status", lambda: bls12381.signature_status(sig))
+    z = bls_verify.rlc_weights([(np.ones(vset.size(), bool), msg, sig)])[0]
+    zh = step("g2_mul_z_h", lambda: bls12381.g2_mul(z, h))
+    zs = step("g2_mul_z_sigma", lambda: bls12381.g2_mul(z, s))
+    step("line_coefficients_x2", lambda: (bls_verify._coeff_rows(zh), bls_verify._coeff_rows(zs)))
+    return out
+
+
+def bls_phase(data: dict, dev) -> tuple:
+    """(h2) and (h3) on the card. Returns the numbers and the launches of
+    (h2)'s windows."""
+    vset, windows = data["vset"], data["windows"]
+    epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+    runs, launches = [], {}
+    steps = bls_host_steps(vset)
+    log("slice (h2): one commit's host prep, ms: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()))
+    for w, window in enumerate(windows):
+        tampered = w == len(windows) - 1
+        with launch_threads() as launchers, bls_spies() as rec:
+            kernels.reset_launches()
+            got, e2e = bls_run_window(vset, window, dev)
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check_dispatcher_launched(launchers, dev, f"slice (h2) window {w}")
+        for k, v in launched.items():
+            launches[k] = launches.get(k, 0) + v
+        want = [None] * len(window)
+        if tampered:
+            sig = window[BLS_TAMPER].signature
+            want[BLS_TAMPER] = f"wrong aggregate signature: {sig.hex().upper()}"
+        check(got == want, f"(h2) window {w}: verdicts {[g and g[:40] for g in got]}")
+        widths = [r for r, _, _ in rec["miller"]]
+        fe_rows = [r for r, _, _ in rec["finalexp"]]
+        check(widths == [BLS_WINDOW] and [n for n, _ in rec["prep"]] == [BLS_WINDOW],
+              f"(h2) window {w}: launch A widths {widths}, batches {rec['prep']}")
+        check(fe_rows == ([1, BLS_WINDOW] if tampered else [1]),
+              f"(h2) window {w}: final exponentiation rows {fe_rows}")
+        check(launched == {"bls_miller": 1, "bls_finalexp": 2 if tampered else 1},
+              f"(h2) window {w} launched {launched}")
+        runs.append({
+            "e2e_ms": e2e,
+            "host_prep_ms": rec["prep"][0][1],
+            "launch_a_miller_ms": rec["miller"][0][1].elapsed_time(rec["miller"][0][2]),
+            "launch_a_finalexp_ms": rec["finalexp"][0][1].elapsed_time(rec["finalexp"][0][2]),
+            "launch_b_ms": (rec["finalexp"][1][1].elapsed_time(rec["finalexp"][1][2])
+                            if tampered else None),
+        })
+        log(f"slice (h2) window {w}{' (tampered)' if tampered else ''}: {BLS_WINDOW} commits, "
+            f"launched {launched}; " + ", ".join(
+                f"{k} {v:.1f}" for k, v in runs[-1].items() if v is not None))
+    timed = runs[1:-1]
+    med = {k: statistics.median(r[k] for r in timed) for k in timed[0] if k != "launch_b_ms"}
+    med["commits_per_s"] = BLS_WINDOW / med["e2e_ms"] * 1e3
+    out = {"windows": runs, "median": med, "launches": launches, "host_steps_ms": steps}
+    log(f"slice (h2): median of {len(timed)} windows of {BLS_WINDOW} commits over "
+        f"{BLS_VALIDATORS} validators: " + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; tampered window: launch B {runs[-1]['launch_b_ms']:.1f} ms, the blame exact")
+
+    # (h3) the sequential walk and the synchronous backend path
+    window = windows[-1]
+    for i in (0, BLS_TAMPER):
+        agg = window[i]
+
+        def walk():
+            validation.verify_aggregated_commit(BLS_CHAIN, vset, BLS_BLOCK, agg.height, agg)
+
+        t = time.perf_counter()
+        if i == BLS_TAMPER:
+            expect_error(walk, ValueError,
+                         f"wrong aggregate signature: {agg.signature.hex().upper()}")
+        else:
+            walk()
+        out.setdefault("walk_ms", []).append((time.perf_counter() - t) * 1e3)
+    pub48 = vset.bls12381_columns()[0]
+    full = np.ones(vset.size(), dtype=bool)
+    block = AggBlock.from_commits([(full, a.sign_bytes(BLS_CHAIN), a.signature) for a in window],
+                                  pub48, vset.hash())
+    before = dict(kernels.LAUNCHES)
+    codes = backend.verify_batch_bls_codes(block, device=dev)
+    want = [bls_verify.CODE_VALID] * len(window)
+    want[BLS_TAMPER] = bls_verify.CODE_PAIRING
+    check(codes.tolist() == want, f"(h3) verify_batch_bls_codes gave {codes.tolist()}")
+    check(_launched(before) == {"bls_miller": 1, "bls_finalexp": 2},
+          f"(h3) verify_batch_bls_codes launched {_launched(before)}")
+    log(f"slice (h3): verify_aggregated_commit on commits 0 and {BLS_TAMPER} "
+        f"({', '.join(f'{x:.0f}' for x in out['walk_ms'])} ms) and verify_batch_bls_codes on "
+        "the tampered window agree with (h2)'s verdicts and blame")
+    return out, launches
+
+
+def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
+    """Both BLS kernels at (h2)'s shape (K = BLS_WINDOW, the epoch table's
+    vp rows), on the tampered window (so launch B meets a residue that is
+    not 1): each held word for word to its plain version (bls_miller, launch
+    B's rows, the fused bls_finalexp, whose plain time the record keeps),
+    then timed with CUDA events beside its bound: bls_miller and the fused
+    bls_finalexp over KERNEL_REPS launches, launch B's rows over
+    BLS_ROWS_REPS. Returns their kernel records."""
+    vset, window = data["vset"], data["windows"][-1]
+    epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+    epoch_cache.note_valset(vset)
+    ep = epoch_cache.cache().get(vset.hash())
+    pub48 = vset.bls12381_columns()[0]
+    full = np.ones(vset.size(), dtype=bool)
+    block = AggBlock.from_commits([(full, a.sign_bytes(BLS_CHAIN), a.signature) for a in window],
+                                  pub48, vset.hash())
+    batch = bls_verify.prepare_batch(block, ep)
+    gx, gy = ep.bls_tables(dev)
+    masks, coeffs = (torch.from_numpy(a).to(dev) for a in batch.args)
+    k, vp = masks.shape
+    label = f"(h2)'s tampered window, K = {k}, vp = {vp}"
+    apk, f = hold(stats, "bls_miller", label, lambda: bls_verify.verify_plain(gx, gy, masks, coeffs),
+                  lambda: bls_verify.bls_miller(gx, gy, masks, coeffs))
+    res = hold(stats, "bls_finalexp", label + " rows", lambda: bls_verify.finalexp_plain(f),
+               lambda: bls_verify.bls_finalexp(f))
+    rows_plain_ms = stats["bls_finalexp"]["plain_ms"]
+    fused = hold(stats, "bls_finalexp", label + " fused",
+                 lambda: bls_verify.finalexp_plain(f, fused=True),
+                 lambda: bls_verify.bls_finalexp(f, fused=True))
+    one = [bls_verify.residue_is_one(r) for r in res.cpu().numpy()]
+    check(one == [j != BLS_TAMPER for j in range(k)] and not bls_verify.residue_is_one(
+        fused[0].cpu().numpy()), f"(h2) residues at {label}: {one}")
+    rate = SMS * WIDE_PER_SM_CLOCK * sm_clock_hz
+    host = (batch.args[0], batch.args[1])
+    runs = {
+        "bls_miller": (lambda: bls_verify.bls_miller(gx, gy, masks, coeffs),
+                       (gx, gy, masks, coeffs, apk, f), "bls_miller"),
+        "bls_finalexp": (lambda: bls_verify.bls_finalexp(f, fused=True), (f, fused),
+                         "bls_finalexp_fused"),
+    }
+    records = []
+    for name, (fn, tensors, kind) in runs.items():
+        products = bls_bound_products(kind, *host)
+        ms = event_ms(fn, KERNEL_REPS)
+        io_bytes = sum(t.nbytes for t in tensors)
+        ops_ms = products * BLS_WIDE_PER_FP / rate * 1e3
+        bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        source, replaces = KERNELS[name]
+        records.append({
+            "name": name, "route": "cuda", "source": f"tendermint_tpu_torch/csrc/{source}",
+            "replaces": replaces, "ms": ms, "bound_ms": bound_ms,
+            "pct_of_bound": 100 * bound_ms / ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+            "bound_fp_products": products, "kernel_fp_products": bls_fp_products(kind, k, vp),
+            "units": k, "bytes": io_bytes,
+        })
+        log(f"timing: {name} {ms:.3f} ms at K = {k}, vp = {vp}; bound {bound_ms:.6f} ms "
+            f"({products} Fp products the function needs, the kernel forms "
+            f"{records[-1]['kernel_fp_products']}; {products * BLS_WIDE_PER_FP / 1e9:.4f} G "
+            f"multiply-adds -> {ops_ms:.6f} ms; {io_bytes / 1e6:.3f} MB -> {bytes_ms:.6f} ms)")
+    rows_ms = event_ms(lambda: bls_verify.bls_finalexp(f), BLS_ROWS_REPS)
+    rows_bound = bls_bound_products("bls_finalexp", *host) * BLS_WIDE_PER_FP / rate * 1e3
+    records[-1].update(launch_b_ms=rows_ms, launch_b_bound_ms=rows_bound,
+                       launch_b_plain_ms=rows_plain_ms)
+    log(f"timing: bls_finalexp launch B over {k} rows {rows_ms:.3f} ms (bound "
+        f"{rows_bound:.6f} ms, plain {rows_plain_ms:.1f} ms)")
+    return records
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2707,6 +3232,7 @@ def main() -> int:
         log(f"data: {SECP_VALIDATORS}-validator secp256k1 commit signed in {secp_sign_s:.1f} s, "
             f"config #4 ({'+'.join(map(str, MIXED))} signatures) in {mixed_sign_s:.1f} s, by "
             f"{workers} processes")
+        bls_data = build_bls_data(pool)
     secp_wire = Commit.decode(secp_commit.encode())
     secp_ents = commit_entries(secp_commit, secp_vals)
     secp_table_pub = np.concatenate([
@@ -2727,6 +3253,9 @@ def main() -> int:
     kstats = kernel_phase(inputs, sr_in, table_pub, dev)
     secp_battery = secp_kernel_phase(kstats, secp_ents, secp_table_pub, dev)["battery"]
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bls_codes_h1 = bls_kernel_phase(kstats, dev)
+    log(f"bls kernel phase (h1): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     launches = slice_phase(vals, wire["ed25519"], sets["sr25519"][0], wire["sr25519"], dev)
@@ -2745,6 +3274,10 @@ def main() -> int:
     log(f"secp256k1 phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    bls, bls_launches = bls_phase(bls_data, dev)
+    log(f"bls phase (h2, h3): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     paths = {}
     for p in PATHS:
         key_type = PATH_SETUP[p][2]
@@ -2754,6 +3287,7 @@ def main() -> int:
                             sm_clock_hz)
     light["timing"] = light_timing(light_wire, dev)
     secp["timing"] = secp_timing(secp_vals, secp_wire, dev)
+    records += bls_timing(bls_data, kstats, dev, sm_clock_hz)
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
     log("paths (median ms): " + ", ".join(
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
@@ -2763,6 +3297,8 @@ def main() -> int:
         # kernels' in slice (g1) and (g2)
         if r["name"].startswith("secp_"):
             r["launches"] = secp_launches[r["name"]]
+        elif r["name"].startswith("bls_"):
+            r["launches"] = bls_launches.get(r["name"], 0)
         else:
             r["launches"] = launches[r["name"]] + disp["headers"]["launches"].get(r["name"], 0)
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
@@ -2777,6 +3313,10 @@ def main() -> int:
     secp.update(card=card, n_validators=SECP_VALIDATORS, signing_s=secp_sign_s,
                 mixed_signing_s=mixed_sign_s)
     print(json.dumps({"secp": secp}), flush=True)
+    bls.update(card=card, n_validators=BLS_VALIDATORS, h1_codes=bls_codes_h1,
+               derive_s=bls_data["derive_s"], status_s=bls_data["status_s"],
+               signing_s=bls_data["sign_s"])
+    print(json.dumps({"bls": bls}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ a light block as its header's, commit's and set's encodings (the JAX
 package's SignedHeader has no encode of its own; its LightStore writes
 the header and the commit apart), and a signature batch as numpy
 columns. A set of any key type the port has (ed25519, secp256k1,
-sr25519) crosses this way, so the two packages' ValidatorSet.hash()
-agree.
+sr25519, bls12381) crosses this way, so the two packages'
+ValidatorSet.hash() agree, and an aggregated BLS12-381 commit crosses as
+its AggregatedCommit.encode() (the JAX package's framing).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from .light.provider import LightBlock
 from .ops.entry_block import EntryBlock
-from .types.block import Commit, Header, SignedHeader
+from .types.block import AggregatedCommit, Commit, Header, SignedHeader
 from .types.validator_set import ValidatorSet
 
 
@@ -26,6 +27,13 @@ def state_from_wire(valset_bytes: bytes, commit_bytes: bytes):
     encodings of tendermint.types.ValidatorSet and tendermint.types.Commit;
     a canonical commit decodes columnar (types/block.Commit.decode)."""
     return ValidatorSet.decode(bytes(valset_bytes)), Commit.decode(bytes(commit_bytes))
+
+
+def agg_state_from_wire(valset_bytes: bytes, agg_bytes: bytes):
+    """(ValidatorSet, AggregatedCommit) of the port, decoded from the
+    protobuf encodings of a (bls12381) tendermint.types.ValidatorSet and
+    of an aggregated commit."""
+    return ValidatorSet.decode(bytes(valset_bytes)), AggregatedCommit.decode(bytes(agg_bytes))
 
 
 def light_block_from_wire(header_bytes: bytes, commit_bytes: bytes,

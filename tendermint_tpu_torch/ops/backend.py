@@ -31,6 +31,15 @@ the dispatcher's host stage for a block of either scheme, and
 verify_batch the synchronous path. The reference's prepare_batch_secp
 and prepare_batch_secp_cached are secp_verify.prepare_batch here, as
 the ed25519 preps are rlc.prepare_batch and verify.prepare_batch.
+
+bls12381 (reference :584-728, :867): an AggBlock (one aggregated commit
+a row) pads to BLS_BUCKETS and verifies through ops/bls_verify.py's
+two-launch protocol, with its committee's table from the epoch cache
+(bls_epoch) or built from the block's keys. The reference's
+prepare_batch_bls, _bls_bad_rows and bls_kernel are bls_verify.
+prepare_batch, bad_rows and BlsBatch.launch here; verify_batch_bls_codes
+is the synchronous path, and its row is int32 verdict codes
+(bls_verify.CODE_*).
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from torch.profiler import record_function
 from ..crypto import BatchVerifier, PubKey
 from ..crypto import ed25519 as _ed25519
 from ..crypto._edwards import L
-from . import epoch_cache, host, rlc, secp_verify
+from . import bls_verify, epoch_cache, host, rlc, secp_verify
 from . import verify as per_sig
 from .entry_block import EntryBlock
 
@@ -71,22 +80,48 @@ def use_rlc() -> bool:
 SECP_BUCKETS = secp_verify.BUCKETS
 
 
+# The bls12381 lane's buckets, in aggregated commits (backend.BLS_BUCKETS).
+BLS_BUCKETS = bls_verify.BUCKETS
+
+# Below this many concurrent aggregated commits (the caller's k_hint) a
+# commit verifies synchronously through the oracle
+# (types/validation.prepare_aggregated_commit): one fused launch cannot
+# amortise its final exponentiation (backend.BLS_DEVICE_THRESHOLD's
+# default).
+BLS_DEVICE_THRESHOLD = 2
+
+
 def quantized_bucket(n: int, scheme: str = "ed25519") -> int:
-    """The signatures a device batch of n of `scheme` pads to
-    (backend.quantized_bucket, and _secp_bucket_for for secp256k1): for
-    ed25519 on the path TM_TPU_RLC picks now."""
+    """The rows a device batch of n of `scheme` pads to
+    (backend.quantized_bucket, and _secp_bucket_for, _bls_bucket_for):
+    for ed25519 on the path TM_TPU_RLC picks now."""
     if scheme == "secp256k1":
         return secp_verify.bucket_for(n)
+    if scheme == "bls12381":
+        return bls_verify.bucket_for(n)
     return rlc.plan_bucket(n)[0] if use_rlc() else per_sig.bucket_for(n)
 
 
 def max_coalesce(scheme: str = "ed25519") -> int:
     """The largest device batch of `scheme` the dispatcher fuses jobs into
-    (backend.max_coalesce): SECP_BUCKETS[-1] for secp256k1; for ed25519
-    rlc.MAX_SIGS on the RLC path, BUCKETS[-1] on the per-signature one."""
+    (backend.max_coalesce): SECP_BUCKETS[-1] for secp256k1, BLS_BUCKETS[-1]
+    aggregated commits for bls12381; for ed25519 rlc.MAX_SIGS on the RLC
+    path, BUCKETS[-1] on the per-signature one."""
     if scheme == "secp256k1":
         return SECP_BUCKETS[-1]
+    if scheme == "bls12381":
+        return BLS_BUCKETS[-1]
     return rlc.MAX_SIGS if use_rlc() else BUCKETS[-1]
+
+
+def coalesce_linger(scheme: str = "ed25519") -> float:
+    """Seconds the dispatcher's coalescer waits for more jobs of `scheme`
+    while the device is idle (the reference's dispatcher has no such
+    wait): 5 ms for bls12381, where each launch A pays a whole final
+    exponentiation (about a second on an H100, PERF.md), so aggregated
+    commits submitted together (prepare_aggregated_commit's k_hint) must
+    land in one launch rather than in two; none for the other schemes."""
+    return 0.005 if scheme == "bls12381" else 0.0
 
 
 def prepare_secp(entries) -> "secp_verify.SecpBatch":
@@ -97,10 +132,31 @@ def prepare_secp(entries) -> "secp_verify.SecpBatch":
     return secp_verify.prepare_batch(entries, epoch_cache.lookup(entries))
 
 
+def bls_epoch(block):
+    """The epoch entry of an AggBlock's committee, or None (reference
+    _bls_epoch :607): AggBlocks carry no val_idx (the bitmap indexes the
+    committee), so this looks the key up directly and only guards the
+    scheme."""
+    key = getattr(block, "epoch_key", None)
+    c = epoch_cache.cache()
+    ep = None if key is None or c is None else c.get(key)
+    return ep if ep is not None and ep.scheme == "bls12381" else None
+
+
+def prepare_bls(block) -> "bls_verify.BlsBatch":
+    """The dispatcher's host stage for an AggBlock (reference
+    pipeline.py:516-534): its committee's epoch entry when the cache
+    holds it, else a table built from the block's keys."""
+    return bls_verify.prepare_batch(block, bls_epoch(block))
+
+
 def prepare_block(entries):
     """The dispatcher's host stage, by the block's scheme."""
-    if getattr(entries, "scheme", "ed25519") == "secp256k1":
+    scheme = getattr(entries, "scheme", "ed25519")
+    if scheme == "secp256k1":
         return prepare_secp(entries)
+    if scheme == "bls12381":
+        return prepare_bls(entries)
     return prepare_ed25519(entries)
 
 
@@ -272,13 +328,38 @@ def verify_batch_secp(entries: EntryBlock, *, device) -> np.ndarray:
     return np.concatenate(out) if out else np.zeros((0,), dtype=bool)
 
 
+def verify_batch_bls_codes(block, *, device) -> np.ndarray:
+    """An AggBlock of any size -> (k,) int32 verdict codes
+    (bls_verify.CODE_*), synchronously on the caller's thread (reference
+    :687-721): chunks of BLS_BUCKETS[-1] commits, each prepared, copied
+    and run through the two-launch protocol."""
+    if getattr(block, "scheme", None) != "bls12381":
+        raise ValueError("verify_batch_bls_codes takes an AggBlock")
+    out = [np.zeros((0,), dtype=np.int32)]
+    cap = max_coalesce("bls12381")
+    for i in range(0, len(block), cap):
+        batch = prepare_bls(block[i : i + cap])
+        with record_function("bls.h2d"):
+            dev_args = [torch.from_numpy(a).to(device) for a in batch.args]
+        out.append(batch.conclude(batch.launch(dev_args).numpy()))
+    return np.concatenate(out)
+
+
+def verify_batch_bls(block, *, device) -> np.ndarray:
+    """The boolean face of verify_batch_bls_codes: one bool a commit."""
+    return verify_batch_bls_codes(block, device=device) == bls_verify.CODE_VALID
+
+
 def verify_batch(entries, *, device) -> np.ndarray:
-    """The synchronous direct path (reference :864): an EntryBlock of any
-    size -> (n,) bool verdicts on `device`, by its scheme: secp256k1
-    through verify_batch_secp, ed25519 through the path TM_TPU_RLC picks
+    """The synchronous direct path (reference :864): a block of any size
+    -> (n,) bool verdicts on `device`, by its scheme: secp256k1 through
+    verify_batch_secp, bls12381 (an AggBlock, a verdict a commit) through
+    verify_batch_bls, ed25519 through the path TM_TPU_RLC picks
     (rlc.verify_batch_rlc, verify.verify_batch_compact)."""
     if entries.scheme == "secp256k1":
         return verify_batch_secp(entries, device=device)
+    if entries.scheme == "bls12381":
+        return verify_batch_bls(entries, device=device)
     if use_rlc():
         return rlc.verify_batch_rlc(entries, device=device)
     return per_sig.verify_batch_compact(entries, device=device)

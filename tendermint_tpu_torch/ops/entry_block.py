@@ -25,6 +25,10 @@ Slicing keeps all of these; concat keeps the epoch metadata only when
 every block has rows and all share one key (rows of different sets
 index different tables), and refuses blocks of different schemes.
 
+An AggBlock (reference :306-490) is the BLS12-381 lane's batch: a row
+is a whole aggregated commit (a G2 signature and a signer bitmap over
+one committee), and block_concat concatenates blocks of either kind.
+
 A CommitBlock holds a commit's signatures as columns, filled once at
 wire decode (types/block.py); ops/commit_prep.py turns it into an
 EntryBlock.
@@ -32,11 +36,12 @@ EntryBlock.
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 Entry = Tuple[bytes, bytes, bytes]
+_EMPTY_OFFSETS = np.zeros(1, dtype=np.int64)
 
 
 class EntryBlock:
@@ -191,6 +196,148 @@ class EntryBlock:
             pub_aux=(np.concatenate([b.pub_aux for b in blocks])
                      if scheme == "secp256k1" else None),
         )
+
+
+class AggBlock:
+    """A batch of aggregated BLS12-381 commits over one committee:
+
+        sig     (k, 96) uint8   the compressed G2 aggregate signatures
+        bits    (k, v)  bool    the signer bitmaps over the committee
+        msgs    bytes           the sign-bytes concatenated, one a row
+        offsets (k+1,)  int64   msgs[offsets[i]:offsets[i+1]] is row i's
+        pub48   (v, 48) uint8   the committee's compressed G1 keys (a host
+                                snapshot: a cold or evicted epoch still
+                                builds its table from it)
+        is_pad  (k,)    bool    padding rows (verdicts discarded)
+
+    There is no val_idx: the bitmap is the committee reference, so
+    `epoch_key` (ValidatorSet.hash()) is always set on a live block, and
+    the dispatcher fuses blocks only under one key, which keeps two
+    committees' bitmaps out of one launch. A pad block has no committee
+    (bits of width 0, epoch_key None) and takes the committee of the
+    block it is concatenated with."""
+
+    __slots__ = ("sig", "bits", "msgs", "offsets", "pub48", "is_pad", "epoch_key", "scheme",
+                 "val_idx")
+
+    def __init__(self, sig: np.ndarray, bits: np.ndarray, msgs, offsets: np.ndarray,
+                 pub48: np.ndarray, epoch_key: Optional[bytes],
+                 is_pad: Optional[np.ndarray] = None):
+        k = sig.shape[0]
+        if sig.shape != (k, 96):
+            raise ValueError("sig must be (k, 96) uint8")
+        if bits.ndim != 2 or bits.shape[0] != k:
+            raise ValueError("bits must be (k, v) bool")
+        if offsets.shape != (k + 1,):
+            raise ValueError("offsets must be (k+1,)")
+        if k and bool((np.diff(offsets) < 0).any()):
+            raise ValueError("offsets must be non-decreasing")
+        if pub48.shape != (bits.shape[1], 48):
+            raise ValueError("pub48 must be (v, 48) matching bits width")
+        if is_pad is None:
+            is_pad = np.zeros(k, dtype=bool)
+        elif is_pad.shape != (k,):
+            raise ValueError("is_pad must be (k,)")
+        self.sig = sig
+        self.bits = bits
+        self.msgs = msgs
+        self.offsets = offsets
+        self.pub48 = pub48
+        self.epoch_key = epoch_key
+        self.is_pad = is_pad
+        self.scheme = "bls12381"
+        self.val_idx = None  # the bitmap indexes the committee
+
+    @classmethod
+    def from_commits(cls, commits, pub48: np.ndarray, epoch_key: bytes) -> "AggBlock":
+        """[(bits bool row, sign bytes, sig96), ...] over one committee."""
+        k = len(commits)
+        v = pub48.shape[0]
+        if k == 0:
+            return cls(np.zeros((0, 96), dtype=np.uint8), np.zeros((0, v), dtype=bool), b"",
+                       _EMPTY_OFFSETS, pub48, epoch_key)
+        sig = np.frombuffer(b"".join(s for _, _, s in commits), dtype=np.uint8).reshape(k, 96)
+        bits = np.stack([np.asarray(b, dtype=bool) for b, _, _ in commits])
+        offsets = np.zeros(k + 1, dtype=np.int64)
+        np.cumsum([len(m) for _, m, _ in commits], out=offsets[1:])
+        return cls(sig, bits, b"".join(m for _, m, _ in commits), offsets, pub48, epoch_key)
+
+    @classmethod
+    def pad(cls, n: int) -> "AggBlock":
+        """n committee-free padding rows (bits of width 0, epoch_key None):
+        the backend prepares them as its self-signed pad commit."""
+        return cls(np.zeros((n, 96), dtype=np.uint8), np.zeros((n, 0), dtype=bool), b"",
+                   np.zeros(n + 1, dtype=np.int64), np.zeros((0, 48), dtype=np.uint8), None,
+                   is_pad=np.ones(n, dtype=bool))
+
+    def __len__(self) -> int:
+        return self.sig.shape[0]
+
+    def msg(self, i: int) -> bytes:
+        o = self.offsets
+        return bytes(memoryview(self.msgs)[int(o[i]) : int(o[i + 1])])
+
+    def msgs_contiguous(self) -> tuple:
+        """(buffer, offsets) with offsets[0] == 0."""
+        base, end = int(self.offsets[0]), int(self.offsets[-1])
+        buf = self.msgs
+        if base != 0 or end != len(buf):
+            buf = memoryview(buf)[base:end]
+        return buf, (self.offsets if base == 0 else self.offsets - base)
+
+    def __getitem__(self, key: slice) -> "AggBlock":
+        if not isinstance(key, slice):
+            raise TypeError("AggBlock indexing takes a slice")
+        start, stop, step = key.indices(len(self))
+        if step != 1:
+            raise ValueError("AggBlock slices must be contiguous")
+        stop = max(stop, start)
+        o = self.offsets
+        base = int(o[start])
+        return AggBlock(self.sig[start:stop], self.bits[start:stop],
+                        memoryview(self.msgs)[base : int(o[stop])], o[start : stop + 1] - base,
+                        self.pub48, self.epoch_key, is_pad=self.is_pad[start:stop])
+
+    @staticmethod
+    def concat(blocks: Sequence["AggBlock"]) -> "AggBlock":
+        """One concatenate a column. The committee is the live blocks',
+        which must agree (blocks of two committees raise); width-0 pad
+        blocks take it."""
+        blocks = [b for b in blocks if len(b)]
+        if not blocks:
+            raise ValueError("cannot concat zero aggregated rows")
+        if len(blocks) == 1:
+            return blocks[0]
+        live = [b for b in blocks if b.epoch_key is not None]
+        if live:
+            epoch_key, pub48 = live[0].epoch_key, live[0].pub48
+            if any(b.epoch_key != epoch_key for b in live):
+                raise ValueError("cannot concat mixed-committee AggBlocks")
+        else:  # pads only: still committee-free
+            epoch_key, pub48 = None, blocks[0].pub48
+        bits = np.zeros((sum(len(b) for b in blocks), pub48.shape[0]), dtype=bool)
+        offsets = np.zeros(bits.shape[0] + 1, dtype=np.int64)
+        msgs = []
+        pos = base = 0
+        for b in blocks:
+            if b.bits.shape[1]:
+                bits[pos : pos + len(b)] = b.bits
+            buf, o = b.msgs_contiguous()
+            msgs.append(bytes(buf))
+            offsets[pos + 1 : pos + len(b) + 1] = o[1:] + base
+            pos += len(b)
+            base += int(o[-1])
+        return AggBlock(np.concatenate([b.sig for b in blocks]), bits, b"".join(msgs), offsets,
+                        pub48, epoch_key, is_pad=np.concatenate([b.is_pad for b in blocks]))
+
+
+def block_concat(blocks):
+    """concat by block type (a batch holds EntryBlocks or AggBlocks, never
+    both: the dispatcher fuses one scheme a batch)."""
+    blocks = list(blocks)
+    if blocks and isinstance(blocks[0], AggBlock):
+        return AggBlock.concat(blocks)
+    return EntryBlock.concat(blocks)
 
 
 class CommitBlock:

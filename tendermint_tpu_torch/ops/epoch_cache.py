@@ -12,8 +12,11 @@ to the EntryBlock, and ops/rlc.py's k1_rlc_cached (or, on the
 per-signature path, ops/verify.py's k1_decompress_cached) reads A from
 the set's table instead of decompressing it. An all-secp256k1 set is
 noted too (reference :410-419): its warm batches take
-ops/secp_verify.py's cached kernel. sr25519 and mixed sets are never
-noted: they have neither column.
+ops/secp_verify.py's cached kernel. An all-bls12381 set is noted too
+(reference :420-422): its aggregated commits (ops/entry_block.AggBlock)
+always carry the set's key, and the BLS lane reads the set's
+decompressed G1 table from its entry from the first commit on. sr25519
+and mixed sets are never noted: they have no column.
 
     coords_tables(device)  ed25519: (4*32, vp) int32 decompressed
                            extended coordinates in the kernels' 32-row
@@ -25,11 +28,20 @@ noted: they have neither column.
                            decompressed once per set on the host
                            (secp_verify.table_columns) and uploaded once
                            per device
+    bls_tables(device)     bls12381 (reference :250-277): (vp, 12) int32
+                           affine x and y words (bls_verify.
+                           table_columns_g1: a bad key and a padding row
+                           are g1; bad keys are found by bls_verify.
+                           bad_rows, so unlike the reference no ok flags
+                           go to the device), decompressed once per set
+                           on the host and uploaded once per device
 
 Rows are padded to vp = max(next_pow2(v + 1), 16) with the scheme's
 padding key (ed25519: the identity encoding; secp256k1: the compressed
-generator, reference _secp_pad_pub :74), so row vp - 1 is always a
-padding row: padding signatures gather it. `lookup` hands a block only
+generator, reference _secp_pad_pub :74; bls12381: the compressed G1
+generator, _bls_pad_pub :83, the key of the BLS lane's self-signed pad
+commit), so row vp - 1 is always a padding row: padding signatures and
+pad commits use it. `lookup` hands a block only
 the entry of its own scheme.
 
 TM_TPU_EPOCH_CACHE=N sets the LRU depth (0 disables the cache); unset,
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 
 from ..crypto import _weierstrass
+from ..crypto import bls12381 as _bls
 from . import fe, kernels, point
 
 DEFAULT_DEPTH = 8
@@ -57,6 +70,9 @@ _IDENT_ENC = np.zeros(32, dtype=np.uint8)
 _IDENT_ENC[0] = 1  # y = 1: the identity point's encoding
 # the compressed secp256k1 generator, the padding rows of a secp256k1 set
 _SECP_PAD = np.frombuffer(_weierstrass.compress(_weierstrass.G), dtype=np.uint8)
+# the compressed G1 generator, the padding rows of a bls12381 set
+_BLS_PAD = np.frombuffer(_bls.g1_compress(_bls.G1_GEN), dtype=np.uint8)
+_PAD_ROWS = {"ed25519": _IDENT_ENC, "secp256k1": _SECP_PAD, "bls12381": _BLS_PAD}
 
 
 def _next_pow2(n: int) -> int:
@@ -115,15 +131,16 @@ def table_columns(entries, bucket: int, ep: "EpochEntry") -> np.ndarray:
 
 class EpochEntry:
     """One validator set's keys: `pub_rows` (vp, 32) on the host (vp, 33
-    for secp256k1), padded with the scheme's padding key, and its device
-    tables, built lazily once per device under the entry's lock."""
+    for secp256k1, vp, 48 for bls12381), padded with the scheme's
+    padding key, and its device tables, built lazily once per device
+    under the entry's lock."""
 
     __slots__ = ("key", "n_vals", "vp", "pub_rows", "scheme", "_mtx", "_tables")
 
     def __init__(self, key: bytes, pub_col: np.ndarray, scheme: str = "ed25519"):
         v = pub_col.shape[0]
         vp = max(_next_pow2(v + 1), 16)
-        pad = _SECP_PAD if scheme == "secp256k1" else _IDENT_ENC
+        pad = _PAD_ROWS[scheme]
         rows = np.empty((vp, pad.shape[0]), dtype=np.uint8)
         rows[:v] = pub_col
         rows[v:] = pad
@@ -160,6 +177,24 @@ class EpochEntry:
             return tuple(torch.from_numpy(c).to(dev) for c in cols)
 
         return self._on_device("secp", device, build)
+
+    def bls_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """((vp, 12) int32 x, (vp, 12) int32 y) on `device` (a bls12381
+        set): each key decompressed and subgroup-checked on the host once
+        per set (bls_verify.table_columns_g1: a bad key and a padding row
+        are g1), uploaded on first use there on the current stream; see
+        _on_device."""
+        if self.scheme != "bls12381":
+            raise ValueError(f"a {self.scheme} set has no bls12381 table")
+        from . import bls_verify
+
+        def build(dev):
+            # table_columns_g1 appends the padding row itself
+            cols = bls_verify.table_columns_g1(
+                [r.tobytes() for r in self.pub_rows[: self.vp - 1]])
+            return tuple(torch.from_numpy(c).to(dev) for c in cols)
+
+        return self._on_device("bls", device, build)
 
     def _on_device(self, kind: str, device, build) -> tuple:
         """The tables `kind` on `device`, made by build(dev) on first use
@@ -268,13 +303,15 @@ def reset(depth: Optional[int] = None) -> None:
 
 def note_valset(vals) -> Optional[bytes]:
     """Register or refresh `vals`; its key when the set is warm (seen
-    before) and all-ed25519 or all-secp256k1, else None."""
+    before) and all-ed25519, all-secp256k1 or all-bls12381, else None."""
     c = cache()
     if c is None:
         return None
     cols, scheme = vals.ed25519_columns(), "ed25519"
     if cols is None:
         cols, scheme = vals.secp256k1_columns(), "secp256k1"
+    if cols is None:
+        cols, scheme = vals.bls12381_columns(), "bls12381"
     if cols is None:
         return None
     key = vals.hash()

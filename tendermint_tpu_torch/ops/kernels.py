@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu")
+SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu", "bls12381.cu")
 HEADERS = ("fe25519.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,6 +54,8 @@ _ENTRIES = {
     "k3r_ladder": (7, 1),
     "secp_verify": (9, 1),
     "secp_verify_cached": (11, 2),
+    "bls_miller": (6, 2),
+    "bls_finalexp": (2, 2),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

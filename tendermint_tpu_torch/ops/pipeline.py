@@ -6,13 +6,14 @@ Counterpart: tendermint_tpu/ops/pipeline.py (DispatchError :209, _Job
 commit_entries :1346, verify_commits_pipelined :1447,
 verify_headers_pipelined :1547). Verification jobs (EntryBlocks) are
 submitted from any thread and come back as futures of (n,) bool
-verdicts. Three threads:
+verdicts (an AggBlock of aggregated BLS12-381 commits: (k,) int32
+verdict codes, one a commit). Three threads:
 
   coalescer   drains submit()s in arrival order, fuses jobs of one
               epoch and one scheme into device batches up to
               max_batch(), and runs each batch's host prep (by the
               block's scheme: ed25519's RLC or per-signature prep,
-              secp256k1's); it touches no CUDA
+              secp256k1's, bls12381's); it touches no CUDA
   dispatcher  the only thread that allocates device tensors, issues
               copies or launches kernels: it copies batch k+1's inputs
               through pinned staging on a copy stream (ops/device_pool)
@@ -30,6 +31,18 @@ that are launched or being copied. The dispatcher holds at most one
 unlaunched slot, its current batch's; only the resolver, which waits on
 nothing but launched work, releases the others, so a wait for a slot
 always ends.
+
+The BLS12-381 lane (reference :516-534): AggBlocks fuse only with
+AggBlocks of the same committee (one epoch key: the bitmaps index one
+committee), up to backend.max_coalesce(scheme) commits, and the
+coalescer waits backend.coalesce_linger(scheme) for more of them even
+when the device is idle. Its protocol branches on a host reduce of launch A's residues, so
+the dispatch thread runs the whole of it in the batch's launch (launch
+A, the readback of apk and the fused residue, launch B where a lane
+failed) and hands on the int32 code row as a host tensor: its readback
+is a plain host copy, and no pinned readback buffer is held across the
+host reduce. The resolver gives each job its codes as int32 (a batch
+with `codes` set is not turned into bools).
 
 A batch whose host prep, copy or launch raises fails its own futures
 with a DispatchError, and later batches go on. A failure at the
@@ -52,7 +65,7 @@ with their fuse caps, the ingress reservation, preemption and the prep
 pool; they come with their first callers (ops/ingress.py, blocksync
 replay), and until then every job is the consensus class's, served in
 arrival order. Also the mesh coalescer (_worker_mesh :870,
-_prepare_mesh :638); the BLS prep branch (:516-534); the op-graph branch
+_prepare_mesh :638); the op-graph branch
 (:604-628); the devcheck canaries and lint-bug seams; the metrics and
 tracer flows; commit_entries_legacy (:1383), whose work the object path
 of types/validation does here. The reference's TM_TPU_POOL_DEPTH is the
@@ -75,7 +88,7 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from . import backend, commit_prep
 from . import device_pool as _dpool
-from .entry_block import EntryBlock
+from .entry_block import AggBlock, EntryBlock, block_concat
 
 CLOSE_TIMEOUT = 5.0  # seconds close() waits for each thread
 
@@ -101,8 +114,10 @@ class _Job:
         self.future: Future = Future()
 
 
-def _as_block(entries) -> EntryBlock:
-    return entries if isinstance(entries, EntryBlock) else EntryBlock.from_entries(list(entries))
+def _as_block(entries):
+    if isinstance(entries, (EntryBlock, AggBlock)):
+        return entries
+    return EntryBlock.from_entries(list(entries))
 
 
 def _dispatch_error(msg: str, e: BaseException, bucket: int, spans) -> DispatchError:
@@ -179,8 +194,9 @@ class AsyncBatchVerifier:
 
     def submit(self, entries) -> Future:
         """A future of the (n,) bool verdicts of `entries` (an EntryBlock,
-        passed by reference, or (pub, msg, sig) triples). A block above
-        the batch cap is split and its verdicts joined."""
+        passed by reference, or (pub, msg, sig) triples), or of the (k,)
+        int32 verdict codes of an AggBlock. A block above the batch cap
+        is split and its verdicts joined."""
         if self._stopped.is_set():
             raise RuntimeError("verifier is closed")
         if self._broken is not None:
@@ -191,7 +207,8 @@ class AsyncBatchVerifier:
             return self._submit_chunked(block, max_b)
         job = _Job(block)
         if len(block) == 0:
-            _settle(job.future, np.zeros(0, dtype=bool))
+            _settle(job.future, np.zeros(0, dtype=np.int32 if isinstance(block, AggBlock)
+                                         else bool))
             return job.future
         self._q.put(job)
         return job.future
@@ -234,7 +251,8 @@ class AsyncBatchVerifier:
         up to max_batch(), peel trailing jobs while that lands the batch
         in a smaller bucket, prepare it and hand it to the dispatcher.
         Two blocks of different schemes never fuse (two cold blocks both
-        have the epoch key None)."""
+        have the epoch key None), nor two AggBlocks of two committees
+        (their keys differ)."""
         hold: Optional[_Job] = None
         try:
             while True:
@@ -250,9 +268,11 @@ class AsyncBatchVerifier:
                 total = len(job.entries)
                 key0 = job.entries.epoch_key
                 scheme0 = job.entries.scheme
-                # while the device is busy a short linger fuses stragglers
+                # while the device is busy a short linger fuses stragglers;
+                # an idle one waits as long as the scheme asks
                 busy = self._inflight > 0 or self._dispatch_q.qsize() > 0
-                deadline = time.monotonic() + 0.008 if busy else 0.0
+                linger = 0.008 if busy else backend.coalesce_linger(scheme0)
+                deadline = time.monotonic() + linger if linger else 0.0
                 limit = self.max_batch(scheme0)
                 while total < limit:
                     try:
@@ -287,7 +307,7 @@ class AsyncBatchVerifier:
                     spans.append((j, off, len(j.entries)))
                     off += len(j.entries)
                 entries = (jobs[0].entries if len(jobs) == 1
-                           else EntryBlock.concat([j.entries for j in jobs]))
+                           else block_concat([j.entries for j in jobs]))
                 try:
                     with record_function("pipeline.prep"):
                         prep = self._prepare(entries)
@@ -367,9 +387,9 @@ class AsyncBatchVerifier:
 
     def _resolve(self, spans, prep, slot, done) -> None:
         """Wait for the readback, copy the verdicts out, release the slot,
-        conclude, and give each job its own host-owned verdicts. Any
-        failure fails this batch's futures; the slot goes back either
-        way."""
+        conclude, and give each job its own host-owned verdicts (bools,
+        or int32 codes for a batch with `codes` set). Any failure fails
+        this batch's futures; the slot goes back either way."""
         with record_function("pipeline.resolve"):
             try:
                 try:
@@ -381,7 +401,9 @@ class AsyncBatchVerifier:
                 row = _dpool.owned_verdicts(slot)
                 self._pool.release(slot)
                 slot = None
-                verdicts = np.asarray(prep.conclude(row), dtype=bool)
+                verdicts = np.asarray(prep.conclude(row))
+                if not getattr(prep, "codes", False):
+                    verdicts = verdicts.astype(bool)
             except Exception as e:  # this batch fails alone
                 self._pool.release(slot)
                 what = "device failed" if self._broken is e else "batch resolve failed"

@@ -1,5 +1,5 @@
-"""Version, PartSetHeader, BlockID, Header, CommitSig, Commit and
-SignedHeader.
+"""Version, PartSetHeader, BlockID, Header, CommitSig, Commit,
+AggregatedCommit and SignedHeader.
 
 Counterpart: tendermint_tpu/types/block.py (types/block.go). What commit
 and light-client header verification need: the proto encode/decode of
@@ -663,6 +663,80 @@ class Commit:
                     cs.validate_basic()
                 except ValueError as e:
                     raise ValueError(f"wrong CommitSig #{i}: {e}") from e
+
+
+BLS_AGG_SIGNATURE_SIZE = 96  # a compressed G2 point (minimal-pubkey BLS12-381)
+
+
+@dataclass
+class AggregatedCommit:
+    """A BLS12-381 aggregated commit (reference types/block.py:815-900):
+    the committee's precommit signatures collapse into one compressed G2
+    aggregate and a signer bitmap, 96 bytes and ceil(V/8) on the wire.
+    Every signer signs the same canonical precommit, with the zero
+    timestamp, which is what lets the signatures aggregate.
+
+    Wire framing (the JAX package's extension; upstream has no such
+    message): 1 height (varint), 2 round (varint), 3 block_id (message),
+    4 signature (bytes), 5 signers (BitArray message)."""
+
+    height: int = 0
+    round: int = 0
+    block_id: BlockID = field(default_factory=BlockID)
+    signature: bytes = b""
+    signers: Optional["BitArray"] = None  # libs/bits.BitArray
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        """The one message every signer signed: the canonical precommit
+        with the zero timestamp."""
+        tpl = _canon.canonical_vote_template(
+            chain_id=chain_id,
+            msg_type=_canon.SIGNED_MSG_TYPE_PRECOMMIT,
+            height=self.height,
+            round_=self.round,
+            block_id=self.block_id.canonical(),
+        )
+        return _canon.compose_vote_sign_bytes(tpl, Timestamp.zero())
+
+    def encode(self) -> bytes:
+        w = ProtoWriter()
+        w.write_varint(1, self.height)
+        w.write_varint(2, self.round)
+        w.write_message(3, self.block_id.encode(), always=True)
+        w.write_bytes(4, self.signature)
+        if self.signers is not None:
+            w.write_message(5, self.signers.encode(), always=True)
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "AggregatedCommit":
+        from ..libs.bits import BitArray
+
+        f = decode_message(data)
+        signers = BitArray.decode(field_bytes(f, 5)) if 5 in f else None
+        return cls(
+            height=to_signed64(field_int(f, 1)),
+            round=to_signed32(field_int(f, 2)),
+            block_id=BlockID.decode(field_bytes(f, 3)),
+            signature=field_bytes(f, 4),
+            signers=signers,
+        )
+
+    def validate_basic(self) -> None:
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_zero():
+                raise ValueError("commit cannot be for nil block")
+            if len(self.signature) != BLS_AGG_SIGNATURE_SIZE:
+                raise ValueError(
+                    f"aggregate signature is {len(self.signature)} bytes, want "
+                    f"{BLS_AGG_SIGNATURE_SIZE}"
+                )
+            if self.signers is None or self.signers.size() == 0:
+                raise ValueError("no signer bitmap in aggregated commit")
 
 
 @dataclass(frozen=True)

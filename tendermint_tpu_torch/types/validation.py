@@ -40,6 +40,13 @@ crypto.batch cannot: its block is of scheme secp256k1, with the set's
 rows and epoch key, for ops/secp_verify.py's kernels; the synchronous
 verify_commit* keep the reference's routing and verify such a set one
 signature at a time on the host.
+
+Aggregated BLS12-381 commits (types/block.AggregatedCommit, reference
+:479-620): verify_aggregated_commit is the sequential walk on the host
+(crypto/bls12381); prepare_aggregated_commit is its seam half, whose
+one-row AggBlock goes through the dispatcher (ops/pipeline.py fuses the
+AggBlocks of one committee into one launch) and whose conclude(codes)
+turns the lane's int32 verdict code into the walk's blame strings.
 """
 
 from __future__ import annotations
@@ -560,3 +567,130 @@ def _verify_basic_vals_and_commit(
         raise ValueError(
             f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
         )
+
+
+# -- aggregated BLS12-381 commits -------------------------------------------------
+#
+# The blame strings are built once here and shared by the sequential walk
+# and the batched conclude, so the two cannot drift apart.
+
+_AGG_APK_IDENTITY = "aggregate pubkey is the identity"
+
+
+def _agg_sig_blame(word: str, sig: bytes) -> str:
+    return f"{word} aggregate signature: {sig.hex().upper()}"
+
+
+def _agg_pub_blame(word: str, idx: int) -> str:
+    return f"{word} aggregate pubkey (validator #{idx})"
+
+
+def _agg_basic_and_tally(vals, block_id, height, agg, voting_power_needed: int) -> list:
+    """The host half both aggregated-commit paths share: the shape, the
+    bitmap's size, then the power tally, all before any crypto (a commit
+    that cannot reach quorum spends no pairing). Returns the signers'
+    validator rows in ascending order."""
+    if vals is None:
+        raise ValueError("nil validator set")
+    if agg is None:
+        raise ValueError("nil commit")
+    if agg.signers is None or agg.signers.size() != vals.size():
+        raise ErrInvalidCommitSignatures(
+            vals.size(), agg.signers.size() if agg.signers is not None else 0)
+    if height != agg.height:
+        raise ErrInvalidCommitHeight(height, agg.height)
+    if block_id != agg.block_id:
+        raise ValueError(f"invalid commit -- wrong block ID: want {block_id}, got {agg.block_id}")
+    idxs = agg.signers.get_true_indices()
+    tallied = sum(vals.validators[i].voting_power for i in idxs)
+    if tallied <= voting_power_needed:
+        raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
+    return idxs
+
+
+def verify_aggregated_commit(chain_id: str, vals: ValidatorSet, block_id: BlockID, height: int,
+                             agg) -> None:
+    """The sequential walk of an aggregated commit, on the host (the oracle
+    the batched path is held to). The order of the checks is the
+    contract: shape, bitmap size, power tally (before any crypto), the
+    aggregate signature's status, the signers' key statuses in ascending
+    validator order, the identity aggregate, then the one pairing
+    check."""
+    from ..crypto import bls12381 as _bls
+
+    voting_power_needed = vals.total_voting_power() * 2 // 3
+    with record_function("agg.verify"):
+        idxs = _agg_basic_and_tally(vals, block_id, height, agg, voting_power_needed)
+        sig = bytes(agg.signature)
+        _, reason = _bls.signature_status(sig)
+        if reason is not None:
+            raise ValueError(_agg_sig_blame(reason, sig))
+        pubs = []
+        for i in idxs:
+            pub = vals.validators[i].pub_key.bytes()
+            _, preason = _bls.pubkey_status(pub)
+            if preason is not None:
+                raise ValueError(_agg_pub_blame(preason, i))
+            pubs.append(pub)
+        apk, _ = _bls.aggregate_pubkeys(pubs)
+        if apk is None:
+            raise ValueError(_AGG_APK_IDENTITY)
+        if not _bls.fast_aggregate_verify(pubs, agg.sign_bytes(chain_id), sig):
+            raise ValueError(_agg_sig_blame("wrong", sig))
+
+
+def prepare_aggregated_commit(chain_id: str, vals: ValidatorSet, block_id: BlockID, height: int,
+                              agg, k_hint: int = 1):
+    """The seam half of an aggregated commit: the host checks run here
+    (raising what the sequential walk raises), then the commit comes
+    back as a one-row AggBlock with conclude(codes), which turns the
+    lane's int32 verdict code into the walk's blame strings. The shared
+    dispatcher fuses the AggBlocks of one committee, so K concurrent
+    commits land in one launch A.
+
+    `k_hint` is the caller's concurrency: below
+    backend.BLS_DEVICE_THRESHOLD (2) one commit cannot amortise a final
+    exponentiation, so it verifies synchronously through the walk and
+    (None, None) comes back (the reference's semantics, keyed on the
+    caller's concurrency, not on the device). Raises PrepareUnsupported
+    for a set that is not all bls12381."""
+    from ..crypto import bls12381 as _bls
+    from ..ops import backend as _backend
+    from ..ops import bls_verify as _bv
+    from ..ops.entry_block import AggBlock
+
+    if k_hint < _backend.BLS_DEVICE_THRESHOLD:
+        verify_aggregated_commit(chain_id, vals, block_id, height, agg)
+        return None, None
+    voting_power_needed = vals.total_voting_power() * 2 // 3
+    idxs = _agg_basic_and_tally(vals, block_id, height, agg, voting_power_needed)
+    cols = vals.bls12381_columns()
+    if cols is None:
+        raise PrepareUnsupported("validator set is not bls12381-columnar")
+    pub48 = cols[0]
+    bits = np.zeros(vals.size(), dtype=bool)
+    bits[idxs] = True
+    epoch_cache.note_valset(vals)  # registers the committee's G1 table
+    sig = bytes(agg.signature)
+    blk = AggBlock.from_commits([(bits, agg.sign_bytes(chain_id), sig)], pub48, vals.hash())
+
+    def conclude(codes) -> None:
+        code = int(np.asarray(codes).reshape(-1)[0])
+        if code == _bv.CODE_VALID:
+            return
+        if code == _bv.CODE_PAIRING:
+            raise ValueError(_agg_sig_blame("wrong", sig))
+        if code == _bv.CODE_APK_IDENTITY:
+            raise ValueError(_AGG_APK_IDENTITY)
+        word = _bv.SIG_CODE_WORDS.get(code)
+        if word is not None:
+            raise ValueError(_agg_sig_blame(word, sig))
+        if code >= _bv.CODE_PUB_BASE:
+            i = code - _bv.CODE_PUB_BASE
+            # the word comes from the committee snapshot: pubkey_status is
+            # memoized per key, so this is a dict hit
+            word = _bls.pubkey_status(pub48[i].tobytes())[1]
+            raise ValueError(_agg_pub_blame(word or "malformed", i))
+        raise RuntimeError(f"unknown BLS verdict code {code}")
+
+    return blk, conclude

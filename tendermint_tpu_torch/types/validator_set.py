@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..crypto import PubKey
+from ..crypto import bls12381 as _bls12381
 from ..crypto import ed25519 as _ed25519
 from ..crypto import secp256k1 as _secp256k1
 from ..crypto import merkle
@@ -135,6 +136,7 @@ class ValidatorSet:
         self._hash: Optional[bytes] = None
         self._ed_cols = None
         self._secp_cols = None
+        self._bls_cols = None
         self._by_addr: Optional[Dict[bytes, int]] = None
 
     @classmethod
@@ -268,6 +270,19 @@ class ValidatorSet:
         if self._secp_cols is None:
             self._secp_cols = self._columns(_secp256k1.PubKey, 33)
         return self._secp_cols or None
+
+    def bls12381_columns(self) -> Optional[tuple]:
+        """(pub (n, 48) uint8, power (n,) int64) over the set, or None
+        unless every key is bls12381 (reference validator_set.py:340-370):
+        the aggregated commit's committee. prepare_aggregated_commit
+        carries the compressed G1 rows on its AggBlock, and the epoch
+        cache keys the decompressed table on the same hash(). Cached
+        beside the other columns; () is the cached "not all bls12381"
+        (the reference's _NO_BLS_COLS), and an update of the set must
+        clear it with the hash."""
+        if self._bls_cols is None:
+            self._bls_cols = self._columns(_bls12381.PubKey, 48)
+        return self._bls_cols or None
 
     def validate_basic(self) -> None:
         if not self.validators:

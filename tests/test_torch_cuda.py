@@ -581,3 +581,39 @@ def test_secp_kernels_match_plain(cuda, rows):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if rows > 2:
         assert 0 < int(want[0].sum()) < rows
+
+
+@pytest.mark.parametrize("k,n,rows", [(4, 8, 4), (16, 20, 8)])
+def test_bls_kernels_match_plain(cuda, k, n, rows):
+    """bls_miller and bls_finalexp (fused and by rows) against their plain
+    versions, word for word, over the first `rows` commits of
+    chip_smoke.py's BLS battery on a committee of n keys (pad commits
+    past them at K = 16), outputs allocated on -1-filled memory; the
+    codes they give equal the battery's."""
+    import chip_smoke
+    from tendermint_tpu_torch.ops import bls_verify as bv
+
+    pubs = chip_smoke.bls_battery_committee(n)
+    items, want = chip_smoke.bls_battery(n, b"cuda bls battery")
+    items, want = items[:rows], want[:rows]
+    tables = [torch.from_numpy(a).to(cuda) for a in bv.table_columns_g1(pubs)]
+    bad = bv.bad_rows(np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 48))
+    got = []
+    for c in range(0, len(items), k):
+        chunk = items[c : c + k]
+        masks, coeffs, ok, reasons = bv.prepare_commits(chunk, k, n + 1, bad)
+        t = tables + [torch.from_numpy(masks).to(cuda), torch.from_numpy(coeffs).to(cuda)]
+        want_apk, want_f = bv.verify_plain(*t)
+        _garbage_pool(cuda, (k, 3, bv.NW), (k, 6, 2, bv.NW))
+        apk, f = bv.bls_miller(*t)
+        torch.cuda.synchronize()
+        assert torch.equal(apk, want_apk) and torch.equal(f, want_f)
+        res = bv.bls_finalexp(f)
+        fused = bv.bls_finalexp(f, fused=True)
+        torch.cuda.synchronize()
+        assert torch.equal(res, bv.finalexp_plain(f))
+        assert torch.equal(fused, bv.finalexp_plain(f, fused=True))
+        codes, _ = chip_smoke.bls_codes(apk.cpu().numpy(), res.cpu().numpy(),
+                                        fused[0].cpu().numpy(), ok, reasons)
+        got.extend(codes[: len(chunk)].tolist())
+    assert got == want
