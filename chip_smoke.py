@@ -26,12 +26,12 @@ Phases, in order:
 3. host: each C helper of the host library on the 10,000-validator
    inputs against its Python or numpy oracle (commit_prep.
    _prep_commit_numpy, backend._challenges, rlc._rlc_scalars_py with
-   backend._s_below_l, canonical.compose_vote_sign_bytes_cols, Python's
+   packing.s_below_l, canonical.compose_vote_sign_bytes_cols, Python's
    `% L`), outputs equal byte for byte; the C time (median of
    HOST_REPS) on the library's threads and on one, the oracle's time,
    and the host's CPU model and count;
-4. kernels: each of the fifteen CUDA entries on the card against its plain
-   PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
+4. kernels: each of the eighteen CUDA entries on the card against its
+   plain PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
    and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
    signatures; and the epoch table build at 16,384 rows; over the
@@ -53,7 +53,14 @@ Phases, in order:
    wrong signature, a malformed, an identity and a non-subgroup G2
    signature, signers taking two crafted non-subgroup G1 keys, an
    identity aggregate, pad commits): apk, f_j and the residues word for
-   word, and the codes they give equal to the battery's;
+   word, and the codes they give equal to the battery's; and the
+   op-graph kernels: sha512_challenge over a hash battery (R || A || M of
+   64 to 256 bytes, the length field's boundaries, 1, 2 and 3 blocks, and
+   padding rows) against its plain version, hashlib's SHA-512 and
+   Python's % L, every byte, and over the RLC section's blocks at 256
+   signatures (in the 1,024 bucket) and 10,240; og_verify and
+   og_verify_cached (a shuffled epoch table) on those blocks with k
+   hashed on the card, every verdict, against the oracle too;
 5. slice: `types.validation.verify_commit` on the 10,000-validator
    commit decoded from its wire bytes on the card, on each path with the
    launch counters set to 0 just before it and read just after:
@@ -158,12 +165,25 @@ Phases, in order:
        (h3) verify_aggregated_commit (the host walk) on two commits of
        that window and backend.verify_batch_bls_codes on the whole of
        it give the same verdicts and blame;
+   (i) the op-graph path (TM_TPU_PALLAS=0, ops/ed25519_verify.py) on the
+       10,000-validator commit decoded from its wire bytes, through the
+       dispatcher: (i1) cold (epoch cache off): sha512_challenge and
+       og_verify once a call, the fused prep building the RAM columns;
+       (i2) warm: three calls on one set, the first cold, the next
+       through og_verify_cached (the table built once); (i3) the host
+       hash (TM_TPU_HOST_HASH=1): og_verify alone, the challenges from
+       ed25519_challenges_buf, no RAM columns; in each the valid commit
+       gives None, the tampered one `wrong signature (#i): <HEX>` and the
+       one below 2/3 ErrNotEnoughVotingPowerSigned, every launch from the
+       dispatch thread;
 6. timing, for each path (RLC cold, RLC warm, per-signature,
-   per-signature warm, sr25519), on the decoded commit: the end-to-end
+   per-signature warm, sr25519, op-graph cold, warm and host-hash), on
+   the decoded commit: the end-to-end
    verify_commit wall clock (warm, median of 20) and one call on the
    commit built from objects; the host library's calls in one call
    (each ed25519 path through the fused commit prep, span
-   `commit.prep`; sr25519 through the object path, `commit.select` and
+   `commit.prep`, which builds RAM columns on the op-graph device-hash
+   paths only; sr25519 through the object path, `commit.select` and
    `commit.sign_bytes`); a torch.profiler trace of 5 more calls, from
    which each call's host stages (the port's record_function spans), the
    rest of the call, and the card's busy time and idle share come; peak
@@ -194,7 +214,8 @@ card's name and power limit), one of slice (f)'s, one of slice (g)'s,
 one of slice (h)'s, one JSON line of kernel records (the launches of
 slices (a)-(d) and of config #5's first run in (f3); the secp256k1
 kernels' of the cold and warm calls of (g1) and the first config #4
-call of (g2); the BLS kernels' of (h2)'s five windows), then the
+call of (g2); the BLS kernels' of (h2)'s five windows; the op-graph
+kernels' of the valid calls of (i)), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -225,7 +246,7 @@ from tendermint_tpu_torch.crypto import _edwards, _ristretto
 from tendermint_tpu_torch.crypto import _weierstrass, bls12381, ed25519, secp256k1, sr25519
 from tendermint_tpu_torch.libs.bits import BitArray
 from tendermint_tpu_torch.ops import backend, bls_verify, commit_prep, epoch_cache, fe, host
-from tendermint_tpu_torch.ops import kernels, rlc
+from tendermint_tpu_torch.ops import kernels, packing, rlc
 from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify
 from tendermint_tpu_torch.ops import sc_secp as secp_sc
 from tendermint_tpu_torch.db import MemDB
@@ -236,6 +257,8 @@ from tendermint_tpu_torch.light import verifier as light_verifier
 from tendermint_tpu_torch.light.provider import ErrLightBlockNotFound, LightBlock, Provider
 from tendermint_tpu_torch.light.store import LightStore
 from tendermint_tpu_torch.ops import verify
+from tendermint_tpu_torch.ops import ed25519_verify as og
+from tendermint_tpu_torch.ops import sha512 as og_sha
 from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import AggBlock, EntryBlock
 from tendermint_tpu_torch.types import validation
@@ -329,6 +352,7 @@ OBJECT_STAGES = ("commit.select", "commit.sign_bytes")
 # thread, the wait, copy-out and blame pass in pipeline.resolve on the
 # resolver thread; these spans do not nest in one another)
 PIPELINE_STAGES = ("pipeline.h2d", "pipeline.d2h", "pipeline.resolve")
+OG_STAGES = ("og.prep", "og.kernels")
 PATHS = {
     "rlc_cold": FUSED_STAGES + ("rlc.prep", "rlc.kernels") + PIPELINE_STAGES,
     "rlc_warm": FUSED_STAGES + ("rlc.prep", "rlc.gather", "rlc.kernels") + PIPELINE_STAGES,
@@ -336,6 +360,9 @@ PATHS = {
     "per_signature_warm": FUSED_STAGES + ("verify.prep", "verify.gather", "verify.kernels")
     + PIPELINE_STAGES,
     "sr25519": OBJECT_STAGES + ("sr.prep", "sr.h2d", "sr.kernels", "sr.d2h"),
+    "opgraph_cold": FUSED_STAGES + OG_STAGES + PIPELINE_STAGES,
+    "opgraph_warm": FUSED_STAGES + ("og.prep", "og.gather", "og.kernels") + PIPELINE_STAGES,
+    "opgraph_host_hash": FUSED_STAGES + OG_STAGES + PIPELINE_STAGES,
 }
 # the host library's calls in one verify_commit call of each path
 HOST_HELPERS = ("commit_prep_fused", "ed25519_challenges_buf", "ed25519_rlc_prep",
@@ -346,15 +373,25 @@ HOST_CALLS = {
     "per_signature": {"commit_prep_fused": 1, "ed25519_challenges_buf": 1},
     "per_signature_warm": {"commit_prep_fused": 1, "ed25519_challenges_buf": 1},
     "sr25519": {"vote_sign_bytes_batch_buf": 1, "sr25519_challenges": 1, "mod_l_many": 1},
+    "opgraph_cold": {"commit_prep_fused": 1},
+    "opgraph_warm": {"commit_prep_fused": 1},
+    "opgraph_host_hash": {"commit_prep_fused": 1, "ed25519_challenges_buf": 1},
 }
-# each path: (TM_TPU_RLC, epoch cache depth, the commit's key type)
+# each path: (TM_TPU_RLC, TM_TPU_PALLAS, TM_TPU_HOST_HASH, epoch cache
+# depth, the commit's key type)
 PATH_SETUP = {
-    "rlc_cold": (None, 0, "ed25519"),
-    "rlc_warm": (None, epoch_cache.DEFAULT_DEPTH, "ed25519"),
-    "per_signature": ("0", 0, "ed25519"),
-    "per_signature_warm": ("0", epoch_cache.DEFAULT_DEPTH, "ed25519"),
-    "sr25519": (None, epoch_cache.DEFAULT_DEPTH, "sr25519"),
+    "rlc_cold": (None, None, None, 0, "ed25519"),
+    "rlc_warm": (None, None, None, epoch_cache.DEFAULT_DEPTH, "ed25519"),
+    "per_signature": ("0", None, None, 0, "ed25519"),
+    "per_signature_warm": ("0", None, None, epoch_cache.DEFAULT_DEPTH, "ed25519"),
+    "sr25519": (None, None, None, epoch_cache.DEFAULT_DEPTH, "sr25519"),
+    "opgraph_cold": (None, "0", None, 0, "ed25519"),
+    "opgraph_warm": (None, "0", None, epoch_cache.DEFAULT_DEPTH, "ed25519"),
+    "opgraph_host_hash": (None, "0", "1", 0, "ed25519"),
 }
+# the fused prep builds RAM blocks (the device hash's input) on these
+# paths only
+RAM_PATHS = ("opgraph_cold", "opgraph_warm")
 
 # Bound model of one H100 (SXM, 700 W): 132 SMs, each 64 INT32 lanes a
 # clock at the SM clock nvidia-smi reports as its maximum, and HBM3 at
@@ -372,6 +409,7 @@ PRODUCTS_PER_UNIT = {
     "k3_rlc": 1_956_000, "epoch_coords": 61_550,
     "k1_decompress": 123_100, "k1_decompress_cached": 61_550, "k2_table": 50_880,
     "k3_ladder": 938_400, "k1r_decode": 128_740, "k3r_ladder": 926_160,
+    "og_verify": 1_108_660, "og_verify_cached": 1_047_110,
 }
 # k1_rlc, k1_decompress and epoch_coords do not run those formulas: their
 # bound counts the multiplies of their own formulation (fe25519.cuh
@@ -446,6 +484,41 @@ BLS_LINE_EVAL = (4, 2)  # at the apk, at -g1
 BLS_EASY_PART = 97 + 2 * 54 + 10
 BLS_HARD_PART = 5 * (63 * 18 + 5 * 54) + 2 * 18 + 10 * 54 + 15 + 10 + 15
 BLS_FINALEXP_BOUND = BLS_EASY_PART + BLS_HARD_PART
+# og_verify and og_verify_cached decompress 2 and 1 points: their bound
+# counts those on the wide field, as k1_decompress's does, and the rest
+# (table, ladder, final test) from the 13-bit formulas. One point's
+# decompression on the 13-bit formulas is epoch_coords' count.
+OG_POINTS_PER_UNIT = {"og_verify": 2, "og_verify_cached": 1}
+# sha512_challenge's bound counts what SHA-512 mod L needs, not what
+# csrc/sha512.cu does (as the BLS bounds do), in 32-bit operations at
+# INT32_LANES_PER_SM a clock an SM, a 64-bit word in two halves, a
+# three-input logic op (LOP3) or a funnel shift (SHF) one operation. A
+# round: each big sigma three rotations of two funnel shifts and a
+# three-way XOR a half (8), choose and majority a LOP3 a half (2 each),
+# and T1 = h + S1 + ch + K + W, e' = d + T1 and a' = T1 + S0 + maj as
+# three-input adds carrying into IADD3.X (4, 2, 2): 28. A scheduled word:
+# two small sigmas (6 funnel shifts and a three-way XOR a half, 8 each)
+# and a four-term sum (4): 20. The state update: eight 64-bit adds (16).
+# The block's words are read once (bytes). The reduction mod L: the
+# digest's words byte-swapped, then three folds of 2^252 = -c (mod L)
+# (sha_fold_mod_l). The bound takes the blocks this run's messages use and
+# one reduction each. kernel_ops is the source's own count (its header):
+# 5,728 a block (80 rounds of 50, 64 scheduled words of 26, the loads and
+# the state update 64) and 6,400 a reduction (a byte-wise Horner, 64 steps
+# of 100).
+SHA_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 16
+SHA_KERNEL_OPS_PER_BLOCK = 80 * 50 + 64 * 26 + 64
+SHA_KERNEL_OPS_REDUCE = 64 * 100
+# L = 2^252 + SHA_C, SHA_C of 125 bits (4 words); the words of the part
+# above 2^252 at each fold: 260 bits of the digest, then a signed 133-bit
+# and a signed 7-bit part
+SHA_C = _edwards.L - 2**252
+SHA_C_WORDS = 4
+SHA_FOLD_WORDS = (9, 5, 1)
+# R || A || M totals of the hash battery: the empty message (64), the
+# length field's boundaries (111 | 112 bytes end one block | need two,
+# 239 | 240 the same for three) and RAM_MAX_LEN (256)
+SHA_TOTALS = (64, 65, 111, 112, 127, 128, 175, 176, 239, 240, 255, 256)
 KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "k1_rlc": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:110"),
     "k1_rlc_cached": ("rlc.cu", "tendermint_tpu/ops/pallas_rlc.py:139"),
@@ -462,6 +535,9 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "secp_verify_cached": ("secp256k1.cu", "tendermint_tpu/ops/secp_verify.py:205"),
     "bls_miller": ("bls12381.cu", "tendermint_tpu/ops/bls_verify.py:247"),
     "bls_finalexp": ("bls12381.cu", "tendermint_tpu/ops/bls_verify.py:300"),
+    "sha512_challenge": ("sha512.cu", "tendermint_tpu/ops/sha512.py:174"),
+    "og_verify": ("ed25519_verify.cu", "tendermint_tpu/ops/ed25519_verify.py:152"),
+    "og_verify_cached": ("ed25519_verify.cu", "tendermint_tpu/ops/ed25519_verify.py:273"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
 # canonicalisation; the rest, and every output of the four K1s, the epoch
@@ -470,7 +546,8 @@ SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
                 "epoch_coords": (), "k1_decompress": (), "k1_decompress_cached": (),
                 "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": (),
                 "secp_verify": (), "secp_verify_cached": (), "bls_miller": (),
-                "bls_finalexp": ()}
+                "bls_finalexp": (), "sha512_challenge": (), "og_verify": (),
+                "og_verify_cached": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -768,7 +845,7 @@ def kernel_resources(ptxas: str) -> dict:
     out, name = {}, None
     for line in ptxas.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"for _ZN(?:3edw|4secp|3bls)\d+(\w+?)_kernelE", line)
+            m = re.search(r"for _ZN(?:3edw|4secp|3bls|3sha)\d+(\w+?)_kernelE", line)
             name = m.group(1) if m and m.group(1) in KERNELS else None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -821,7 +898,10 @@ def _same_prep(got, want) -> bool:
     (gs, gt, gb), (ws, wt, wb) = got, want
     return (np.array_equal(gs, ws) and gt == wt and gb is not None and wb is not None
             and np.array_equal(gb.pub, wb.pub) and np.array_equal(gb.sig, wb.sig)
-            and np.array_equal(gb.offsets, wb.offsets) and bytes(gb.msgs) == bytes(wb.msgs))
+            and np.array_equal(gb.offsets, wb.offsets) and bytes(gb.msgs) == bytes(wb.msgs)
+            and all((getattr(gb, c) is None) == (getattr(wb, c) is None)
+                    and (getattr(gb, c) is None or np.array_equal(getattr(gb, c), getattr(wb, c)))
+                    for c in ("ram_hi", "ram_lo", "ram_counts")))
 
 
 def _rlc_oracle(block: EntryBlock, z: np.ndarray, live: int) -> tuple:
@@ -834,13 +914,14 @@ def _rlc_oracle(block: EntryBlock, z: np.ndarray, live: int) -> tuple:
     k_enc = np.zeros((live, 32), dtype=np.uint8)
     k_enc[:n] = np.frombuffer(k, dtype=np.uint8).reshape(n, 32)
     su = rlc._rlc_scalars_py(s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), rlc.M)
-    return k, su, backend._s_below_l(s_enc, n, live)
+    return k, su, packing.s_below_l(s_enc, n, live)
 
 
 def host_phase(vals, commit: Commit, sr_block: EntryBlock) -> dict:
     """Each C helper of the host library at N_VALIDATORS signatures against
     its oracle on the same inputs: the decoded commit's fused prep (the
-    verify_commit mode), its challenges, RLC prep and sign bytes, and the
+    verify_commit mode), without and with the op-graph path's RAM columns
+    (commit_prep._fill_ram), its challenges, RLC prep and sign bytes, and the
     reduction mod L of the sr25519 commit's challenges."""
     out = {}
 
@@ -865,6 +946,12 @@ def host_phase(vals, commit: Commit, sr_block: EntryBlock) -> dict:
     _, _, block = record("commit_prep_fused", lambda: commit_prep.prep_commit(*args),
                          lambda: commit_prep._prep_commit_numpy(*args), _same_prep)
     check(len(block) == N_VALIDATORS, f"the fused prep selected {len(block)} signatures")
+    check(block.ram_hi is None, "the fused prep built RAM columns unasked")
+    _, _, rblock = record(
+        "commit_prep_fused_ram", lambda: commit_prep.prep_commit(*args, True),
+        lambda: commit_prep._prep_commit_numpy(*args, True), _same_prep)
+    check(rblock.ram_hi is not None and rblock.ram_hi.shape == (N_VALIDATORS, 48),
+          "the fused prep built no RAM columns for the op-graph path")
     r = np.ascontiguousarray(block.sig[:, :32])
     buf, offs = block.msgs_contiguous()
     record("ed25519_challenges_buf",
@@ -1086,6 +1173,72 @@ def kernel_phase(inputs: dict, sr_in: dict, table_pub: np.ndarray, dev) -> dict:
     return stats
 
 
+def sha_battery() -> tuple:
+    """The hash battery: an EntryBlock whose R || A || M totals are
+    SHA_TOTALS (the empty message, the length field's boundaries, 256
+    bytes), and the expected k rows of it padded by 4 padding rows
+    (hashlib's SHA-512 and Python's % L)."""
+    rng = np.random.default_rng(SEED)
+    ents = [(rng.bytes(32), rng.bytes(t - 64), rng.bytes(64)) for t in SHA_TOTALS]
+    msgs = [s[:32] + p + m for p, m, s in ents] + [og_sha._PAD_PAIR] * 4
+    want = [(int.from_bytes(hashlib.sha512(m).digest(), "little") % _edwards.L)
+            .to_bytes(32, "little") for m in msgs]
+    return EntryBlock.from_entries(ents), want
+
+
+def og_kernel_phase(stats: dict, inputs: dict, dev) -> None:
+    """The op-graph kernels against their plain versions on the card:
+    sha512_challenge over the hash battery (against hashlib and % L too)
+    and over each shape's R || A || M; og_verify and og_verify_cached over
+    the RLC section's blocks (the ZIP-215 edge battery, commit signatures
+    with one tampered, padding to the op-graph bucket: 256 signatures in
+    the 1,024 bucket, 10,240 in 10,240), every verdict, against the
+    oracle too, with k hashed on the card."""
+    block, want = sha_battery()
+    n = len(block) + 4
+    hi, lo, counts = og_sha.pad_ram_block(block, n, og_sha.MAX_LEN)
+    check(sorted(set(counts.tolist())) == [1, 2, 3], f"the hash battery uses blocks {counts}")
+    args = [torch.from_numpy(og_sha.as_int32(hi)).to(dev),
+            torch.from_numpy(og_sha.as_int32(lo)).to(dev), torch.from_numpy(counts).to(dev)]
+    k = hold(stats, "sha512_challenge", f"the {n}-row hash battery",
+             lambda: og_sha.sha512_challenge_plain(*args), lambda: og_sha.sha512_challenge(*args))
+    check([bytes(r) for r in k.cpu().numpy()] == want,
+          "sha512_challenge differs from hashlib's SHA-512 mod L")
+    log(f"kernels: the hash battery's {n} rows (R || A || M of {list(SHA_TOTALS)} bytes and 4 "
+        "padding rows) equal hashlib's SHA-512 mod L")
+    for lanes in LANE_SHAPES:
+        block, per_sig = inputs[lanes]
+        live = len(block)
+        batch = og.prepare_batch(block, device_hash=True)
+        n = batch.bucket
+        label = f"{live} signatures in {n}"
+        a, r, s, hi, lo, counts, sok = (torch.from_numpy(x).to(dev) for x in batch.args)
+        k = hold(stats, "sha512_challenge", label,
+                 lambda: og_sha.sha512_challenge_plain(hi, lo, counts),
+                 lambda: og_sha.sha512_challenge(hi, lo, counts))
+        oracle = np.ones(n, dtype=bool)
+        oracle[:live] = per_sig[:live]
+        out = hold(stats, "og_verify", label, lambda: og.og_verify_plain(a, r, s, k, sok),
+                   lambda: og.og_verify(a, r, s, k, sok))
+        got = out.cpu().numpy().astype(bool)
+        check(bool((got == oracle).all()),
+              f"og_verify verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != oracle)[0][:8].tolist()}")
+        wblock, ep = with_epoch(block, lanes + 1)
+        pub_t = torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)).to(dev)
+        ctbl, oktbl = epoch_cache.epoch_coords_plain(pub_t)
+        idx = torch.from_numpy(epoch_cache.table_columns(wblock, n, ep)).to(dev)
+        out = hold(stats, "og_verify_cached", label,
+                   lambda: og.og_verify_cached_plain(ctbl, oktbl, idx, r, s, k, sok),
+                   lambda: og.og_verify_cached(ctbl, oktbl, idx, r, s, k, sok))
+        got = out.cpu().numpy().astype(bool)
+        check(bool((got == oracle).all()),
+              f"og_verify_cached verdicts at {label} differ from the oracle at "
+              f"{np.nonzero(got != oracle)[0][:8].tolist()}")
+        log(f"kernels: op-graph {label}: cold and warm verdicts equal the oracle; "
+            f"{int((~oracle).sum())} reject")
+
+
 # -- slice phase ---------------------------------------------------------------
 
 
@@ -1234,6 +1387,99 @@ def slice_phase(vals, commit, sr_vals, sr_commit, dev) -> dict:
               f"an sr25519 set was noted in the epoch cache: {stats}")
         log(f"slice (d): sr25519 valid commit verified, launches {sr_want}; tampered "
             f"#{TAMPER_AT} blamed; low power rejected; the epoch cache untouched")
+    return launches
+
+
+def fused_ram(fn) -> list:
+    """Whether each commit_prep_fused call while fn() runs built RAM
+    columns (the device hash's input)."""
+    built = []
+    real = host.commit_prep_fused
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        built.append(out[2] is not None and out[2][4] is not None)
+        return out
+
+    host.commit_prep_fused = spy
+    try:
+        fn()
+    finally:
+        host.commit_prep_fused = real
+    return built
+
+
+def opgraph_phase(vals, commit, dev) -> dict:
+    """Slice (i): the op-graph path (TM_TPU_PALLAS=0) on the card, on the
+    10,000-validator commit decoded from its wire bytes, through the
+    dispatcher. Returns each kernel's launches in its path's run (the
+    launch counters set to 0 just before): the valid commit's calls of
+    (i1) opgraph_cold, (i2) opgraph_warm and (i3) opgraph_host_hash, summed."""
+
+    def vc(c):
+        return lambda: validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
+
+    bad, bad_msg, low, low_msg = _commits(vals, commit)
+    cold = {"sha512_challenge": 1, "og_verify": 1}
+    warm = {"sha512_challenge": 1, "og_verify_cached": 1}
+    with env("TM_TPU_PALLAS", "0"), env("TM_TPU_HOST_HASH", None), env("TM_TPU_RLC", None), \
+            launch_threads() as launchers:
+        # (i1) cold: the epoch cache off
+        epoch_cache.reset(depth=0)
+        kernels.reset_launches()
+        ram = fused_ram(vc(commit))
+        got = _launched({})
+        check(got == cold, f"the op-graph cold call launched {got}")
+        check(ram == [True], f"the op-graph cold call's fused prep built RAM columns {ram}")
+        launches = dict(got)
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        check(_launched(before) == cold, f"the tampered cold call launched {_launched(before)}")
+        expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+        log(f"slice (i1): op-graph cold valid commit verified, launches {got}, RAM columns "
+            f"built by the fused prep; tampered #{TAMPER_AT} blamed; low power rejected")
+
+        # (i2) warm: three calls on one set, the first cold
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+        kernels.reset_launches()
+        per_call = []
+        for _ in range(3):
+            before = dict(kernels.LAUNCHES)
+            vc(commit)()
+            per_call.append(_launched(before))
+        check(per_call == [cold, dict(warm, epoch_coords=1), warm],
+              f"three op-graph calls on one set launched {per_call}")
+        for c in per_call:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        before = dict(kernels.LAUNCHES)
+        expect_error(vc(bad), ValueError, bad_msg)
+        check(_launched(before) == warm, "the tampered commit did not run warm")
+        expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+        log(f"slice (i2): op-graph calls on one set launched {per_call}; tampered "
+            f"#{TAMPER_AT} blamed warm; low power rejected")
+
+        # (i3) the host hash: cold, TM_TPU_HOST_HASH=1
+        with env("TM_TPU_HOST_HASH", "1"):
+            epoch_cache.reset(depth=0)
+            kernels.reset_launches()
+            calls = host_calls(vc(commit))
+            got = _launched({})
+            check(got == {"og_verify": 1}, f"the op-graph host-hash call launched {got}")
+            launches["og_verify"] += 1
+            check(calls == HOST_CALLS["opgraph_host_hash"],
+                  f"the op-graph host-hash call made the host calls {calls}")
+            before = dict(kernels.LAUNCHES)
+            expect_error(vc(bad), ValueError, bad_msg)
+            check(_launched(before) == {"og_verify": 1}, "the tampered host-hash call launched "
+                  f"{_launched(before)}")
+            expect_error(vc(low), ErrNotEnoughVotingPowerSigned, low_msg)
+            ram = fused_ram(vc(commit))
+            check(ram == [False], f"the host-hash call's fused prep built RAM columns {ram}")
+        log(f"slice (i3): op-graph host-hash valid commit verified, launches {got}, host calls "
+            f"{calls}; tampered #{TAMPER_AT} blamed; low power rejected")
+        epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+    check_dispatcher_launched(launchers, dev, "slice (i)")
     return launches
 
 
@@ -2365,6 +2611,30 @@ def wide_multiplies() -> dict:
             "slots": INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK * wide + int32}
 
 
+def sha_fold_mod_l(x: int) -> tuple:
+    """x mod L for a 512-bit digest x as a kernel on 32-bit words would
+    reduce it, the least work sha512_challenge's bound counts: three folds
+    of 2^252 = -SHA_C (mod L), each splitting r = lo + 2^252 hi (hi of
+    SHA_FOLD_WORDS words, checked) and forming lo - SHA_C hi, then one
+    conditional add and one conditional subtract of L. Returns (x mod L,
+    32 x 32 -> 64 products, other 32-bit operations): the digest's 16
+    halves byte-swapped (PRMT); a fold's hi split out by funnel shifts (a
+    word each), the subtraction over the product's words and lo's top
+    word masked; a correction an add or subtract and a select a word."""
+    wide, ops, r = 0, 16, x
+    for words in SHA_FOLD_WORDS:
+        hi = r >> 252
+        check(-(1 << (32 * words - 1)) <= hi < 1 << (32 * words),
+              f"a fold's high part {hi} exceeds {words} words")
+        r = r - (hi << 252) - SHA_C * hi
+        wide += SHA_C_WORDS * words
+        ops += words + (SHA_C_WORDS + words) + 1
+    check(-_edwards.L < r < 2 * _edwards.L, "three folds left r outside (-L, 2L)")
+    r = r + _edwards.L if r < 0 else r
+    r = r - _edwards.L if r >= _edwards.L else r
+    return r, wide, ops + 2 * 16
+
+
 def count_products(units: dict) -> dict:
     """Multiply-adds per unit of each kernel, counted by running the plain
     versions on one unit (a lane, a table row, a signature) on the CPU
@@ -2382,7 +2652,7 @@ def count_products(units: dict) -> dict:
     return counted
 
 
-def _one_unit_thunks(cold, warm, table, sig, warm_sig, sr) -> dict:
+def _one_unit_thunks(cold, warm, table, sig, warm_sig, sr, og_in) -> dict:
     """Plain-version thunks over one unit of each kernel's inputs (CPU)."""
     a_t, r_t, scal_t, sok = (t[:, :1].cpu().contiguous() for t in cold)
     ctbl, oktbl, idx, r_rows, scal_rows = (t.cpu() for t in warm)
@@ -2396,7 +2666,11 @@ def _one_unit_thunks(cold, warm, table, sig, warm_sig, sr) -> dict:
     vt = verify.k2_table_plain(vc)
     rc, ro, rs, rk = osr.k1r_decode_plain(*sr1[:6])
     rt = verify.k2_table_plain(rc)
+    oa, orr, os1, ok1, osok, oidx = (t[:1].cpu().contiguous() for t in og_in)
     return {
+        "og_verify": lambda: og.og_verify_plain(oa, orr, os1, ok1, osok),
+        "og_verify_cached": lambda: og.og_verify_cached_plain(ctbl, oktbl, oidx, orr, os1, ok1,
+                                                              osok),
         "k1_decompress_cached": lambda: verify.k1_decompress_cached_plain(
             ctbl, oktbl, widx, wr, ws, wk),
         "k1r_decode": lambda: osr.k1r_decode_plain(*sr1[:6]),
@@ -2518,18 +2792,23 @@ def profiled_calls(vals, commit, dev, path: str) -> list:
 def time_path(path: str, vals, commit, built, dev) -> dict:
     """End-to-end times and the stage breakdown of one path, on the
     decoded commit; one call on the commit built from objects."""
-    rlc_flag, depth, _ = PATH_SETUP[path]
+    rlc_flag, pallas, host_hash, depth, key_type = PATH_SETUP[path]
 
     def call(c):
         validation.verify_commit(CHAIN_ID, vals, BLOCK, HEIGHT, c, device=dev)
 
-    with env("TM_TPU_RLC", rlc_flag):
+    with env("TM_TPU_RLC", rlc_flag), env("TM_TPU_PALLAS", pallas), \
+            env("TM_TPU_HOST_HASH", host_hash):
         epoch_cache.reset(depth=depth)
         for _ in range(2):  # the second call of a set is warm
             call(commit)
         calls = host_calls(lambda: call(commit))
         check(calls == HOST_CALLS[path],
               f"a {path} call made the host library calls {calls}, wanted {HOST_CALLS[path]}")
+        if key_type == "ed25519":
+            ram = fused_ram(lambda: call(commit))
+            check(ram == [path in RAM_PATHS],
+                  f"a {path} call's fused prep built RAM columns: {ram}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         e2e = []
@@ -2539,14 +2818,15 @@ def time_path(path: str, vals, commit, built, dev) -> dict:
             e2e.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev)
         batch_runs = {}
-        if PATH_SETUP[path][2] == "ed25519":
+        if key_type == "ed25519":
             # the batch stage alone, on the commit's selected signatures:
             # through the dispatcher, and the same prepare, launch and
             # conclude on the caller's thread (the synchronous composition)
             block, _ = validation.prepare_commit_batch(
                 CHAIN_ID, vals, commit, vals.total_voting_power() * 2 // 3,
                 validation._ignore_absent, validation._count_for_block, True, True)
-            sync_fn = verify.verify_batch_compact if rlc_flag == "0" else rlc.verify_batch_rlc
+            sync_fn = (og.verify_batch_og if pallas == "0" else verify.verify_batch_compact
+                       if rlc_flag == "0" else rlc.verify_batch_rlc)
             v = pipeline.shared_verifier(dev)
             for name, fn in (("dispatched", lambda: v.submit(block).result(timeout=600)),
                              ("synchronous", lambda: sync_fn(block, device=dev))):
@@ -2659,6 +2939,21 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
     check(bool(scout[: len(secp_ents)].all().item()),
           "the secp256k1 commit's signatures did not all verify warm")
 
+    # the op-graph path at its bucket: k hashed on the card from the
+    # R || A || M blocks, then the check, cold and over the set's table
+    ob = og.prepare_batch(block, device_hash=True)
+    n_og = ob.bucket
+    oa, orr, osr_, ohi, olo, ocnt, osok = (torch.from_numpy(x).to(dev) for x in ob.args)
+    ok_rows = og_sha.sha512_challenge(ohi, olo, ocnt)
+    oout = og.og_verify(oa, orr, osr_, ok_rows, osok)
+    check(bool(oout[: len(block)].all().item()), "the commit's signatures did not all verify "
+          "on the op-graph path")
+    oidx = torch.from_numpy(epoch_cache.table_columns(wblock, n_og, ep)).to(dev)
+    ocout = og.og_verify_cached(ctbl, oktbl, oidx, orr, osr_, ok_rows, osok)
+    check(bool(ocout[: len(block)].all().item()), "the commit's signatures did not all verify "
+          "on the warm op-graph path")
+    og_in = (oa, orr, osr_, ok_rows, osok, oidx)
+
     runs = {
         "k1_rlc": (lambda: rlc.k1_rlc(a_t, r_t, scal_t), (a_t, r_t, scal_t, coords, ok, dig), g),
         "k1_rlc_cached": (lambda: rlc.k1_rlc_cached(*warm), warm + (wc, wo, wd), g),
@@ -2680,8 +2975,15 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
         "secp_verify": (lambda: secp_verify.secp_verify(*sargs), tuple(sargs) + (sout,), n_secp),
         "secp_verify_cached": (lambda: secp_verify.secp_verify_cached(*stables, *scargs),
                                tuple(stables) + tuple(scargs) + (scout,), n_secp),
+        "sha512_challenge": (lambda: og_sha.sha512_challenge(ohi, olo, ocnt),
+                             (ohi, olo, ocnt, ok_rows), n_og),
+        "og_verify": (lambda: og.og_verify(oa, orr, osr_, ok_rows, osok),
+                      (oa, orr, osr_, ok_rows, osok, oout), n_og),
+        "og_verify_cached": (
+            lambda: og.og_verify_cached(ctbl, oktbl, oidx, orr, osr_, ok_rows, osok),
+            (ctbl, oktbl, oidx, orr, osr_, ok_rows, osok, ocout), n_og),
     }
-    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr))
+    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr, og_in))
     wide = wide_multiplies()
     log(f"timing: decompress_wide a point: {wide['squarings']} squarings and "
         f"{wide['multiplies']} multiplies on the wide field, {wide['wide']} 32 x 32 -> 64 "
@@ -2698,6 +3000,26 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
     log(f"timing: a secp256k1 row: {secp_counts}, {SECP_WIDE_PER_SIG} 32 x 32 -> 64 products")
     for name in ("secp_verify", "secp_verify_cached"):
         ops[name] = SECP_WIDE_PER_SIG * INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
+    # the op-graph checks: their decompressions on the wide field
+    for name, points in OG_POINTS_PER_UNIT.items():
+        ops[name] = products[name] + points * (wide["slots"] - PRODUCTS_PER_UNIT["epoch_coords"])
+    # the hash: the least 32-bit operations of the blocks this run's
+    # messages use and of one reduction a message (the fold checked
+    # exact on this run's digests); the source's count beside it
+    blocks_used = int(ocnt.sum().item())
+    digests = og_sha.sha512_blocks_plain(ohi.cpu(), olo.cpu(), ocnt.cpu()).numpy()
+    for d, k in zip(og_sha.digest_to_bytes(digests), ok_rows.cpu().numpy()):
+        red = sha_fold_mod_l(int.from_bytes(d.tobytes(), "little"))
+        check(red[0] == int.from_bytes(k.tobytes(), "little"),
+              "sha_fold_mod_l disagrees with sha512_challenge")
+    red_slots = red[2] + red[1] * INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
+    ops["sha512_challenge"] = (SHA_OPS_PER_BLOCK * blocks_used + red_slots * n_og) / n_og
+    kernel_ops = {"sha512_challenge": (SHA_KERNEL_OPS_PER_BLOCK * blocks_used
+                                       + SHA_KERNEL_OPS_REDUCE * n_og) / n_og}
+    log(f"timing: sha512_challenge hashes {blocks_used} SHA-512 blocks for {n_og} messages "
+        f"({SHA_OPS_PER_BLOCK} operations a block, a reduction {red[1]} 32 x 32 -> 64 products "
+        f"and {red[2]} operations, {red_slots:.1f} slots; the source's count "
+        f"{SHA_KERNEL_OPS_PER_BLOCK} a block and {SHA_KERNEL_OPS_REDUCE} a reduction)")
     int_rate = SMS * INT32_LANES_PER_SM * sm_clock_hz
     records = []
     for name, (fn, tensors, units) in runs.items():
@@ -2718,7 +3040,9 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "ops_per_unit": ops[name],
-            "products_per_unit": products.get(name, SECP_WIDE_PER_SIG),
+            "kernel_ops_per_unit": kernel_ops.get(name),
+            "products_per_unit": products.get(
+                name, SECP_WIDE_PER_SIG if name.startswith("secp_") else None),
             "units": units,
             "bytes": io_bytes,
         })
@@ -3251,6 +3575,7 @@ def main() -> int:
 
     t = time.perf_counter()
     kstats = kernel_phase(inputs, sr_in, table_pub, dev)
+    og_kernel_phase(kstats, inputs, dev)
     secp_battery = secp_kernel_phase(kstats, secp_ents, secp_table_pub, dev)["battery"]
     log(f"kernel phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -3260,6 +3585,10 @@ def main() -> int:
     t = time.perf_counter()
     launches = slice_phase(vals, wire["ed25519"], sets["sr25519"][0], wire["sr25519"], dev)
     log(f"slice phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    og_launches = opgraph_phase(vals, wire["ed25519"], dev)
+    log(f"op-graph phase (i): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     light = light_phase(light_wire, dev)
@@ -3280,7 +3609,7 @@ def main() -> int:
     t = time.perf_counter()
     paths = {}
     for p in PATHS:
-        key_type = PATH_SETUP[p][2]
+        key_type = PATH_SETUP[p][4]
         paths[p] = time_path(p, sets[key_type][0], wire[key_type], sets[key_type][1], dev)
     records = kernel_timing(vals, EntryBlock.from_entries(ents),
                             EntryBlock.from_entries(sr_ents), secp_vals, secp_ents, dev,
@@ -3294,9 +3623,11 @@ def main() -> int:
         for p, s in paths.items()))
     for r in records:
         # slices (a)-(d), config #5's first run in slice (f); the secp256k1
-        # kernels' in slice (g1) and (g2)
+        # kernels' in slice (g1) and (g2); the op-graph kernels' in slice (i)
         if r["name"].startswith("secp_"):
             r["launches"] = secp_launches[r["name"]]
+        elif r["name"] in ("sha512_challenge", "og_verify", "og_verify_cached"):
+            r["launches"] = og_launches[r["name"]]
         elif r["name"].startswith("bls_"):
             r["launches"] = bls_launches.get(r["name"], 0)
         else:

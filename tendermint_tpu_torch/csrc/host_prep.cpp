@@ -12,8 +12,7 @@
 // allocates, loaded with ctypes by ops/host.py (which checks shapes,
 // dtypes and contiguity first). SHA-512 is the scalar implementation
 // below, threaded over ranges of signatures where the hashing pays for
-// the threads. commit_prep_fused here leaves out the reference's
-// device-hash RAM blocks. Every entry returns 0 on success and -1 on
+// the threads. Every entry returns 0 on success and -1 on
 // inputs it refuses (an offset table that is not non-decreasing from 0
 // inside its buffer, a buffer too short); the threads never touch Python
 // objects, and ctypes releases the interpreter lock for the call.
@@ -327,6 +326,11 @@ static inline bool below_l(const uint8_t s[32]) {
 
 }  // namespace sc
 
+// The RAM blocks of commit_prep_fused: R || A || M of up to RAM_MAX_LEN
+// bytes in RAM_NBLOCK SHA-512 blocks (ops/commit_prep.RAM_MAX_LEN).
+static const int64_t RAM_MAX_LEN = 256;
+static const int64_t RAM_NBLOCK = (RAM_MAX_LEN + 17 + 127) / 128;
+
 // Threads: the CPUs of this process's affinity mask, or TM_NATIVE_THREADS
 // (1..1023) when set.
 static unsigned pool_width() {
@@ -541,7 +545,9 @@ int tm_vote_sign_bytes_batch_buf(const uint8_t* pfx, int64_t plen, const uint8_t
 // *tallied_out the tally. Returns 1, having done nothing more, when the
 // tally is not above threshold; else 0 with pub_out (m x 32), sig_out
 // (m x 64), the sign bytes in msgs_out and offs_out (m + 1); -1 when they
-// need more than msgs_cap bytes.
+// need more than msgs_cap bytes. With ram != 0 and every R || A || M
+// within RAM_MAX_LEN bytes, also ram_hi, ram_lo (m x RAM_NBLOCK * 16)
+// and ram_counts (m), with *ram_nblock_out = RAM_NBLOCK (else 0).
 int tm_commit_prep_fused(const uint8_t* flags, const uint8_t* sigs, const int64_t* ts_secs,
                          const int32_t* ts_nanos, const uint8_t* pubs, const int64_t* power,
                          int64_t n, const uint8_t* pfx_commit, int64_t pfx_commit_len,
@@ -549,10 +555,12 @@ int tm_commit_prep_fused(const uint8_t* flags, const uint8_t* sigs, const int64_
                          int64_t sfx_len, int64_t threshold, int64_t mode, int64_t* sel_out,
                          int64_t* m_out, int64_t* tallied_out, uint8_t* pub_out,
                          uint8_t* sig_out, uint8_t* msgs_out, int64_t msgs_cap,
-                         int64_t* offs_out) {
+                         int64_t* offs_out, int64_t ram, uint32_t* ram_hi,
+                         uint32_t* ram_lo, int32_t* ram_counts, int64_t* ram_nblock_out) {
   if (n < 0 || pfx_commit_len < 0 || pfx_nil_len < 0 || sfx_len < 0) return -1;
   const bool sel_commit = mode & 1, count_fb = mode & 2, early = mode & 4;
   int64_t m = 0, tallied = 0;
+  *ram_nblock_out = 0;
   for (int64_t i = 0; i < n; i++) {
     uint8_t f = flags[i];
     if (sel_commit ? (f != 2) : (f == 1)) continue;
@@ -564,25 +572,60 @@ int tm_commit_prep_fused(const uint8_t* flags, const uint8_t* sigs, const int64_
   *tallied_out = tallied;
   if (tallied <= threshold) return 1;
   offs_out[0] = 0;
+  int64_t max_msg = 0;
   for (int64_t j = 0; j < m; j++) {
     int64_t i = sel_out[j];
     size_t plen = (size_t)(flags[i] == 3 ? pfx_nil_len : pfx_commit_len);
-    offs_out[j + 1] = offs_out[j] + (int64_t)sign_bytes_len(plen, (size_t)sfx_len, ts_secs[i],
-                                                            (int64_t)ts_nanos[i]);
+    const int64_t rec =
+        (int64_t)sign_bytes_len(plen, (size_t)sfx_len, ts_secs[i], (int64_t)ts_nanos[i]);
+    if (rec > max_msg) max_msg = rec;
+    offs_out[j + 1] = offs_out[j] + rec;
   }
   if (offs_out[m] > msgs_cap) return -1;
+  // the RAM blocks (reference :2330-2420): when asked (ram != 0) and
+  // every row's R || A || M fits in RAM_MAX_LEN bytes, as _fill_ram
+  // returns None
+  const bool want_ram = ram && 64 + max_msg <= RAM_MAX_LEN;
+  const int64_t nblock = want_ram ? RAM_NBLOCK : 0;
   // on the calling thread, unlike the reference (threads from 1,024
-  // rows): at 10,000 rows it took 0.92 ms on one thread and 3.05 ms on
-  // 8 on an H100's host (chip_smoke.py's host phase)
+  // rows): at 10,000 rows without RAM blocks it took 0.92 ms on one
+  // thread and 3.05 ms on 8 on an H100's host (chip_smoke.py's host phase)
+  uint8_t row[RAM_NBLOCK * 128];
   for (int64_t j = 0; j < m; j++) {
     int64_t i = sel_out[j];
     memcpy(pub_out + 32 * j, pubs + 32 * i, 32);
     memcpy(sig_out + 64 * j, sigs + 64 * i, 64);
     bool nil = flags[i] == 3;
-    sign_bytes_put(msgs_out + offs_out[j], nil ? pfx_nil : pfx_commit,
+    uint8_t* msg = msgs_out + offs_out[j];
+    sign_bytes_put(msg, nil ? pfx_nil : pfx_commit,
                    (size_t)(nil ? pfx_nil_len : pfx_commit_len), sfx, (size_t)sfx_len,
                    ts_secs[i], (int64_t)ts_nanos[i]);
+    if (!want_ram) continue;
+    // R || A || M, the 0x80 terminator, zeros, the 128-bit big-endian bit
+    // length closing the last block used; then big-endian (hi, lo) words
+    const size_t mlen = (size_t)(offs_out[j + 1] - offs_out[j]);
+    const size_t tot = 64 + mlen;
+    memset(row, 0, (size_t)nblock * 128);
+    memcpy(row, sigs + 64 * i, 32);
+    memcpy(row + 32, pubs + 32 * i, 32);
+    memcpy(row + 64, msg, mlen);
+    row[tot] = 0x80;
+    const size_t blocks = (tot + 17 + 127) / 128;
+    const uint64_t bitlen = (uint64_t)tot * 8;
+    uint8_t* tail = row + blocks * 128 - 8;
+    for (int b = 0; b < 8; b++) tail[b] = (uint8_t)(bitlen >> (8 * (7 - b)));
+    ram_counts[j] = (int32_t)blocks;
+    uint32_t* hi_row = ram_hi + (size_t)j * nblock * 16;
+    uint32_t* lo_row = ram_lo + (size_t)j * nblock * 16;
+    for (int64_t w = 0; w < nblock * 16; w++) {
+      const uint8_t* q = row + 8 * w;
+      hi_row[w] = ((uint32_t)q[0] << 24) | ((uint32_t)q[1] << 16) | ((uint32_t)q[2] << 8) |
+                  (uint32_t)q[3];
+      lo_row[w] = ((uint32_t)q[4] << 24) | ((uint32_t)q[5] << 16) | ((uint32_t)q[6] << 8) |
+                  (uint32_t)q[7];
+    }
   }
+  *ram_nblock_out = nblock;
   return 0;
 }
 

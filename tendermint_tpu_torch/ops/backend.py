@@ -1,17 +1,23 @@
-"""Host side of the device verifier: row packing, challenges, s < L, the
+"""Host side of the device verifier: the challenges' oracle, the
 path switch, the batch sizes of the dispatcher, and the BatchVerifiers
 the commit path uses.
 
-Counterpart: tendermint_tpu/ops/backend.py (_pack_rows, _challenges,
-_s_below_l, _use_rlc, BUCKETS :71, quantized_bucket :809, max_coalesce
-:818, Ed25519DeviceBatchVerifier :1030-1059). DeviceBatchVerifier holds
+Counterpart: tendermint_tpu/ops/backend.py (_challenges, _use_rlc,
+_use_pallas :787, HOST_HASH :85, _max_msg_len :844, BUCKETS :71,
+quantized_bucket :809, max_coalesce :818, Ed25519DeviceBatchVerifier
+:1030-1059; _pack_rows and _s_below_l are ops/packing.py's, _bucket_for
+:90 ed25519_verify.bucket_for). DeviceBatchVerifier holds
 what the ed25519 verifier here and the sr25519 one (ops/mixed.py)
 share: the reference's add() checks and the accumulate-then-verify of
 one EntryBlock. The ed25519 verifier verifies below DEVICE_THRESHOLD
 signatures on the host and sends every larger block through the shared
 asynchronous dispatcher of its device (ops/pipeline.shared_verifier),
 whose host prep (prepare_ed25519) picks the RLC path of ops/rlc.py or,
-with TM_TPU_RLC=0, the per-signature path of ops/verify.py. The
+with TM_TPU_RLC=0, the per-signature path of ops/verify.py; with
+TM_TPU_PALLAS=0 the op-graph path of ops/ed25519_verify.py (the
+reference's path where Pallas is off), whose challenges hash on the card
+unless TM_TPU_HOST_HASH=1 or a message of the batch exceeds
+DEVICE_HASH_MAX_MSG (device_hash_for, backend.py:921). The
 reference verifies a block above BUCKETS[-1] synchronously in chunks;
 here the dispatcher splits it into the same chunks (max_coalesce()
 signatures), so every device launch of the path comes from the
@@ -20,9 +26,10 @@ come from the host library (ops/host.py, csrc/host_prep.cpp) in one
 call over the block's message buffer; _challenges, hashlib and Python
 big-int reductions, is the tests' oracle for it.
 
-The reference's backend._bucket_for (:90), the XLA path's bucket, has
-no counterpart: the port's per-signature path pads with
-verify.bucket_for (the reference's _pallas_bucket).
+Buckets: the op-graph path pads with ed25519_verify.bucket_for (the
+reference's _bucket_for, BUCKETS 128, 1024, 10240), the per-signature
+path with verify.bucket_for (the reference's _pallas_bucket), the RLC
+path with rlc.plan_bucket.
 
 secp256k1 (reference :102-109, :492-575, :864): a block of scheme
 secp256k1 pads to SECP_BUCKETS and verifies through ops/secp_verify.py's
@@ -56,7 +63,9 @@ from ..crypto import BatchVerifier, PubKey
 from ..crypto import ed25519 as _ed25519
 from ..crypto._edwards import L
 from . import bls_verify, epoch_cache, host, rlc, secp_verify
+from . import ed25519_verify as og
 from . import verify as per_sig
+from .commit_prep import DEVICE_HASH_MAX_MSG
 from .entry_block import EntryBlock
 
 # Below this many signatures a batch verifies on the host, one signature
@@ -73,6 +82,40 @@ def use_rlc() -> bool:
     unset or any value but "0" takes the RLC path, "0" the per-signature
     one."""
     return os.environ.get("TM_TPU_RLC", "1") != "0"
+
+
+def use_pallas() -> bool:
+    """The ed25519 kernel family, read from TM_TPU_PALLAS at each call
+    (backend._use_pallas): unset or any value but "0" takes the ported
+    Pallas kernels (the RLC or per-signature path, use_rlc), "0" the
+    op-graph path (ops/ed25519_verify.py). The reference picks Pallas by
+    default only on a TPU; the port's default is the Pallas kernels'
+    counterparts."""
+    return os.environ.get("TM_TPU_PALLAS", "1") != "0"
+
+
+def host_hash() -> bool:
+    """TM_TPU_HOST_HASH read at each call (backend.HOST_HASH, which the
+    reference reads at import): "1" sends the op-graph path's challenges
+    to the host library."""
+    return bool(int(os.environ.get("TM_TPU_HOST_HASH", "0")))
+
+
+def builds_ram_columns() -> bool:
+    """Whether verify_commit's fused prep lays out the RAM columns (the
+    device hash's input): on the op-graph path (TM_TPU_PALLAS=0) unless
+    TM_TPU_HOST_HASH=1. The RLC and per-signature paths never read
+    them."""
+    return not use_pallas() and not host_hash()
+
+
+def device_hash_for(entries) -> bool:
+    """Whether an op-graph batch hashes its challenges on the card
+    (backend.py:921, with _max_msg_len :844): unless TM_TPU_HOST_HASH=1,
+    or a message exceeds DEVICE_HASH_MAX_MSG (then the host library
+    computes them)."""
+    longest = int(np.diff(entries.offsets).max()) if len(entries) else 0
+    return not host_hash() and longest <= DEVICE_HASH_MAX_MSG
 
 
 # The secp256k1 lane's buckets (backend.SECP_BUCKETS): a finer floor,
@@ -94,11 +137,13 @@ BLS_DEVICE_THRESHOLD = 2
 def quantized_bucket(n: int, scheme: str = "ed25519") -> int:
     """The rows a device batch of n of `scheme` pads to
     (backend.quantized_bucket, and _secp_bucket_for, _bls_bucket_for):
-    for ed25519 on the path TM_TPU_RLC picks now."""
+    for ed25519 on the path TM_TPU_PALLAS and TM_TPU_RLC pick now."""
     if scheme == "secp256k1":
         return secp_verify.bucket_for(n)
     if scheme == "bls12381":
         return bls_verify.bucket_for(n)
+    if not use_pallas():
+        return og.bucket_for(n)
     return rlc.plan_bucket(n)[0] if use_rlc() else per_sig.bucket_for(n)
 
 
@@ -106,12 +151,12 @@ def max_coalesce(scheme: str = "ed25519") -> int:
     """The largest device batch of `scheme` the dispatcher fuses jobs into
     (backend.max_coalesce): SECP_BUCKETS[-1] for secp256k1, BLS_BUCKETS[-1]
     aggregated commits for bls12381; for ed25519 rlc.MAX_SIGS on the RLC
-    path, BUCKETS[-1] on the per-signature one."""
+    path, BUCKETS[-1] on the per-signature and the op-graph ones."""
     if scheme == "secp256k1":
         return SECP_BUCKETS[-1]
     if scheme == "bls12381":
         return BLS_BUCKETS[-1]
-    return rlc.MAX_SIGS if use_rlc() else BUCKETS[-1]
+    return rlc.MAX_SIGS if use_pallas() and use_rlc() else BUCKETS[-1]
 
 
 def coalesce_linger(scheme: str = "ed25519") -> float:
@@ -162,29 +207,14 @@ def prepare_block(entries):
 
 def prepare_ed25519(entries):
     """The dispatcher's host stage for an ed25519 block (the reference's
-    AsyncBatchVerifier._prepare, pipeline.py:496-629, Pallas branches):
-    TM_TPU_RLC read now picks rlc.prepare_batch or
-    verify.prepare_batch. The prepared batch carries its own launch and
-    conclude stages."""
+    AsyncBatchVerifier._prepare, pipeline.py:496-629): TM_TPU_PALLAS and
+    TM_TPU_RLC read now pick rlc.prepare_batch, verify.prepare_batch or,
+    Pallas off, ed25519_verify.prepare_batch with the hash route of
+    device_hash_for (:604-628). The prepared batch carries its own launch
+    and conclude stages."""
+    if not use_pallas():
+        return og.prepare_batch(entries, device_hash_for(entries))
     return rlc.prepare_batch(entries) if use_rlc() else per_sig.prepare_batch(entries)
-
-
-_L_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8)
-
-
-def _pack_rows(entries: EntryBlock, bucket: int):
-    """(bucket, 32) pub / R / s rows; padding rows A = R = the identity
-    encoding (y = 1), s = 0 — they verify."""
-    n = len(entries)
-    pub = np.zeros((bucket, 32), dtype=np.uint8)
-    r_enc = np.zeros((bucket, 32), dtype=np.uint8)
-    s_enc = np.zeros((bucket, 32), dtype=np.uint8)
-    pub[:n] = entries.pub
-    r_enc[:n] = entries.sig[:, :32]
-    s_enc[:n] = entries.sig[:, 32:]
-    pub[n:, 0] = 1
-    r_enc[n:, 0] = 1
-    return pub, r_enc, s_enc
 
 
 def _challenges(r_enc: np.ndarray, pub: np.ndarray, msgs) -> bytes:
@@ -203,33 +233,6 @@ def _challenges(r_enc: np.ndarray, pub: np.ndarray, msgs) -> bytes:
         ).to_bytes(32, "little")
         for i, m in enumerate(msgs)
     )
-
-
-def _s_below_l(s_enc: np.ndarray, n: int, bucket: int) -> np.ndarray:
-    """s < L (RFC 8032 scalar range) by a big-endian lexicographic
-    compare; padding rows (s = 0) pass."""
-    s_ok = np.zeros((bucket,), dtype=bool)
-    s_ok[n:] = True
-    if n:
-        s_be = s_enc[:n, ::-1]
-        diff = s_be != _L_BE
-        first = diff.argmax(axis=1)
-        s_ok[:n] = diff.any(axis=1) & (s_be[np.arange(n), first] < _L_BE[first])
-    return s_ok
-
-
-def _host_rows(entries: EntryBlock, bucket: int):
-    """The host stage both batch preps share: (bucket, 32) pub, R, s and
-    k = SHA512(R || A || M) mod L rows (k = 0 on padding rows) and the
-    (bucket,) s < L flags."""
-    n = len(entries)
-    pub, r_enc, s_enc = _pack_rows(entries, bucket)
-    s_ok = _s_below_l(s_enc, n, bucket)
-    k_enc = np.zeros((bucket, 32), dtype=np.uint8)
-    buf, offs = entries.msgs_contiguous()
-    k_enc[:n] = host.ed25519_challenges_buf(r_enc[:n], pub[:n], buf,
-                                            np.ascontiguousarray(offs, dtype=np.int64))
-    return pub, r_enc, s_enc, k_enc, s_ok
 
 
 class DeviceBatchVerifier(BatchVerifier):
@@ -354,12 +357,15 @@ def verify_batch(entries, *, device) -> np.ndarray:
     """The synchronous direct path (reference :864): a block of any size
     -> (n,) bool verdicts on `device`, by its scheme: secp256k1 through
     verify_batch_secp, bls12381 (an AggBlock, a verdict a commit) through
-    verify_batch_bls, ed25519 through the path TM_TPU_RLC picks
-    (rlc.verify_batch_rlc, verify.verify_batch_compact)."""
+    verify_batch_bls, ed25519 through the path TM_TPU_PALLAS and
+    TM_TPU_RLC pick (ed25519_verify.verify_batch_og, rlc.verify_batch_rlc,
+    verify.verify_batch_compact)."""
     if entries.scheme == "secp256k1":
         return verify_batch_secp(entries, device=device)
     if entries.scheme == "bls12381":
         return verify_batch_bls(entries, device=device)
+    if not use_pallas():
+        return og.verify_batch_og(entries, device=device)
     if use_rlc():
         return rlc.verify_batch_rlc(entries, device=device)
     return per_sig.verify_batch_compact(entries, device=device)

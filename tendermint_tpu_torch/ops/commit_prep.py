@@ -1,7 +1,9 @@
 """Fused commit prep: CommitBlock columns to a kernel-ready EntryBlock.
 
-Counterpart: tendermint_tpu/ops/commit_prep.py (select_and_tally,
-_compose_selected, prep_commit_from, prep_commit, _prep_commit_numpy).
+Counterpart: tendermint_tpu/ops/commit_prep.py (DEVICE_HASH_MAX_MSG,
+RAM_MAX_LEN, ram_nblock, scatter_rows_by_length, select_and_tally,
+_compose_selected, _fill_ram, prep_commit_from, prep_commit,
+_prep_commit_numpy).
 A commit decoded from its wire bytes is columnar from decode
 (types/block.py fills a CommitBlock once; CommitSig objects are lazy
 views), and this module turns those columns and the validator set's
@@ -15,11 +17,24 @@ interpreter lock released:
     sign bytes  canonical vote sign bytes of every selected vote in one
                 contiguous buffer + offset table
     gather      pub (m, 32) / sig (m, 64) rows of the selection
+    RAM blocks  when asked (ram) and every R || A || M within
+                RAM_MAX_LEN bytes: each row's R || A || M padded into
+                SHA-512 blocks and packed into the device hash's
+                big-endian (hi, lo) uint32 words (EntryBlock ram_hi,
+                ram_lo, ram_counts), which
+                ops/sha512.pad_ram_rows pads to a bucket and the
+                sha512_challenge kernel hashes
 
-The reference's device-hash RAM blocks (_fill_ram) are not built: only
-a device SHA-512, which the port does not have, reads them.
-_prep_commit_numpy is the plain version of the C call, for the tests
-and chip_smoke.py's oracle only: the verify path never calls it.
+Only the op-graph path's device hash (ops/backend.py, TM_TPU_PALLAS=0)
+reads the RAM blocks, so they are not built unless asked for (ram),
+where the reference's prep_commit_from builds them by default
+(ram_max_len=RAM_MAX_LEN): the RLC and per-signature paths do not pay
+to build rows they never read (types/validation.py asks for them where
+backend.builds_ram_columns() says so). The layout is fixed at
+RAM_MAX_LEN bytes (ops/host.py, as in the host library).
+_prep_commit_numpy and _fill_ram are the plain versions of the C call,
+for the tests and chip_smoke.py's oracle only: the verify path never
+calls them.
 """
 
 from __future__ import annotations
@@ -30,6 +45,14 @@ import numpy as np
 
 from . import epoch_cache, host
 from .entry_block import CommitBlock, EntryBlock
+from .host import RAM_MAX_LEN, ram_nblock
+
+_RAM_HDR = 64  # R (32) || A (32) ahead of the message
+# Messages up to this many bytes hash on the card (R || A || M padded into
+# RAM_MAX_LEN bytes of SHA-512 blocks); a batch with a longer message
+# takes the host challenges. The reference reads TM_TPU_DEVICE_HASH_MAX_MSG
+# with this default (and RAM_MAX_LEN = 64 + it); the port fixes both.
+DEVICE_HASH_MAX_MSG = RAM_MAX_LEN - _RAM_HDR
 
 # BlockIDFlag values (types/block.py), declared again so the types layer
 # can import this module
@@ -41,6 +64,47 @@ FLAG_NIL = 3
 MODE_SELECT_COMMIT_ONLY = 1
 MODE_COUNT_FOR_BLOCK = 2
 MODE_EARLY_STOP = 4
+
+
+def scatter_rows_by_length(buf: np.ndarray, col0: int, flat: np.ndarray,
+                           offsets: np.ndarray, lens: np.ndarray) -> None:
+    """Copy the records flat[offsets[i] : offsets[i] + lens[i]] into
+    buf[i, col0 : col0 + lens[i]], one 2-D gather for each distinct
+    length (a commit's sign bytes have a handful)."""
+    base = offsets[: len(lens)]
+    for length in np.unique(lens):
+        if length == 0:
+            continue
+        rows = np.flatnonzero(lens == length)
+        src = base[rows][:, None] + np.arange(length)
+        buf[rows[:, None], col0 + np.arange(length)[None, :]] = flat[src]
+
+
+def _fill_ram(msgs_buf, offsets: np.ndarray, pub_rows: np.ndarray,
+              sig_rows: np.ndarray) -> Optional[tuple]:
+    """Each row's R || A || M padded into SHA-512 blocks and closed with
+    the 0x80 terminator and the 128-bit big-endian bit length, packed
+    into big-endian words: (ram_hi, ram_lo (m, nblock * 16) uint32, the
+    high and low halves of each 64-bit word, counts (m,) int32 the
+    blocks each row uses). None when a row's R || A || M exceeds
+    RAM_MAX_LEN. The plain version of the C call's RAM half (the
+    reference's _fill_ram at max_len = RAM_MAX_LEN)."""
+    from .sha512 import _buf_to_words, _close
+
+    nblock = ram_nblock(RAM_MAX_LEN)
+    m = pub_rows.shape[0]
+    lens = np.diff(offsets)
+    tot = lens + _RAM_HDR
+    if m and int(tot.max()) > RAM_MAX_LEN:
+        return None
+    buf = np.zeros((m, nblock * 128), dtype=np.uint8)
+    buf[:, :32] = sig_rows[:, :32]
+    buf[:, 32:64] = pub_rows
+    scatter_rows_by_length(buf, _RAM_HDR, np.frombuffer(msgs_buf, dtype=np.uint8), offsets,
+                           lens)
+    blocks = _close(buf, tot)
+    hi, lo = _buf_to_words(buf, m, nblock)
+    return hi.reshape(m, nblock * 16), lo.reshape(m, nblock * 16), blocks.astype(np.int32)
 
 
 def select_and_tally(cblock: CommitBlock, power_col: np.ndarray, threshold: int,
@@ -104,15 +168,17 @@ def _compose_selected(cblock: CommitBlock, sel: np.ndarray, prefix_commit: bytes
     return out.tobytes(), offsets
 
 
-def prep_commit_from(commit, vals, chain_id: str, threshold: int,
-                     mode: int) -> Optional[Tuple[np.ndarray, int, Optional[EntryBlock]]]:
+def prep_commit_from(commit, vals, chain_id: str, threshold: int, mode: int,
+                     ram: bool = False
+                     ) -> Optional[Tuple[np.ndarray, int, Optional[EntryBlock]]]:
     """The fused path's entry for verify_commit: the columnar-eligibility
     checks (a CommitBlock, all-ed25519 validator columns of the commit's
     size), the per-flag templates and prep_commit. Returns None when the
     commit or set is not columnar-representable: the caller takes the
     object path and its exact errors. The block carries each lane's
     validator row (val_idx) and, for a set the epoch cache has noted,
-    the set's key (ops/epoch_cache.py)."""
+    the set's key (ops/epoch_cache.py); with ram (the op-graph
+    device-hash path) also its RAM blocks."""
     cols = vals.ed25519_columns()
     if cols is None:
         return None
@@ -122,7 +188,7 @@ def prep_commit_from(commit, vals, chain_id: str, threshold: int,
     tpl_c = commit.sign_bytes_template(chain_id, FLAG_COMMIT)
     tpl_n = commit.sign_bytes_template(chain_id, FLAG_NIL)
     sel, tallied, block = prep_commit(cblock, cols[0], cols[1], tpl_c[0], tpl_n[0], tpl_c[1],
-                                      threshold, mode)
+                                      threshold, mode, ram)
     if block is not None:
         block.val_idx = sel.astype(np.int32)
         block.epoch_key = epoch_cache.note_valset(vals)
@@ -131,28 +197,38 @@ def prep_commit_from(commit, vals, chain_id: str, threshold: int,
 
 def prep_commit(cblock: CommitBlock, pub_col: np.ndarray, power_col: np.ndarray,
                 prefix_commit: bytes, prefix_nil: bytes, suffix: bytes, threshold: int,
-                mode: int) -> Tuple[np.ndarray, int, Optional[EntryBlock]]:
+                mode: int, ram: bool = False
+                ) -> Tuple[np.ndarray, int, Optional[EntryBlock]]:
     """The fused commit prep: (sel_idx, tallied, EntryBlock or None), in
     one call of the host library. The block is None exactly when tallied
     <= threshold: the caller raises ErrNotEnoughVotingPowerSigned before
-    any sign bytes were composed, as the object path does."""
+    any sign bytes were composed, as the object path does. With
+    ram the block carries its RAM blocks when every row's R || A || M
+    fits in RAM_MAX_LEN bytes."""
     sel, tallied, cols = host.commit_prep_fused(
         np.ascontiguousarray(cblock.flags), np.ascontiguousarray(cblock.sig),
         np.ascontiguousarray(cblock.ts_seconds), np.ascontiguousarray(cblock.ts_nanos),
         np.ascontiguousarray(pub_col), np.ascontiguousarray(power_col),
-        prefix_commit, prefix_nil, suffix, threshold, mode)
+        prefix_commit, prefix_nil, suffix, threshold, mode, ram)
     if cols is None:
         return sel, tallied, None
-    pub, sig, msgs, offsets = cols
-    return sel, tallied, EntryBlock(pub, sig, msgs, offsets)
+    pub, sig, msgs, offsets, ram = cols
+    hi, lo, counts = ram if ram is not None else (None, None, None)
+    return sel, tallied, EntryBlock(pub, sig, msgs, offsets, ram_hi=hi, ram_lo=lo,
+                                    ram_counts=counts)
 
 
 def _prep_commit_numpy(cblock: CommitBlock, pub_col: np.ndarray, power_col: np.ndarray,
                        prefix_commit: bytes, prefix_nil: bytes, suffix: bytes,
-                       threshold: int, mode: int) -> Tuple[np.ndarray, int, Optional[EntryBlock]]:
+                       threshold: int, mode: int, ram: bool = False
+                       ) -> Tuple[np.ndarray, int, Optional[EntryBlock]]:
     """Plain version of prep_commit: identical outputs, in numpy."""
     sel, tallied = select_and_tally(cblock, power_col, threshold, mode)
     if tallied <= threshold:
         return sel, tallied, None
     msgs, offsets = _compose_selected(cblock, sel, prefix_commit, prefix_nil, suffix)
-    return sel, tallied, EntryBlock(pub_col[sel], cblock.sig[sel], msgs, offsets)
+    pub_rows, sig_rows = pub_col[sel], cblock.sig[sel]
+    cols = _fill_ram(msgs, offsets, pub_rows, sig_rows) if ram else None
+    hi, lo, counts = cols if cols is not None else (None, None, None)
+    return sel, tallied, EntryBlock(pub_rows, sig_rows, msgs, offsets, ram_hi=hi, ram_lo=lo,
+                                    ram_counts=counts)

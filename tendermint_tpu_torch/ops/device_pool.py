@@ -27,10 +27,17 @@ its batch has failed; before that neither its staging nor its device
 tensors are written again, so no batch reads another's inputs and no
 delivered verdict is a view of a recycled buffer.
 
-Every device tensor of a slot is allocated by the dispatcher thread on
-the compute stream (its current stream), and the slot lives until the
-pool is closed, so the caching allocator never hands its memory to
-another stream's work while a kernel reads it.
+Every device tensor of a slot is allocated on the copy stream, which
+writes it, and marked used by the compute stream, which reads it
+(`record_stream`). The caching allocator reuses a freed block only for
+an allocation on the stream it was made on, ordered after that stream's
+work: a slot made on the compute stream could take the memory of a
+tensor the compute stream still uses (the batch before's verdicts, freed
+by the dispatcher as soon as their readback is queued), and its copy,
+on the copy stream, would overwrite that memory under the running
+kernel; a verdict row then reads the next batch's input bytes. Made on
+the copy stream, a slot takes only memory the copy stream freed, and
+when it is freed its memory waits for the compute stream too.
 
 On the CPU a slot holds CPU tensors, `transfer` is a plain copy and
 `read_back` copies at once (no event).
@@ -38,6 +45,7 @@ On the CPU a slot holds CPU tensors, `transfer` is a plain copy and
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -61,13 +69,16 @@ class PoolSlot:
 
     __slots__ = ("key", "host", "dev", "readback")
 
-    def __init__(self, key: LayoutKey, args, device: torch.device):
+    def __init__(self, key: LayoutKey, args, device: torch.device, stream=None):
         self.key = key
         cuda = device.type == "cuda"
         self.host = ([torch.empty(a.shape, dtype=_torch_dtype(a.dtype), pin_memory=True)
                       for a in args] if cuda else None)
-        self.dev = [torch.empty(a.shape, dtype=_torch_dtype(a.dtype), device=device)
-                    for a in args]
+        # on the stream that writes them (the module docstring says why)
+        on = torch.cuda.stream(stream) if cuda and stream is not None else contextlib.nullcontext()
+        with on:
+            self.dev = [torch.empty(a.shape, dtype=_torch_dtype(a.dtype), device=device)
+                        for a in args]
         self.readback: Optional[torch.Tensor] = None
 
 
@@ -89,6 +100,7 @@ def transfer(slot: PoolSlot, args, copy_stream=None, compute_stream=None) -> lis
     with torch.cuda.stream(copy_stream):
         for d, h in zip(slot.dev, slot.host):
             d.copy_(h, non_blocking=True)
+            d.record_stream(compute_stream)
         copied = torch.cuda.Event()
         copied.record(copy_stream)
     compute_stream.wait_event(copied)
@@ -134,7 +146,9 @@ class DeviceBufferPool:
         self._idle: Dict[LayoutKey, List[PoolSlot]] = {}
         self._in_flight: Dict[LayoutKey, int] = {}
 
-    def acquire(self, key: LayoutKey, args) -> PoolSlot:
+    def acquire(self, key: LayoutKey, args, stream=None) -> PoolSlot:
+        """A slot of this layout (reused, or made with its device tensors
+        on `stream`, the copy stream that writes them)."""
         with self._cv:
             while self._in_flight.get(key, 0) >= self.depth:
                 self._cv.wait()
@@ -145,7 +159,7 @@ class DeviceBufferPool:
                 return idle.pop()
             self.misses += 1
         try:
-            return PoolSlot(key, args, self.device)
+            return PoolSlot(key, args, self.device, stream)
         except BaseException:
             self.release_key(key)
             raise

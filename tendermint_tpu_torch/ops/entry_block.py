@@ -15,6 +15,14 @@ and, for a commit's block, the epoch metadata of ops/epoch_cache.py:
     val_idx   (n,) int32    each signature's row in its validator set
     epoch_key bytes         the set's hash(), set when the set is warm
 
+and, where the fused commit prep built them (ops/commit_prep.py, the
+op-graph device-hash path), each row's R || A || M already padded into
+SHA-512 blocks in the device hash's big-endian word layout
+(ops/sha512.pad_ram_block's, a row at a time):
+
+    ram_hi, ram_lo (n, nblock * 16) uint32  high and low word halves
+    ram_counts     (n,) int32               the blocks each row uses
+
 Every row of a block shares one signature scheme (`scheme`, "ed25519"
 unless said; ops/pipeline.py prepares a block by its scheme). A
 secp256k1 key is 33 bytes: the block keeps its SEC1 prefix byte in
@@ -23,7 +31,8 @@ secp256k1 key is 33 bytes: the block keeps its SEC1 prefix byte in
 
 Slicing keeps all of these; concat keeps the epoch metadata only when
 every block has rows and all share one key (rows of different sets
-index different tables), and refuses blocks of different schemes.
+index different tables), the RAM columns only when every block has them
+in one layout, and refuses blocks of different schemes.
 
 An AggBlock (reference :306-490) is the BLS12-381 lane's batch: a row
 is a whole aggregated commit (a G2 signature and a signer bitmap over
@@ -46,12 +55,13 @@ _EMPTY_OFFSETS = np.zeros(1, dtype=np.int64)
 
 class EntryBlock:
     __slots__ = ("pub", "sig", "msgs", "offsets", "val_idx", "epoch_key", "scheme",
-                 "pub_aux")
+                 "pub_aux", "ram_hi", "ram_lo", "ram_counts")
 
     def __init__(self, pub: np.ndarray, sig: np.ndarray, msgs,
                  offsets: np.ndarray, val_idx: np.ndarray = None,
                  epoch_key: bytes = None, scheme: str = "ed25519",
-                 pub_aux: np.ndarray = None):
+                 pub_aux: np.ndarray = None, ram_hi: np.ndarray = None,
+                 ram_lo: np.ndarray = None, ram_counts: np.ndarray = None):
         n = pub.shape[0]
         if (
             pub.dtype != np.uint8 or sig.dtype != np.uint8
@@ -71,6 +81,12 @@ class EntryBlock:
             raise ValueError("a secp256k1 block, and only one, carries pub_aux")
         if pub_aux is not None and (pub_aux.dtype != np.uint8 or pub_aux.shape != (n,)):
             raise ValueError("pub_aux must be (n,) uint8")
+        ram = (ram_hi, ram_lo, ram_counts)
+        if any(c is not None for c in ram) and (
+            any(c is None for c in ram) or ram_hi.ndim != 2 or ram_hi.shape[0] != n
+            or ram_lo.shape != ram_hi.shape or ram_counts.shape != (n,)
+        ):
+            raise ValueError("ram columns must be (n, W) hi/lo + (n,) counts")
         self.pub = pub
         self.sig = sig
         self.msgs = msgs
@@ -79,6 +95,9 @@ class EntryBlock:
         self.epoch_key = epoch_key
         self.scheme = scheme
         self.pub_aux = pub_aux
+        self.ram_hi = ram_hi
+        self.ram_lo = ram_lo
+        self.ram_counts = ram_counts
 
     @classmethod
     def from_entries(cls, entries: Sequence[Entry], scheme: str = "ed25519") -> "EntryBlock":
@@ -149,6 +168,7 @@ class EntryBlock:
             raise ValueError("EntryBlock slices must be contiguous")
         o = self.offsets
         base = int(o[start])
+        ram = self.ram_hi is not None
         return EntryBlock(
             self.pub[start:stop],
             self.sig[start:stop],
@@ -158,6 +178,9 @@ class EntryBlock:
             epoch_key=self.epoch_key,
             scheme=self.scheme,
             pub_aux=None if self.pub_aux is None else self.pub_aux[start:stop],
+            ram_hi=self.ram_hi[start:stop] if ram else None,
+            ram_lo=self.ram_lo[start:stop] if ram else None,
+            ram_counts=self.ram_counts[start:stop] if ram else None,
         )
 
     @staticmethod
@@ -185,6 +208,8 @@ class EntryBlock:
         same_epoch = key is not None and all(
             b.epoch_key == key and b.val_idx is not None for b in blocks
         )
+        ram = all(b.ram_hi is not None for b in blocks) and len(
+            {b.ram_hi.shape[1] for b in blocks}) == 1
         return EntryBlock(
             np.concatenate([b.pub for b in blocks]),
             np.concatenate([b.sig for b in blocks]),
@@ -195,6 +220,9 @@ class EntryBlock:
             scheme=scheme,
             pub_aux=(np.concatenate([b.pub_aux for b in blocks])
                      if scheme == "secp256k1" else None),
+            ram_hi=np.concatenate([b.ram_hi for b in blocks]) if ram else None,
+            ram_lo=np.concatenate([b.ram_lo for b in blocks]) if ram else None,
+            ram_counts=np.concatenate([b.ram_counts for b in blocks]) if ram else None,
         )
 
 

@@ -9,8 +9,13 @@ a set registers it and returns None: that commit verifies cold. From
 the second sight on the set is warm: types/validation.py attaches the
 set's key (`epoch_key`) and each signature's validator row (`val_idx`)
 to the EntryBlock, and ops/rlc.py's k1_rlc_cached (or, on the
-per-signature path, ops/verify.py's k1_decompress_cached) reads A from
-the set's table instead of decompressing it. An all-secp256k1 set is
+per-signature path, ops/verify.py's k1_decompress_cached; on the
+op-graph path, ops/ed25519_verify.py's og_verify_cached) reads A from
+the set's table instead of decompressing it. The reference's op-graph
+kernel gathers the keys' undecompressed limbs (its xla_tables) and
+decompresses A in the kernel; the port's reads the same decompressed
+coordinates and flags as the other warm kernels, so a set keeps one
+table. An all-secp256k1 set is
 noted too (reference :410-419): its warm batches take
 ops/secp_verify.py's cached kernel. An all-bls12381 set is noted too
 (reference :420-422): its aggregated commits (ops/entry_block.AggBlock)

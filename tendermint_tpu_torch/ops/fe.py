@@ -1,8 +1,12 @@
 """GF(2^255 - 19) arithmetic on (20, B) int32 limb tensors — plain PyTorch.
 
-Counterpart: tendermint_tpu/ops/fe_t.py. A field element is 20 signed
-13-bit limbs in int32 with the batch on the LAST axis, the layout of the
-RLC kernels' global arrays. Every formula mirrors fe_t line for line, and
+Counterpart: tendermint_tpu/ops/fe_t.py, and tendermint_tpu/ops/fe.py,
+the op-graph kernels' field: the same 20 x 13-bit limbs with the batch
+on the first axis (the port's op-graph kernels, ops/ed25519_verify.py,
+take raw bytes, so no limb layout crosses the host boundary and one
+field serves both). A field element is 20 signed 13-bit limbs in int32
+with the batch on the LAST axis, the layout of the RLC kernels' global
+arrays. Every formula mirrors fe_t line for line, and
 csrc/fe25519.cuh mirrors this module, so the plain versions of the
 kernels (ops/rlc.py) and the CUDA kernels produce the same limbs, not
 only the same field values.

@@ -2,7 +2,8 @@
 csrc/host_prep.cpp).
 
 Counterpart: the host helpers of the JAX package's native extension
-(native/tm_native.cpp: sr25519_challenges, commit_prep_fused,
+(native/tm_native.cpp: sr25519_challenges, commit_prep_fused with its
+device-hash RAM blocks,
 ed25519_challenges_buf, ed25519_rlc_prep, vote_sign_bytes_batch_buf and
 the mod-L reduction), as the port's own C copy behind a plain C
 interface. The library is compiled at first use with the host C++
@@ -38,6 +39,16 @@ from .kernels import CSRC
 BUILD_DIR = CSRC.parent.parent / "build" / "host"
 SOURCES = ("merlin.cpp", "host_prep.cpp")
 CXX_FLAGS = ("-std=c++17", "-O3", "-funroll-loops", "-fPIC", "-pthread", "-shared")
+# The RAM blocks commit_prep_fused lays out: R || A || M of up to
+# RAM_MAX_LEN bytes (host_prep.cpp's RAM_MAX_LEN; ops/commit_prep.py
+# exports both names).
+RAM_MAX_LEN = 256
+
+
+def ram_nblock(max_len: int) -> int:
+    """SHA-512 blocks a message of up to max_len bytes pads to: the 0x80
+    terminator and the 16-byte length field take 17 bytes."""
+    return (max_len + 17 + 127) // 128
 
 
 def _cxx() -> str:
@@ -81,7 +92,7 @@ def library() -> ctypes.CDLL:
         "tm_mod_l_many": [p, i64, p],
         "tm_vote_sign_bytes_batch_buf": [p, i64, p, i64, p, i64, p, i64, p],
         "tm_commit_prep_fused": [p, p, p, p, p, p, i64, p, i64, p, i64, p, i64, i64, i64,
-                                 p, p, p, p, p, p, i64, p],
+                                 p, p, p, p, p, p, i64, p, i64, p, p, p, p],
     }
     for name, args in argtypes.items():
         fn = getattr(lib, name)
@@ -222,14 +233,18 @@ def vote_sign_bytes_batch_buf(prefix: bytes, suffix: bytes, times: np.ndarray) -
 def commit_prep_fused(flags: np.ndarray, sig: np.ndarray, ts_seconds: np.ndarray,
                       ts_nanos: np.ndarray, pub: np.ndarray, power: np.ndarray,
                       prefix_commit: bytes, prefix_nil: bytes, suffix: bytes,
-                      threshold: int, mode: int) -> tuple:
+                      threshold: int, mode: int, ram: bool = False) -> tuple:
     """Selection, tally, sign bytes and the pub / sig gather of
     verify_commit over a commit's columns (ops/entry_block.CommitBlock)
     and its set's (pub (n, 32) uint8, power (n,) int64), in one call.
     `mode` takes ops/commit_prep's MODE_* bits. Returns (sel (m,) int64,
     tallied, None) when the tally is not above threshold, else (sel,
-    tallied, (pub (m, 32), sig (m, 64), msgs, offsets (m+1,) int64)).
-    The sign-bytes buffer is sized by sign_bytes_bound per row."""
+    tallied, (pub (m, 32), sig (m, 64), msgs, offsets (m+1,) int64,
+    ram)). ram is None unless asked for (`ram`) and every row's
+    R || A || M fits in RAM_MAX_LEN bytes; then it is (ram_hi, ram_lo
+    (m, ram_nblock(RAM_MAX_LEN) * 16) uint32, counts (m,) int32),
+    commit_prep._fill_ram's layout. The
+    sign-bytes buffer is sized by sign_bytes_bound per row."""
     if not isinstance(flags, np.ndarray) or flags.ndim != 1:
         raise ValueError("flags must be (n,) uint8")
     n = flags.shape[0]
@@ -243,20 +258,26 @@ def commit_prep_fused(flags: np.ndarray, sig: np.ndarray, ts_seconds: np.ndarray
     pn = np.frombuffer(prefix_nil, dtype=np.uint8)
     sf = np.frombuffer(suffix, dtype=np.uint8)
     sel = np.empty((n,), dtype=np.int64)
-    m, tallied = ctypes.c_int64(), ctypes.c_int64()
+    m, tallied, nblock = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
     pub_out = np.empty((n, 32), dtype=np.uint8)
     sig_out = np.empty((n, 64), dtype=np.uint8)
     msgs = np.empty(n * sign_bytes_bound(max(pc.size, pn.size), sf.size), dtype=np.uint8)
     offs = np.empty(n + 1, dtype=np.int64)
+    width = ram_nblock(RAM_MAX_LEN) * 16 if ram else 0
+    ram_hi = np.empty((n, width), dtype=np.uint32)
+    ram_lo = np.empty((n, width), dtype=np.uint32)
+    counts = np.empty((n,), dtype=np.int32)
     rc = library().tm_commit_prep_fused(
         _ptr(flags), _ptr(sig), _ptr(ts_seconds), _ptr(ts_nanos), _ptr(pub), _ptr(power), n,
         _ptr(pc), pc.size, _ptr(pn), pn.size, _ptr(sf), sf.size, int(threshold), int(mode),
         _ptr(sel), ctypes.addressof(m), ctypes.addressof(tallied), _ptr(pub_out),
-        _ptr(sig_out), _ptr(msgs), msgs.size, _ptr(offs))
+        _ptr(sig_out), _ptr(msgs), msgs.size, _ptr(offs), int(bool(ram)), _ptr(ram_hi),
+        _ptr(ram_lo), _ptr(counts), ctypes.addressof(nblock))
     if rc < 0:
         raise ValueError("sign bytes overran their bound")
     m = m.value
     if rc == 1:
         return sel[:m], tallied.value, None
+    ram = (ram_hi[:m], ram_lo[:m], counts[:m]) if nblock.value else None
     return sel[:m], tallied.value, (pub_out[:m], sig_out[:m],
-                                    memoryview(msgs)[: int(offs[m])], offs[: m + 1])
+                                    memoryview(msgs)[: int(offs[m])], offs[: m + 1], ram)

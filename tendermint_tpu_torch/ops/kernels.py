@@ -31,7 +31,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu", "bls12381.cu")
+SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu", "bls12381.cu", "sha512.cu",
+           "ed25519_verify.cu")
 HEADERS = ("fe25519.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +57,9 @@ _ENTRIES = {
     "secp_verify_cached": (11, 2),
     "bls_miller": (6, 2),
     "bls_finalexp": (2, 2),
+    "sha512_challenge": (4, 2),
+    "og_verify": (6, 1),
+    "og_verify_cached": (8, 2),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -12,8 +12,8 @@ verdict codes, one a commit). Three threads:
   coalescer   drains submit()s in arrival order, fuses jobs of one
               epoch and one scheme into device batches up to
               max_batch(), and runs each batch's host prep (by the
-              block's scheme: ed25519's RLC or per-signature prep,
-              secp256k1's, bls12381's); it touches no CUDA
+              block's scheme: ed25519's RLC, per-signature or op-graph
+              prep, secp256k1's, bls12381's); it touches no CUDA
   dispatcher  the only thread that allocates device tensors, issues
               copies or launches kernels: it copies batch k+1's inputs
               through pinned staging on a copy stream (ops/device_pool)
@@ -65,9 +65,8 @@ with their fuse caps, the ingress reservation, preemption and the prep
 pool; they come with their first callers (ops/ingress.py, blocksync
 replay), and until then every job is the consensus class's, served in
 arrival order. Also the mesh coalescer (_worker_mesh :870,
-_prepare_mesh :638); the op-graph branch
-(:604-628); the devcheck canaries and lint-bug seams; the metrics and
-tracer flows; commit_entries_legacy (:1383), whose work the object path
+_prepare_mesh :638); the devcheck canaries and lint-bug seams; the
+metrics and tracer flows; commit_entries_legacy (:1383), whose work the object path
 of types/validation does here. The reference's TM_TPU_POOL_DEPTH is the
 constructor argument pool_depth, with the same default.
 """
@@ -350,7 +349,8 @@ class AsyncBatchVerifier:
             if self._broken is not None:
                 raise RuntimeError(f"the device failed: {self._broken!r}")
             self.dispatch_thread_idents.add(threading.get_ident())
-            slot = self._pool.acquire(_dpool.layout_key(prep.bucket, prep.args), prep.args)
+            slot = self._pool.acquire(_dpool.layout_key(prep.bucket, prep.args), prep.args,
+                                      copy_stream)
             with record_function("pipeline.h2d"):
                 dev_args = _dpool.transfer(slot, prep.args, copy_stream, compute)
             self._sem.acquire()

@@ -46,7 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import _edwards
-from . import epoch_cache, fe, host, kernels, point
+from . import epoch_cache, fe, host, kernels, packing, point
 
 NL = fe.NLIMBS
 
@@ -358,9 +358,7 @@ def _rlc_host_scalars(entries, live: int, g_live: int, z: np.ndarray):
     s < L flags and the lane scalars in one call of the host library
     (host.ed25519_rlc_prep). Returns (pub (live, 32), r_enc (live, 32),
     scal (g_live, N_SCAL, 32), s_ok (live,) bool)."""
-    from .backend import _pack_rows
-
-    pub, r_enc, _s_enc = _pack_rows(entries, live)
+    pub, r_enc, _s_enc = packing.pack_rows(entries, live)
     buf, offs = entries.msgs_contiguous()
     _k, S, U, s_ok = host.ed25519_rlc_prep(
         np.ascontiguousarray(entries.pub), np.ascontiguousarray(entries.sig), buf,

@@ -35,7 +35,7 @@ from torch.profiler import record_function
 
 from ..crypto import sr25519 as _sr25519
 from ..crypto._edwards import P
-from . import fe, host, kernels, point, verify
+from . import fe, host, kernels, packing, point, verify
 
 COORD_ROWS = verify.COORD_ROWS
 DIG_ROWS = verify.DIG_ROWS
@@ -141,8 +141,6 @@ def prepare_sr25519(entries, bucket: int):
     (csrc/merlin.cpp) reduced mod L (csrc/host_prep.cpp). Padding
     signatures are all-zero encodings, the ristretto identity (not the
     edwards 0x01), with every flag 1, and verify."""
-    from .backend import _s_below_l
-
     n = len(entries)
     if n > bucket:
         raise ValueError(f"bucket {bucket} is below the batch's {n} signatures")
@@ -156,7 +154,7 @@ def prepare_sr25519(entries, bucket: int):
     pub[:n] = entries.pub
     r_enc[:n] = sig[:, :32]
     s_enc[:n] = sig[:, 32:]
-    s_ok = _s_below_l(s_enc, n, bucket) & marker_ok
+    s_ok = packing.s_below_l(s_enc, n, bucket) & marker_ok
     k_enc = np.zeros((bucket, 32), dtype=np.uint8)
     if n:
         k_enc[:n] = host.mod_l_many(host.sr25519_challenges(

@@ -46,7 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from ..crypto import _edwards
-from . import epoch_cache, fe, kernels, point
+from . import epoch_cache, fe, kernels, packing, point
 
 NL = fe.NLIMBS
 
@@ -273,12 +273,10 @@ def prepare_compact(entries, bucket: int):
     (1, bucket) int32), batch-minor (pallas_verify.prepare_compact).
     Host work: one SHA-512 per signature for k, the s < L check, the
     transposes. Padding signatures (A = R = identity, s = k = 0) verify."""
-    from .backend import _host_rows
-
     n = len(entries)
     if n > bucket:
         raise ValueError(f"bucket {bucket} is below the batch's {n} signatures")
-    pub, r_enc, s_enc, k_enc, s_ok = _host_rows(entries, bucket)
+    pub, r_enc, s_enc, k_enc, s_ok = packing.host_rows(entries, bucket)
     return (
         np.ascontiguousarray(pub.T),
         np.ascontiguousarray(r_enc.T),
@@ -297,12 +295,10 @@ def prepare_compact_cached(entries, bucket: int, ep):
 
     Returns (idx (bucket,) int32, r_rows, s_rows, k_rows (bucket, 32)
     uint8, s_ok_t (1, bucket) int32)."""
-    from .backend import _host_rows
-
     if len(entries) > bucket:
         raise ValueError(f"bucket {bucket} is below the batch's {len(entries)} signatures")
     idx = epoch_cache.table_columns(entries, bucket, ep)
-    _pub, r_enc, s_enc, k_enc, s_ok = _host_rows(entries, bucket)
+    _pub, r_enc, s_enc, k_enc, s_ok = packing.host_rows(entries, bucket)
     return idx, r_enc, s_enc, k_enc, np.ascontiguousarray(s_ok.astype(np.int32)[None, :])
 
 

@@ -18,7 +18,9 @@ blame of the first bad signature are byte-identical to the reference's.
 A columnar commit (one decoded from its wire bytes, or built of
 canonical CommitSig objects) of an all-ed25519 set looked up by index
 takes the fused prep (ops/commit_prep.py: selection, tally, sign bytes
-and the key gather in one call of the host library); any other commit,
+and the key gather in one call of the host library, and on the op-graph
+path with the challenges hashed on the card, TM_TPU_PALLAS=0, each
+row's R || A || M laid into SHA-512 blocks); any other commit,
 set or lookup takes the object path, which selects over CommitSig
 objects. The batch path's host stages are torch.profiler
 record_function spans ("commit.prep" on the fused path, "commit.select"
@@ -270,7 +272,10 @@ def _fused_commit_prep(chain_id, vals, commit, voting_power_needed, ignore_sig,
         return None
     if not count_all_signatures:
         mode |= commit_prep.MODE_EARLY_STOP
-    return commit_prep.prep_commit_from(commit, vals, chain_id, voting_power_needed, mode)
+    from ..ops import backend as _backend
+
+    return commit_prep.prep_commit_from(commit, vals, chain_id, voting_power_needed, mode,
+                                        ram=_backend.builds_ram_columns())
 
 
 def _batch_gate(vals: ValidatorSet, commit: Commit, secp_lane: bool = False):

@@ -49,7 +49,8 @@ from tendermint_tpu.types.validator_set import (  # noqa: E402
 from tendermint_tpu.wire.canonical import Timestamp as JTimestamp  # noqa: E402
 from tendermint_tpu_torch import convert  # noqa: E402
 from tendermint_tpu_torch.crypto._edwards import L  # noqa: E402
-from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, host, rlc  # noqa: E402
+from tendermint_tpu_torch.ops import backend, commit_prep, epoch_cache, host, packing  # noqa: E402
+from tendermint_tpu_torch.ops import rlc  # noqa: E402
 from tendermint_tpu_torch.types import validation  # noqa: E402
 from tendermint_tpu_torch.types.block import (  # noqa: E402
     BlockID,
@@ -327,7 +328,7 @@ def test_rlc_prep_equals_oracle_and_jax(width, jax_native):
     k_enc[:n] = k
     assert S.tobytes() + U.tobytes() == rlc._rlc_scalars_py(
         s_enc.tobytes(), k_enc.tobytes(), z.tobytes(), rlc.M)
-    np.testing.assert_array_equal(s_ok, backend._s_below_l(s_enc, n, total))
+    np.testing.assert_array_equal(s_ok, packing.s_below_l(s_enc, n, total))
     assert not U[n:].any() and s_ok[n:].all()  # padding rows
     if jax_native is not None:
         jk, jsu, jsok = jax_native.ed25519_rlc_prep(

@@ -617,3 +617,112 @@ def test_bls_kernels_match_plain(cuda, k, n, rows):
                                         fused[0].cpu().numpy(), ok, reasons)
         got.extend(codes[: len(chunk)].tolist())
     assert got == want
+
+
+# -- the op-graph path: sha512_challenge, og_verify, og_verify_cached ----------------
+
+
+@pytest.mark.parametrize("n", [1, 130, 10240])
+def test_sha512_challenge_matches_plain(cuda, n):
+    """sha512_challenge against sha512_challenge_plain and Python's
+    SHA-512 mod L, every byte, on R || A || M of every length from 64 to
+    256 bytes (1, 2 and 3 blocks) and 2 padding rows where n > 1, the
+    output on 0xAA-filled memory."""
+    from tendermint_tpu_torch.ops import sha512
+
+    rng = np.random.default_rng(n)
+    live = 1 if n == 1 else n - 2
+    ents = [(rng.bytes(32), rng.bytes(int(m)), rng.bytes(64))
+            for m in rng.integers(0, 193, live)]
+    ents[0] = (ents[0][0], rng.bytes(192), ents[0][2])
+    hi, lo, counts = sha512.pad_ram_block(EntryBlock.from_entries(ents), n, sha512.MAX_LEN)
+    args = [torch.from_numpy(sha512.as_int32(hi)).to(cuda),
+            torch.from_numpy(sha512.as_int32(lo)).to(cuda), torch.from_numpy(counts).to(cuda)]
+    want = sha512.sha512_challenge_plain(*args)
+    bufs = torch.full((n, 32), 0xAA, dtype=torch.uint8, device=cuda)
+    del bufs
+    got = sha512.sha512_challenge(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for i in range(0, live, max(1, live // 64)):
+        p, m, s = ents[i]
+        k = int.from_bytes(hashlib.sha512(s[:32] + p + m).digest(), "little") % _edwards.L
+        assert bytes(got[i].cpu().numpy()) == k.to_bytes(32, "little")
+
+
+@pytest.mark.parametrize("n", [1, 250, 10240])
+@pytest.mark.parametrize("cached", [False, True])
+def test_og_verify_matches_plain_over_rejects_and_padding(battery, cuda, n, cached):
+    """og_verify (and og_verify_cached, over an epoch whose table columns
+    are out of order) against its plain version and the oracle, every
+    verdict, with the challenges hashed on the card; 6 padding signatures
+    where n > 1; 1 and 250 signatures leave quads of the last block past
+    the end."""
+    import chip_smoke
+
+    from tendermint_tpu_torch.ops import ed25519_verify as og
+    from tendermint_tpu_torch.ops import sha512
+
+    live = 1 if n == 1 else n - 6
+    block, oracle = _spread(battery, live, n + 11)
+    batch = og.prepare_batch(block, device_hash=True)
+    a, r, s, hi, lo, counts, sok = (torch.from_numpy(x[:n].copy()).to(cuda) for x in batch.args)
+    k = sha512.sha512_challenge(hi, lo, counts)
+    if cached:
+        wblock, ep = chip_smoke.with_epoch(block, n)
+        idx = torch.from_numpy(epoch_cache.table_columns(wblock, n, ep)).to(cuda)
+        ins = (*ep.coords_tables(cuda), idx, r, s, k, sok)
+        want = og.og_verify_cached_plain(*ins)
+        got = og.og_verify_cached(*ins)
+    else:
+        want = og.og_verify_plain(a, r, s, k, sok)
+        got = og.og_verify(a, r, s, k, sok)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.cpu().numpy()[:live].astype(bool).tolist() == oracle.tolist()
+    assert bool(got[live:].all())
+
+
+@pytest.mark.parametrize("host_hash", ["0", "1"])
+def test_verify_batch_og_on_the_card(battery, cuda, monkeypatch, host_hash):
+    """verify_batch_og over 10,300 signatures (two chunks, the second in
+    the 128 bucket) equals the oracle, each route launching its kernels
+    once a chunk: sha512_challenge only on the device-hash route."""
+    from tendermint_tpu_torch.ops import ed25519_verify as og
+
+    monkeypatch.setenv("TM_TPU_HOST_HASH", host_hash)
+    block, oracle = _spread(battery, 10300, 77)
+    before = dict(kernels.LAUNCHES)
+    got = og.verify_batch_og(block, device=cuda)
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert got.tolist() == oracle.tolist()
+    want = {"og_verify": 2}
+    if host_hash == "0":
+        want["sha512_challenge"] = 2
+    assert launched == want
+
+
+def test_pool_slots_never_take_memory_the_compute_stream_still_uses(cuda):
+    """A slot's device tensors are made on the copy stream: a block the
+    compute stream freed while its work is pending (the batch before's
+    verdicts, freed once their readback is queued) is not handed to a
+    slot whose copy-stream writes would land under that work. Made on
+    the compute stream, the slot took exactly that block, and slice (g4)
+    of chip_smoke.py read another batch's input bytes as verdicts in
+    about one run in five."""
+    from tendermint_tpu_torch.ops import device_pool
+
+    compute, copy = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    args = [np.arange(4096, dtype=np.int32)]
+    with torch.cuda.stream(compute):
+        pending = torch.empty((4096,), dtype=torch.int32, device=cuda)
+        torch.cuda._sleep(50_000_000)  # the compute stream's work still runs
+        pending.fill_(7)
+        ptr = pending.data_ptr()
+        del pending
+        pool = device_pool.DeviceBufferPool(2, cuda)
+        slot = pool.acquire(device_pool.layout_key(1, args), args, copy)
+        assert all(d.data_ptr() != ptr for d in slot.dev)
+        got = device_pool.transfer(slot, args, copy, compute)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.from_numpy(args[0]))

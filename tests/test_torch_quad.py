@@ -88,6 +88,10 @@ SHIM = r"""
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
+// a block's warps run one after another, and each thread of the op-graph
+// kernels reads only its own column of the shared table
+#define __shared__ static
+#define __constant__
 // mad.wide.u32, counted: the tests hold the product counts of the bound
 // in chip_smoke.py to the source's
 inline thread_local uint64_t emu_wide_mads = 0;
@@ -347,6 +351,29 @@ extern "C" int emu_k1_decompress_cached(const int32_t* ctbl, const int32_t* oktb
 """
 
 
+OG_HARNESS = r"""
+#include "sha512_body.cu"
+#include "ed25519_verify_body.cu"
+""" + LAUNCH + r"""
+extern "C" int emu_sha512_challenge(const uint32_t* hi, const uint32_t* lo, const int32_t* nb,
+                                    uint8_t* out, int n, int nblock) {
+  return launch(dim3((n + sha::THREADS - 1) / sha::THREADS), sha::THREADS,
+                [=] { sha::sha512_challenge_kernel(hi, lo, nb, out, n, nblock); });
+}
+extern "C" int emu_og_verify(const uint8_t* a, const uint8_t* r, const uint8_t* s,
+                             const uint8_t* k, const int32_t* s_ok, int32_t* out, int n) {
+  return launch(dim3((4 * n + OG_THREADS - 1) / OG_THREADS), OG_THREADS,
+                [=] { og_verify_kernel(a, r, s, k, s_ok, out, n); });
+}
+extern "C" int emu_og_verify_cached(const int32_t* ctbl, const int32_t* oktbl, const int32_t* idx,
+                                    const uint8_t* r, const uint8_t* s, const uint8_t* k,
+                                    const int32_t* s_ok, int32_t* out, int n, int vp) {
+  return launch(dim3((4 * n + OG_THREADS - 1) / OG_THREADS), OG_THREADS,
+                [=] { og_verify_cached_kernel(ctbl, oktbl, idx, r, s, k, s_ok, out, n, vp); });
+}
+"""
+
+
 def _compile(cxx, d, src: str, lib: str):
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}", f"-I{kernels.CSRC}",
@@ -412,6 +439,15 @@ def emu_verify(tmp_path_factory):
     lib.emu_k1_decompress_cached.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
     lib.emu_k1_decompress.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
     lib.emu_wide_mad_count.restype = ctypes.c_uint64
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emu_og(tmp_path_factory):
+    lib = _kernel_lib(tmp_path_factory, "og_emu", ("sha512", "ed25519_verify"), OG_HARNESS)
+    lib.emu_sha512_challenge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    lib.emu_og_verify.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    lib.emu_og_verify_cached.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
     return lib
 
 
@@ -953,3 +989,95 @@ def test_epoch_coords_kernel_equals_plain(emu_kernels, rows):
     if rows > 1:
         ok = want[1].flatten().tolist()
         assert 0 in ok and 1 in ok and ok[-4:] == [1] * 4
+
+
+# -- the op-graph kernels (csrc/sha512.cu, csrc/ed25519_verify.cu) --------------
+
+# R || A || M totals of 64 (one block), 111 and 112 (the length field's
+# boundary: one block, then two), 127, 128, 239 (two), 240 and 256 (three)
+OG_TOTALS = (64, 111, 112, 127, 128, 239, 240, 256)
+
+
+def test_sha512_challenge_kernel_equals_plain(emu_og):
+    """The whole sha512_challenge kernel against sha512_challenge_plain
+    and against hashlib and Python's % L, every byte of k: rows of 1, 2
+    and 3 blocks at the boundaries of the length field and 2 padding
+    rows (the identity pattern), each output byte starting as 0xAA."""
+    import hashlib
+
+    from tendermint_tpu_torch.ops import sha512
+
+    rng = np.random.default_rng(16)
+    ents = [(rng.bytes(32), rng.bytes(t - 64), rng.bytes(64)) for t in OG_TOTALS]
+    block = EntryBlock.from_entries(ents)
+    n = len(ents) + 2
+    hi, lo, counts = sha512.pad_ram_block(block, n, sha512.MAX_LEN)
+    assert sorted(set(counts.tolist())) == [1, 2, 3]
+    ins = [torch.from_numpy(sha512.as_int32(hi)), torch.from_numpy(sha512.as_int32(lo)),
+           torch.from_numpy(counts)]
+    want = sha512.sha512_challenge_plain(*ins)
+    got = torch.full_like(want, 0xAA)
+    assert emu_og.emu_sha512_challenge(*(x.data_ptr() for x in ins), got.data_ptr(), n,
+                                       sha512.NBLOCK) == 0
+    assert torch.equal(got, want)
+    msgs = [s[:32] + p + m for p, m, s in ents] + [sha512._PAD_PAIR] * 2
+    assert [bytes(r) for r in got.numpy()] == [
+        (int.from_bytes(hashlib.sha512(m).digest(), "little") % _edwards.L).to_bytes(32, "little")
+        for m in msgs]
+
+
+def _og_entries():
+    """chip_smoke.py's edge battery cut to ten rows: two valid, a
+    tampered signature, a wrong message, a corrupted key, s >= L, a key
+    off the curve, a small-order key, a non-canonical key, random bytes."""
+    import chip_smoke
+
+    ents = chip_smoke.edge_entries()
+    return [ents[i] for i in (0, 1, 6, 7, 8, 9, 10, 11, 14, len(ents) - 1)]
+
+
+def test_og_verify_kernel_equals_plain(emu_og):
+    """The whole og_verify kernel (a quad a signature: both
+    decompressions, the table in shared memory, the ladder, - R, [8], the
+    identity test) against og_verify_plain and the ZIP-215 oracle, on the
+    host challenges of _og_entries and 2 padding rows: 12 signatures, so
+    quads of the block run past the end."""
+    from tendermint_tpu_torch.ops import ed25519_verify as og
+
+    ents = _og_entries()
+    batch = og.prepare_batch(EntryBlock.from_entries(ents), device_hash=False)
+    n = len(ents) + 2
+    ins = [torch.from_numpy(a[:n]).contiguous() for a in batch.args]
+    want = og.og_verify_plain(*ins)
+    assert want.tolist() == [int(_edwards.verify_zip215(*e)) for e in ents] + [1, 1]
+    got = torch.full_like(want, -1)
+    assert emu_og.emu_og_verify(*(x.data_ptr() for x in ins), got.data_ptr(), n) == 0
+    assert torch.equal(got, want)
+
+
+def test_og_verify_cached_kernel_equals_plain(emu_og):
+    """The whole og_verify_cached kernel against og_verify_cached_plain
+    and the oracle: _og_entries' keys in a shuffled epoch table (the
+    corrupted and off-curve keys do not decompress), 2 padding rows on
+    column vp - 1."""
+    import chip_smoke
+
+    from tendermint_tpu_torch.ops import ed25519_verify as og
+
+    ents = _og_entries()
+    block, ep = chip_smoke.with_epoch(EntryBlock.from_entries(ents), 9)
+    n = len(ents) + 2
+    idx = epoch_cache.table_columns(block, n, ep)
+    _, r_rows, s_rows, k_rows, s_ok = og.prepare_batch(
+        EntryBlock.from_entries(ents), device_hash=False).args
+    ctbl, oktbl = epoch_cache.epoch_coords_plain(
+        torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)))
+    assert 0 in oktbl[0].tolist()
+    ins = [ctbl, oktbl] + [torch.from_numpy(a[:n]).contiguous()
+                           for a in (idx, r_rows, s_rows, k_rows, s_ok)]
+    want = og.og_verify_cached_plain(*ins)
+    assert want.tolist() == [int(_edwards.verify_zip215(*e)) for e in ents] + [1, 1]
+    got = torch.full_like(want, -1)
+    assert emu_og.emu_og_verify_cached(*(x.data_ptr() for x in ins), got.data_ptr(), n,
+                                       ep.vp) == 0
+    assert torch.equal(got, want)
