@@ -30,7 +30,7 @@ Phases, in order:
    `% L`), outputs equal byte for byte; the C time (median of
    HOST_REPS) on the library's threads and on one, the oracle's time,
    and the host's CPU model and count;
-4. kernels: each of the eighteen CUDA entries on the card against its
+4. kernels: each of the nineteen CUDA entries on the card against its
    plain PyTorch version on the card: the RLC K1, cached K1, K2 and K3 at 64
    and 2,560 lanes; the per-signature K1, cached K1, K2 and K3 at 256 and
    10,240 signatures; the sr25519 K1r, K2 and K3r at 64 and 10,240
@@ -60,7 +60,10 @@ Phases, in order:
    Python's % L, every byte, and over the RLC section's blocks at 256
    signatures (in the 1,024 bucket) and 10,240; og_verify and
    og_verify_cached (a shuffled epoch table) on those blocks with k
-   hashed on the card, every verdict, against the oracle too;
+   hashed on the card, every verdict, against the oracle too; and (j1)
+   commit_tally (csrc/tally.cu) at one row, 2,560 lanes of 4 (m = 4) and
+   10,240 rows, each also all invalid, padding rows not live, powers up
+   to 2^60 - 1, every word against its plain version and numpy's tally;
 5. slice: `types.validation.verify_commit` on the 10,000-validator
    commit decoded from its wire bytes on the card, on each path with the
    launch counters set to 0 just before it and read just after:
@@ -156,7 +159,7 @@ Phases, in order:
        commits with every signer, through
        types.validation.prepare_aggregated_commit(k_hint=16), the
        shared dispatcher and conclude, the launch counters set to 0
-       before each window: one warm-up window, three timed (median of
+       before each window: one warm-up window, two timed (median of
        the host prep, launch A's two kernels, end to end, aggregated
        commits a second), each exactly one launch A of width 16 and one
        final exponentiation row (the fused one); then a window with
@@ -176,6 +179,27 @@ Phases, in order:
        gives None, the tampered one `wrong signature (#i): <HEX>` and the
        one below 2/3 ErrNotEnoughVotingPowerSigned, every launch from the
        dispatch thread;
+   (j) multi-device commit verification (ops/sharded.py, ops/mesh.py):
+       (j2) the 10,000-validator commit through verify_commit_sharded
+       (cold, and warm over each device's table), _pallas and _rlc, each
+       on make_mesh(1) and on Mesh((cuda:0, cuda:0)), two shards of 5,120
+       one after another on the card, the launch counters set to 0 just
+       before: verdicts, tally and all_valid equal to backend.verify_batch
+       and the host tally, each shard launching its verify kernels then
+       one commit_tally, the tampered signature blamed at its row and its
+       power left out; the median of 20 calls of each;
+       (j3) the mesh dispatcher at bench.py multichip's shape: 24 jobs of
+       1,024 signatures from V1 (cold), V2 and V3 (warm; slice (e)'s
+       sets), one tampered, at mesh_lanes 1, 2 and 4 (lane_bucket 1,024)
+       on the per-signature kernels and on the op-graph path: each job's
+       verdicts equal to the single-lane dispatcher's; superbatches,
+       signatures a second (median of 3), the card's busy time and idle
+       share of a traced run; lanes above 1 are simulated lanes on one
+       card, then placed lane by lane on Mesh((cuda:0,) * lanes); and a
+       committee of 96 ed25519 and 32 secp256k1 validators through
+       prepare_commit_scheme_split: its two blocks in one superbatch of
+       two segments, the tampered commit blamed as the sequential path
+       blames it;
 6. timing, for each path (RLC cold, RLC warm, per-signature,
    per-signature warm, sr25519, op-graph cold, warm and host-hash), on
    the decoded commit: the end-to-end
@@ -201,8 +225,8 @@ Phases, in order:
    max), and 5 traced for its stages (commit.select, commit.sign_bytes,
    secp.prep, pipeline.*) and the card's busy time. Then the BLS kernels
    at (h2)'s shape (K = 16, the epoch table's 256 rows): bls_miller and
-   the fused bls_finalexp over KERNEL_REPS launches, launch B's 16 rows
-   over BLS_ROWS_REPS, beside their bounds. The traces are kept in
+   the fused bls_finalexp and launch B's 16 rows over BLS_ROWS_REPS,
+   beside their bounds. The traces are kept in
    build/traces/.
 
 The profiler traces every thread the process starts after it (the
@@ -211,7 +235,8 @@ the device's dispatcher anew.
 
 It prints one JSON line of the light path's checks and times (with the
 card's name and power limit), one of slice (f)'s, one of slice (g)'s,
-one of slice (h)'s, one JSON line of kernel records (the launches of
+one of slice (h)'s, one of slice (j)'s, one JSON line of kernel records
+(commit_tally's launches those of (j2); the launches of
 slices (a)-(d) and of config #5's first run in (f3); the secp256k1
 kernels' of the cold and warm calls of (g1) and the first config #4
 call of (g2); the BLS kernels' of (h2)'s five windows; the op-graph
@@ -247,7 +272,8 @@ from tendermint_tpu_torch.crypto import _weierstrass, bls12381, ed25519, secp256
 from tendermint_tpu_torch.libs.bits import BitArray
 from tendermint_tpu_torch.ops import backend, bls_verify, commit_prep, epoch_cache, fe, host
 from tendermint_tpu_torch.ops import kernels, packing, rlc
-from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify
+from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify, sharded
+from tendermint_tpu_torch.ops import mesh as mesh_pack
 from tendermint_tpu_torch.ops import sc_secp as secp_sc
 from tendermint_tpu_torch.db import MemDB
 from tendermint_tpu_torch.light import batch as light_batch
@@ -332,11 +358,11 @@ BLS_SHAPES = ((4, 8), (16, 128))
 BLS_VALIDATORS = 128
 BLS_POWER = 100
 BLS_WINDOW = 16
-BLS_WINDOWS = 3
+BLS_WINDOWS = 2
 BLS_TAMPER = 7
 BLS_CHAIN = "bls-bench"
 BLS_BLOCK = BlockID(hash=b"\x20" * 32, part_set_header=PartSetHeader(total=1, hash=b"\x20" * 32))
-BLS_ROWS_REPS = 3  # launch B timings (each about a second)
+BLS_ROWS_REPS = 3  # launch B and the fused final exponentiation: timings (about a second each)
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -538,6 +564,7 @@ KERNELS = {  # name: (source, the TPU kernel or XLA function it replaces)
     "sha512_challenge": ("sha512.cu", "tendermint_tpu/ops/sha512.py:174"),
     "og_verify": ("ed25519_verify.cu", "tendermint_tpu/ops/ed25519_verify.py:152"),
     "og_verify_cached": ("ed25519_verify.cu", "tendermint_tpu/ops/ed25519_verify.py:273"),
+    "commit_tally": ("tally.cu", "tendermint_tpu/ops/sharded.py:93"),
 }
 # outputs of each kernel that hold 32-row coordinate slots compared after
 # canonicalisation; the rest, and every output of the four K1s, the epoch
@@ -547,7 +574,7 @@ SLOT_OUTPUTS = {"k1_rlc": (), "k1_rlc_cached": (), "k2_rlc": (0,), "k3_rlc": (),
                 "k2_table": (), "k3_ladder": (), "k1r_decode": (), "k3r_ladder": (),
                 "secp_verify": (), "secp_verify_cached": (), "bls_miller": (),
                 "bls_finalexp": (), "sha512_challenge": (), "og_verify": (),
-                "og_verify_cached": ()}
+                "og_verify_cached": (), "commit_tally": ()}
 
 
 class SmokeFailure(RuntimeError):
@@ -845,7 +872,7 @@ def kernel_resources(ptxas: str) -> dict:
     out, name = {}, None
     for line in ptxas.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"for _ZN(?:3edw|4secp|3bls|3sha)\d+(\w+?)_kernelE", line)
+            m = re.search(r"for _ZN(?:3edw|4secp|3bls|3sha|5tally)\d+(\w+?)_kernelE", line)
             name = m.group(1) if m and m.group(1) in KERNELS else None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -2700,6 +2727,35 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_trace_ms(fn, kernel: str, reps: int, trace_name: str) -> tuple:
+    """(median ms, launches seen): the device time of the kernel whose
+    name holds `kernel` (one launch of it a call of fn()), each launch's
+    interval on the card from the kernel events of a torch.profiler trace
+    of reps calls (kept as build/traces/<trace_name>.json). A trace late
+    in a long run has held only some of the launches (3 of 10 once), so
+    sessions repeat, up to 5, until reps launches were seen; fails when
+    none was."""
+    fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(5):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        trace = TRACE_DIR / f"{trace_name}.json"
+        prof.export_chrome_trace(str(trace))
+        with open(trace) as f:
+            durs += [e["dur"] / 1e3 for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e["name"]]
+        if len(durs) >= reps:
+            break
+    check(bool(durs), f"no trace of {reps} calls holds a {kernel} launch")
+    return statistics.median(durs), len(durs)
+
+
 def _union_ms(intervals: list) -> float:
     busy, end = 0.0, None
     for a, b in sorted(intervals):
@@ -3430,8 +3486,8 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
     vp rows), on the tampered window (so launch B meets a residue that is
     not 1): each held word for word to its plain version (bls_miller, launch
     B's rows, the fused bls_finalexp, whose plain time the record keeps),
-    then timed with CUDA events beside its bound: bls_miller and the fused
-    bls_finalexp over KERNEL_REPS launches, launch B's rows over
+    then timed with CUDA events beside its bound: bls_miller over
+    KERNEL_REPS launches, the fused bls_finalexp and launch B's rows over
     BLS_ROWS_REPS. Returns their kernel records."""
     vset, window = data["vset"], data["windows"][-1]
     epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
@@ -3461,14 +3517,14 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
     host = (batch.args[0], batch.args[1])
     runs = {
         "bls_miller": (lambda: bls_verify.bls_miller(gx, gy, masks, coeffs),
-                       (gx, gy, masks, coeffs, apk, f), "bls_miller"),
+                       (gx, gy, masks, coeffs, apk, f), "bls_miller", KERNEL_REPS),
         "bls_finalexp": (lambda: bls_verify.bls_finalexp(f, fused=True), (f, fused),
-                         "bls_finalexp_fused"),
+                         "bls_finalexp_fused", BLS_ROWS_REPS),
     }
     records = []
-    for name, (fn, tensors, kind) in runs.items():
+    for name, (fn, tensors, kind, reps) in runs.items():
         products = bls_bound_products(kind, *host)
-        ms = event_ms(fn, KERNEL_REPS)
+        ms = event_ms(fn, reps)
         io_bytes = sum(t.nbytes for t in tensors)
         ops_ms = products * BLS_WIDE_PER_FP / rate * 1e3
         bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
@@ -3493,6 +3549,469 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
     log(f"timing: bls_finalexp launch B over {k} rows {rows_ms:.3f} ms (bound "
         f"{rows_bound:.6f} ms, plain {rows_plain_ms:.1f} ms)")
     return records
+
+
+# -- slice (j): multi-device commit verification --------------------------------
+
+# (j1): (rows, m) of the tally's holds; the last is the one-shard commit's
+# shape, whose plain time is kept
+TALLY_CASES = ((1, 1), (2_560 * 4, 4), (10_240, 1))
+SHARD_FACES = ("sharded", "sharded_cached", "pallas", "rlc")
+# each face's kernels a shard launches before its commit_tally
+SHARD_KERNELS = {
+    "sharded": ("og_verify",),
+    "sharded_cached": ("og_verify_cached",),
+    "pallas": ("k1_decompress", "k2_table", "k3_ladder"),
+    "rlc": ("k1_rlc", "k2_rlc", "k3_rlc"),
+}
+MESH_JOBS = 24  # bench.py multichip's defaults (bench.py:647-651): 24 jobs
+MESH_JOB_SIGS = 1_024  # of 1,024 signatures, the lane capacity
+MESH_LANES = (1, 2, 4)
+MESH_SETS = (1, 10, 17)  # the commits of V1 (cold), V2 and V3 (warm): slice (e)'s
+MESH_TAMPER = (5, 100)  # (job, row) of the tampered signature
+MESH_RUNS = 3  # timed runs a point (median)
+# the point at the default lane capacity (BUCKETS[-1]): whole commits as
+# jobs, V1's (cold), V2's and V3's (warm) and V1's again with TAMPER_AT
+# tampered, one a lane: a superbatch of 4 x 10,240 = 40,960 rows
+MESH_CAP_LANES = 4
+# the mixed committee, of N_VALIDATORS: the first of slice (a)'s ed25519
+# set and of slice (g)'s secp256k1 set (sorted order), with their signatures
+SPLIT_VALIDATORS = (5_000, 5_000)
+SPLIT_TAMPER = 3  # its tampered signatures: the first secp256k1 row from here, and the
+# first ed25519 row after it (both inside the early stop; the blame is the first)
+
+
+def tally_inputs(rows: int, m: int, seed: int, all_invalid: bool = False) -> tuple:
+    """(valid, live, power lanes): verdicts of 0 and 1, the last eighth of
+    the rows padding (not live), powers up to the top of the range."""
+    rng = np.random.default_rng(seed)
+    valid = rng.integers(0, 2, rows // m).astype(np.int32)
+    if all_invalid:
+        valid[:] = 0
+    live = np.ones(rows, np.int32)
+    live[rows - rows // 8 :] = 0
+    powers = rng.integers(1, 1 << 60, rows)
+    powers[0] = (1 << 60) - 1
+    return valid, live, sharded.split_power(powers)
+
+
+def host_tally(valid, live, pw, m: int) -> list:
+    ok = np.repeat(valid != 0, m) & (live != 0)
+    return pw[ok].sum(axis=0, dtype=np.int64).tolist() + [int(((live != 0) & ~np.repeat(
+        valid != 0, m)).sum())]
+
+
+def tally_kernel_phase(stats: dict, dev) -> tuple:
+    """(j1) commit_tally against its plain version on the card, word for
+    word, and against numpy: one row, 2,560 lanes of 4 (m = 4), 10,240
+    rows; each also as an all-invalid shard. Returns the last shape's
+    inputs on the card, which the timing reuses."""
+    for rows, m in TALLY_CASES:
+        for all_invalid in (True, False):
+            host = tally_inputs(rows, m, rows + m, all_invalid)
+            ins = [torch.from_numpy(x).to(dev) for x in host]
+            label = f"{rows} rows, m = {m}" + (", all invalid" if all_invalid else "")
+            got = hold(stats, "commit_tally", label,
+                       lambda: sharded.commit_tally_plain(*ins, m),
+                       lambda: sharded.commit_tally(*ins, m))
+            check(got.cpu().tolist() == host_tally(*host, m),
+                  f"commit_tally at {label} differs from numpy's tally")
+    log("kernels: commit_tally equals its plain version and numpy's tally on every case")
+    return ins
+
+
+def _shard_call(face: str, block: EntryBlock, powers: list, mesh) -> tuple:
+    if face == "pallas":
+        return sharded.verify_commit_sharded_pallas(block, powers, mesh)
+    if face == "rlc":
+        return sharded.verify_commit_sharded_rlc(block, powers, mesh)
+    return sharded.verify_commit_sharded(block, powers, mesh)
+
+
+@contextlib.contextmanager
+def launch_order():
+    """The names of the kernels launched inside the block, in order."""
+    order = []
+    real = kernels.launch
+
+    def spy(name, *args):
+        real(name, *args)
+        order.append(name)
+
+    kernels.launch = spy
+    try:
+        yield order
+    finally:
+        kernels.launch = real
+
+
+def sharded_phase(vals, ents: list, dev) -> tuple:
+    """(j2) The 10,000-validator commit through verify_commit_sharded
+    (cold), its warm form (the epoch cache holding the set: the cached
+    kernel over each device's table), _pallas and _rlc, each on
+    make_mesh(1) and on Mesh((cuda:0, cuda:0)) (two shards of 5,120):
+    verdicts, tally and all_valid equal to the single-device verdicts of
+    backend.verify_batch and the host tally; each shard launches its
+    verify kernels then one commit_tally. A tampered signature is blamed
+    at its row and its power left out. Then the median of REPEATS calls
+    of each. Returns (the stats, the launches of the valid calls)."""
+    powers = [v.voting_power for v in vals.validators]
+    cold = EntryBlock.from_entries(ents)
+    epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
+    check(epoch_cache.note_valset(vals) is None and epoch_cache.note_valset(vals) is not None,
+          "the set is not warm after two sightings")
+    rows = np.arange(len(ents), dtype=np.int32)
+    warm = EntryBlock(cold.pub, cold.sig, cold.msgs, cold.offsets, val_idx=rows,
+                      epoch_key=vals.hash())
+    bad_ents = list(ents)
+    p, m, s = bad_ents[TAMPER_AT]
+    bad_ents[TAMPER_AT] = (p, m, tamper(s))
+    bad_cold = EntryBlock.from_entries(bad_ents)
+    bad_warm = EntryBlock(bad_cold.pub, bad_cold.sig, bad_cold.msgs, bad_cold.offsets,
+                          val_idx=rows, epoch_key=vals.hash())
+    want = backend.verify_batch(cold, device=dev)
+    want_bad = backend.verify_batch(bad_cold, device=dev)
+    check(bool(want.all()) and np.nonzero(~want_bad)[0].tolist() == [TAMPER_AT],
+          "the single-device verdicts are not the commit's")
+    total = sum(powers)
+    meshes = {"1 card": sharded.make_mesh(1), "2 shards on 1 card": sharded.Mesh([dev, dev])}
+    blocks = {"sharded": (cold, bad_cold), "sharded_cached": (warm, bad_warm),
+              "pallas": (cold, bad_cold), "rlc": (cold, bad_cold)}
+    out = {"faces": {}}
+    kernels.reset_launches()
+    for face in SHARD_FACES:
+        good, bad = blocks[face]
+        for label, mesh in meshes.items():
+            nd = len(mesh)
+            with launch_order() as order:
+                valid, tallied, all_valid = _shard_call(face, good, powers, mesh)
+            order = [k for k in order if k != "epoch_coords"]  # the table, once a device
+            per_shard = list(SHARD_KERNELS[face]) + ["commit_tally"]
+            check(order == per_shard * nd, f"{face} on {label} launched {order}, wanted "
+                  f"{per_shard} a shard")
+            check(valid.tolist() == want.tolist() and tallied == total and all_valid is True,
+                  f"{face} on {label}: verdicts, tally or all_valid differ from the "
+                  f"single-device path ({tallied} of {total})")
+            valid, tallied, all_valid = _shard_call(face, bad, powers, mesh)
+            check(valid.tolist() == want_bad.tolist() and all_valid is False
+                  and tallied == total - powers[TAMPER_AT],
+                  f"{face} on {label}: the tampered commit's verdicts or tally are wrong")
+            log(f"sharded ({face}, {label}): verdicts and tally equal the single-device path; "
+                f"#{TAMPER_AT} blamed, its power {powers[TAMPER_AT]} left out; launches "
+                f"{per_shard} x {nd}")
+    launches = dict(kernels.LAUNCHES)
+    for face in SHARD_FACES:
+        good, _ = blocks[face]
+        for label, mesh in meshes.items():
+            ms = []
+            for _ in range(REPEATS):
+                _, t = _timed(lambda: _shard_call(face, good, powers, mesh))
+                ms.append(t)
+            out["faces"][f"{face} / {label}"] = {
+                "median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms)}
+    log("sharded timing (median ms of " + str(REPEATS) + "): " + ", ".join(
+        f"{k} {v['median_ms']:.2f}" for k, v in out["faces"].items()))
+    return out, {k: v for k, v in launches.items() if v}
+
+
+def _job_blocks(light_wire: dict, ents: list, vals) -> tuple:
+    """(blocks, the commits' (set, entries)): MESH_JOBS blocks of MESH_JOB_SIGS
+    signatures, job i from set i % 3 (V1's commit, then V2's and V3's of
+    the light chain), with their validator rows; V2 and V3 warm (noted
+    twice), V1 cold. The signature MESH_TAMPER is tampered."""
+    sets = [(vals, ents)]
+    for h in MESH_SETS[1:]:
+        hv, hc = convert.state_from_wire(light_wire[h][2], light_wire[h][1])
+        sets.append((hv, commit_entries(hc, hv)))
+    for hv, _ in sets[1:]:
+        epoch_cache.note_valset(hv)
+        check(epoch_cache.note_valset(hv) is not None, "a mesh set is not warm")
+    blocks = []
+    for i in range(MESH_JOBS):
+        sv, se = sets[i % 3]
+        lo = (i // 3) * MESH_JOB_SIGS
+        part = list(se[lo : lo + MESH_JOB_SIGS])
+        if i == MESH_TAMPER[0]:
+            p, m, s = part[MESH_TAMPER[1]]
+            part[MESH_TAMPER[1]] = (p, m, tamper(s))
+        b = EntryBlock.from_entries(part)
+        if i % 3:
+            b.val_idx = np.arange(lo, lo + MESH_JOB_SIGS, dtype=np.int32)
+            b.epoch_key = sv.hash()
+        blocks.append(b)
+    return blocks, sets
+
+
+def submit_together(v, blocks: list, seen: list = None) -> list:
+    """Submit `blocks` so one drain of the coalescer takes them: a
+    one-signature primer's host stage holds the coalescer until all are
+    queued. Returns their futures; `seen` collects the (block, plan) of
+    every superbatch after the primer's (the stage stays wrapped: close
+    the verifier after)."""
+    entered, gate = threading.Event(), threading.Event()
+    inner = v._prepare
+
+    def held(block, plan):
+        if not gate.is_set():
+            entered.set()
+            check(gate.wait(60), "the primer's gate was never opened")
+        elif seen is not None:
+            seen.append((block, plan))
+        return inner(block, plan)
+
+    v._prepare = held
+    primer = v.submit(EntryBlock.from_entries([edge_entries()[0]]))
+    check(entered.wait(60), "the primer never reached its host stage")
+    futs = [v.submit(b) for b in blocks]
+    gate.set()
+    check(bool(primer.result(timeout=600).all()), "the primer did not verify")
+    return futs
+
+
+def build_split_committee(vals, commit, secp_vals, secp_commit) -> tuple:
+    """(ValidatorSet, Commit) of SPLIT_VALIDATORS ed25519 and secp256k1
+    validators: the first of slice (a)'s set and of slice (g)'s, with the
+    signatures they gave (one vote, timestamps by key), powers 1..999
+    from the seed."""
+    picked = []
+    for (vs, c), n in zip(((vals, commit), (secp_vals, secp_commit)), SPLIT_VALIDATORS):
+        picked += [(v.pub_key, cs) for v, cs in zip(vs.validators[:n], c.signatures[:n])]
+    powers = np.random.default_rng(SEED + 7).integers(1, 1000, len(picked))
+    svals = ValidatorSet.new([Validator.new(pk, int(pw)) for (pk, _), pw in zip(picked, powers)])
+    by_pub = {pk.bytes(): cs for pk, cs in picked}
+    return svals, Commit(HEIGHT, ROUND, BLOCK, [by_pub[v.pub_key.bytes()]
+                                                for v in svals.validators])
+
+
+def _mesh_run(v, blocks: list) -> tuple:
+    t = time.perf_counter()
+    futs = [v.submit(b) for b in blocks]
+    res = [f.result(timeout=600) for f in futs]
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def _mesh_point(key: str, dev, lanes: int, lane_bucket, mesh, blocks: list, want: list) -> tuple:
+    """One (j3) point: a mesh-mode dispatcher of `lanes` lanes (lane
+    capacity lane_bucket, None the default) on `mesh` (None: the default
+    mesh, one card) runs `blocks` once to warm, once checked (each job's
+    verdicts equal `want`, the single-lane dispatcher's), MESH_RUNS timed
+    runs and one traced run. Returns (the point's stats, each superbatch
+    of the checked run as (n_lanes, live lanes, placed, warm, rows))."""
+    plans = []
+    holder = {}
+
+    def make():
+        v = holder["v"] = pipeline.AsyncBatchVerifier(
+            dev, mesh_lanes=lanes, lane_bucket=lane_bucket, mesh=mesh)
+        inner = v._prepare
+
+        def spy(block, plan):
+            b = inner(block, plan)
+            plans.append((plan.n_lanes, len(plan.lanes), b.placement is not None,
+                          plan.epoch_key() is not None, plan.bucket))
+            return b
+
+        v._prepare = spy
+        _mesh_run(v, blocks)
+
+    make()
+    v = holder["v"]
+    ready = sharded.mesh_ready(lanes, v.mesh)
+    plans.clear()
+    res, _ = _mesh_run(v, blocks)
+    first = list(plans)
+    check(all(np.array_equal(r, w) for r, w in zip(res, want)),
+          f"mesh ({key}) verdicts differ from the single-lane dispatcher's")
+    placed = mesh is not None
+    check(all(p[2] == (placed and p[0] > 1) for p in first), f"mesh ({key}): placement {first}")
+    check(all(p[0] <= lanes for p in first), f"mesh ({key}): a superbatch of more lanes {first}")
+    runs = [_mesh_run(v, blocks)[1] for _ in range(MESH_RUNS)]
+    v.close()
+    calls = traced_calls("mesh.run", [lambda: _mesh_run(holder["v"], blocks)],
+                         "mesh_" + key.replace(" / ", "_").replace(" ", "_"), warm=make)
+    holder["v"].close()
+    med = statistics.median(runs)
+    n_sigs = sum(len(b) for b in blocks)
+    point = {
+        "superbatches": len(first), "lanes_per_superbatch": sorted({p[1] for p in first}),
+        "rows_per_superbatch": sorted({p[4] for p in first}), "placed": placed and ready,
+        "simulated_lanes": lanes > 1 and not ready,
+        "warm_superbatches": sum(p[3] for p in first),
+        "median_ms": med, "sigs_per_s": n_sigs / med * 1e3,
+        "traced_ms": calls[0]["call_ms"],
+        "device_busy_ms": calls[0]["device_busy_ms"],
+        "device_idle_share": 1 - calls[0]["device_busy_ms"] / calls[0]["call_ms"],
+    }
+    log(f"mesh ({key}): {len(first)} superbatches of {point['rows_per_superbatch']} rows, "
+        f"{'placed lane by lane' if placed and ready else 'simulated lanes' if lanes > 1 else 'one lane'}; "
+        f"{med:.2f} ms, {n_sigs / med * 1e3:.0f} signatures/s; busy "
+        f"{calls[0]['device_busy_ms']:.3f} of {calls[0]['call_ms']:.2f} ms")
+    return point, first
+
+
+def _cap_blocks(sets: list) -> list:
+    """MESH_CAP_LANES whole commits as jobs: V1's (cold), V2's and V3's
+    (warm: their validator rows and set keys, as _job_blocks gives them)
+    and V1's with TAMPER_AT tampered."""
+    out = []
+    for i, (sv, se) in enumerate(sets):
+        b = EntryBlock.from_entries(se)
+        if i:
+            b.val_idx = np.arange(len(se), dtype=np.int32)
+            b.epoch_key = sv.hash()
+        out.append(b)
+    bad = list(sets[0][1])
+    p, m, s = bad[TAMPER_AT]
+    bad[TAMPER_AT] = (p, m, tamper(s))
+    return (out + [EntryBlock.from_entries(bad)])[:MESH_CAP_LANES]
+
+
+def mesh_phase(light_wire: dict, ents: list, vals, split: tuple, dev) -> tuple:
+    """(j3) The mesh dispatcher at bench.py multichip's shape: MESH_JOBS
+    jobs of MESH_JOB_SIGS signatures from three sets (two warm) at
+    mesh_lanes 1, 2 and 4 (lane_bucket MESH_JOB_SIGS) on the
+    per-signature kernels (the default) and on the op-graph path
+    (TM_TPU_PALLAS=0): each job's verdicts equal the single-lane
+    dispatcher's; the superbatches, signatures a second (median of
+    MESH_RUNS), and the card's busy time and idle share of a traced run.
+    One card: lanes above 1 are simulated lanes on the default mesh; then
+    Mesh((cuda:0,) * lanes) places them lane by lane on the card. Then
+    the default lane capacity: MESH_CAP_LANES whole commits in one
+    superbatch of MESH_CAP_LANES x BUCKETS[-1] rows, on both families.
+    Then the mixed committee of N_VALIDATORS through
+    prepare_commit_scheme_split on a two-lane dispatcher of the default
+    lane capacity: its two blocks in one superbatch of two segments of
+    BUCKETS[-1] rows, the sequential path's blame. Returns (the stats,
+    the launches of the valid runs)."""
+    blocks, sets = _job_blocks(light_wire, ents, vals)
+    single = pipeline.shared_verifier(dev)
+    want = [single.submit(b).result(timeout=600) for b in blocks]
+    bad = [(i, np.nonzero(~w)[0].tolist()) for i, w in enumerate(want) if not w.all()]
+    check(bad == [(MESH_TAMPER[0], [MESH_TAMPER[1]])],
+          f"the single-lane dispatcher rejects {bad}")
+    cap_blocks = _cap_blocks(sets)
+    cap_want = [single.submit(b).result(timeout=600) for b in cap_blocks]
+    bad = [(i, np.nonzero(~w)[0].tolist()) for i, w in enumerate(cap_want) if not w.all()]
+    check(bad == [(MESH_CAP_LANES - 1, [TAMPER_AT])],
+          f"the single-lane dispatcher rejects {bad} of the whole commits")
+    cap = mesh_pack.lane_cap()
+    out = {"jobs": MESH_JOBS, "job_sigs": MESH_JOB_SIGS, "points": {}}
+    kernels.reset_launches()
+    for family, pallas in (("per-signature", "1"), ("op-graph", "0")):
+        with env("TM_TPU_PALLAS", pallas):
+            for lanes in MESH_LANES:
+                for placed in ((False, True) if lanes > 1 else (False,)):
+                    key = f"{family} / {lanes} lanes" + (" / placed" if placed else "")
+                    out["points"][key], _ = _mesh_point(
+                        key, dev, lanes, MESH_JOB_SIGS,
+                        sharded.Mesh([dev] * lanes) if placed else None, blocks, want)
+            key = f"{family} / {MESH_CAP_LANES} lanes / default cap"
+            out["points"][key], plans = _mesh_point(key, dev, MESH_CAP_LANES, None, None,
+                                                    cap_blocks, cap_want)
+            check([p[4] for p in plans] == [MESH_CAP_LANES * cap],
+                  f"mesh ({key}): superbatches {plans}, wanted one of {MESH_CAP_LANES} x {cap} "
+                  "rows")
+            out["points"][key]["jobs"] = [len(b) for b in cap_blocks]
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for name in ("k1_decompress", "k2_table", "k3_ladder", "sha512_challenge", "og_verify",
+                 "og_verify_cached"):
+        check(launches.get(name, 0) > 0, f"the mesh runs never launched {name}")
+
+    # the mixed committee: two blocks, one superbatch of two segments
+    svals, scommit = split
+    needed = svals.total_voting_power() * 2 // 3
+    kinds = [isinstance(v.pub_key, ed25519.PubKey) for v in svals.validators]
+    first_secp = kinds.index(False, SPLIT_TAMPER)
+    tampered = (first_secp, kinds.index(True, first_secp))
+    bad = Commit(scommit.height, scommit.round, scommit.block_id, list(scommit.signatures))
+    for i in tampered:
+        cs = bad.signatures[i]
+        bad.signatures[i] = dataclasses.replace(cs, signature=tamper(cs.signature))
+    try:
+        validation._verify_commit_single(CHAIN_ID, svals, bad, needed,
+                                         validation._ignore_not_for_block,
+                                         validation._count_all, False, True)
+        raise SmokeFailure("the sequential path accepted the tampered mixed commit")
+    except ValueError as e:
+        blame = str(e)
+    check(blame.startswith(f"wrong signature (#{first_secp})"),
+          f"the sequential path blamed {blame:.40}, not #{first_secp}")
+    split_ms = {}
+    for label, commit, expect in (("valid", scommit, None), ("tampered", bad, blame)):
+        t = time.perf_counter()
+        blocks2, conclude = validation.prepare_commit_scheme_split(CHAIN_ID, svals, commit, needed)
+        prep_ms = (time.perf_counter() - t) * 1e3
+        check([b.scheme for b in blocks2] == ["ed25519", "secp256k1"],
+              "the split gave blocks of schemes " + str([b.scheme for b in blocks2]))
+        v = pipeline.AsyncBatchVerifier(dev, mesh_lanes=2)
+        seen = []
+        try:
+            t = time.perf_counter()
+            futs = submit_together(v, blocks2, seen)
+            rows = np.concatenate([f.result(timeout=600) for f in futs])
+            split_ms[label] = {"prep_ms": prep_ms, "verify_ms": (time.perf_counter() - t) * 1e3}
+        finally:
+            v.close()
+        check([[(s, len(b)) for s, b, _ in sb.parts] for sb, _ in seen]
+              == [[("ed25519", cap), ("secp256k1", cap)]],
+              "the mixed committee did not land in one superbatch of two segments of "
+              f"{cap} rows: {[[(s, len(b)) for s, b, _ in sb.parts] for sb, _ in seen]}")
+        try:
+            conclude(rows)
+            got = None
+        except ValueError as e:
+            got = str(e)
+        check(got == expect, f"the split's conclude gave {got!s:.80}, the sequential path "
+              f"{expect!s:.80}")
+    out["split"] = {"validators": list(SPLIT_VALIDATORS),
+                    "rows": [len(b) for b in blocks2], "segment_rows": cap,
+                    "tampered": list(tampered), "blame": blame[:24], "ms": split_ms}
+    log(f"mesh: the mixed committee's {[len(b) for b in blocks2]} rows in one superbatch of "
+        f"two segments of {cap} rows (prep {split_ms['valid']['prep_ms']:.1f} ms, verify "
+        f"{split_ms['valid']['verify_ms']:.1f} ms); rows {list(tampered)} tampered, "
+        f"#{first_secp} blamed as the sequential path does")
+    return out, launches
+
+
+def tally_record(ins: list, stats: dict, launches: int) -> dict:
+    """commit_tally's record at the one-shard commit's shape (10,240
+    rows): the kernel's own device time (`ms`, the median interval of
+    commit_tally_kernel in torch.profiler traces of KERNEL_REPS calls,
+    `traced_launches` the launches seen),
+    the wrapper's CUDA-event ms (`wrapper_ms`: its checks, the output's
+    zero fill and the launch), its bound (bytes: each input read once,
+    the 40 output bytes written once), the plain version's ms and the
+    PyTorch expression's (the one-line call that computes it: the masked
+    power sum and the count)."""
+    valid, live, power = ins
+
+    def library():
+        ok = (valid != 0) & (live != 0)
+        return torch.cat([(ok[:, None] * power).sum(0), ((live != 0) & (valid == 0)).sum()[None]])
+
+    def wrapper():
+        return sharded.commit_tally(valid, live, power)
+
+    ms, traced = kernel_trace_ms(wrapper, "commit_tally_kernel", KERNEL_REPS, "commit_tally")
+    wrapper_ms = event_ms(wrapper, KERNEL_REPS)
+    lib_ms = event_ms(library, KERNEL_REPS)
+    check(library().tolist() == wrapper().tolist(),
+          "the PyTorch expression disagrees with commit_tally")
+    io_bytes = sum(t.nbytes for t in ins) + 8 * sharded.TALLY_WORDS
+    bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    source, replaces = KERNELS["commit_tally"]
+    log(f"timing: commit_tally kernel {ms:.4f} ms (median of {traced} traced launches), "
+        f"wrapper {wrapper_ms:.4f} ms "
+        f"(events) over {live.shape[0]} rows; bound {bound_ms:.5f} ms ({io_bytes} B); the "
+        f"PyTorch expression {lib_ms:.4f} ms")
+    return {"name": "commit_tally", "route": "cuda",
+            "source": f"tendermint_tpu_torch/csrc/{source}", "replaces": replaces, "ms": ms,
+            "wrapper_ms": wrapper_ms, "traced_launches": traced,
+            "bound_ms": bound_ms, "pct_of_bound": 100 * bound_ms / ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "units": int(live.shape[0]), "bytes": io_bytes,
+            "launches": launches, "max_abs_err": stats["commit_tally"]["max_abs_err"],
+            "plain_ms": stats["commit_tally"]["plain_ms"]}
+
 
 
 # -- main ----------------------------------------------------------------------
@@ -3557,6 +4076,11 @@ def main() -> int:
             f"config #4 ({'+'.join(map(str, MIXED))} signatures) in {mixed_sign_s:.1f} s, by "
             f"{workers} processes")
         bls_data = build_bls_data(pool)
+    t = time.perf_counter()
+    split = build_split_committee(vals, commit, secp_vals, secp_commit)
+    log(f"data: the mixed committee ({'+'.join(map(str, SPLIT_VALIDATORS))} ed25519 and "
+        f"secp256k1 validators, their signatures from slices (a) and (g)) built in "
+        f"{time.perf_counter() - t:.1f} s")
     secp_wire = Commit.decode(secp_commit.encode())
     secp_ents = commit_entries(secp_commit, secp_vals)
     secp_table_pub = np.concatenate([
@@ -3581,6 +4105,9 @@ def main() -> int:
     t = time.perf_counter()
     bls_codes_h1 = bls_kernel_phase(kstats, dev)
     log(f"bls kernel phase (h1): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tally_in = tally_kernel_phase(kstats, dev)
+    log(f"tally kernel phase (j1): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     launches = slice_phase(vals, wire["ed25519"], sets["sr25519"][0], wire["sr25519"], dev)
@@ -3607,6 +4134,13 @@ def main() -> int:
     log(f"bls phase (h2, h3): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    shard_stats, shard_launches = sharded_phase(vals, ents, dev)
+    log(f"sharded phase (j2): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mesh_stats, mesh_launches = mesh_phase(light_wire, ents, vals, split, dev)
+    log(f"mesh phase (j3): {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     paths = {}
     for p in PATHS:
         key_type = PATH_SETUP[p][4]
@@ -3617,6 +4151,7 @@ def main() -> int:
     light["timing"] = light_timing(light_wire, dev)
     secp["timing"] = secp_timing(secp_vals, secp_wire, dev)
     records += bls_timing(bls_data, kstats, dev, sm_clock_hz)
+    tally = tally_record(tally_in, kstats, shard_launches["commit_tally"])
     log(f"timing phase: {time.perf_counter() - t:.1f} s")
     log("paths (median ms): " + ", ".join(
         f"{p} {s['verify_commit_ms']:.2f} e2e / {s['device_busy_ms'] or 0:.3f} busy"
@@ -3635,6 +4170,8 @@ def main() -> int:
         r["max_abs_err"] = kstats[r["name"]]["max_abs_err"]
         r["plain_ms"] = kstats[r["name"]]["plain_ms"]
         r.update(resources.get(r["name"], {}))
+    tally.update(resources.get("commit_tally", {}))
+    records.append(tally)
     log("summary: " + json.dumps({"paths": paths, "host": host_stats}))
     light.update(card=card, n_validators=N_VALIDATORS, signatures=n_light,
                  signing_s=light_sign_s)
@@ -3648,6 +4185,9 @@ def main() -> int:
                derive_s=bls_data["derive_s"], status_s=bls_data["status_s"],
                signing_s=bls_data["sign_s"])
     print(json.dumps({"bls": bls}), flush=True)
+    mesh_stats.update(card=card, sharded=shard_stats, sharded_launches=shard_launches,
+                      mesh_launches=mesh_launches)
+    print(json.dumps({"mesh": mesh_stats}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,15 @@ when it is freed its memory waits for the compute stream too.
 
 On the CPU a slot holds CPU tensors, `transfer` is a plain copy and
 `read_back` copies at once (no event).
+
+The dispatcher places every batch (sharded.Placement: a mesh
+superbatch lane by lane, any other batch as one lane on its own device)
+and takes one slot on each distinct device of the placement, from that
+device's pool (PlacedSlots): the slot holds the device's lanes'
+arguments stacked on a new first axis, is made on that device's copy
+stream and filled through it, and reads back the device's verdicts on
+its compute stream with an event of its own. The resolver waits on
+every device's event, then joins the rows in lane order.
 """
 
 from __future__ import annotations
@@ -130,6 +139,48 @@ def owned_verdicts(slot: PoolSlot) -> np.ndarray:
     """The slot's read-back verdicts as a new host-owned array, safe to
     deliver after the slot is reused."""
     return np.array(slot.readback.numpy(), copy=True)
+
+
+class PlacedSlots:
+    """The slots of one placed batch, one on each distinct device of its
+    placement (reference transfer :87 with NamedShardings, the arguments
+    laid lane per device). `pools` and `streams` map a device
+    to its DeviceBufferPool and its (copy, compute) streams ((None, None)
+    on the CPU); `host` maps it to the arrays placement.split gave."""
+
+    __slots__ = ("placement", "slots", "_pools")
+
+    def __init__(self, pools: dict, placement, bucket: int, host: dict, streams: dict):
+        self.placement = placement
+        self._pools = pools
+        self.slots: Dict[torch.device, PoolSlot] = {}
+        try:
+            for dev, arrays in host.items():
+                self.slots[dev] = pools[dev].acquire(layout_key(bucket, arrays), arrays,
+                                                     streams[dev][0])
+        except BaseException:
+            self.release()
+            raise
+
+    def transfer(self, host: dict, streams: dict) -> dict:
+        """Each device's arrays into its slot (transfer); the device
+        tensors by device."""
+        return {dev: transfer(slot, host[dev], *streams[dev]) for dev, slot in self.slots.items()}
+
+    def read_back(self, outs: dict, streams: dict) -> list:
+        """Each device's verdicts into its slot's readback on its compute
+        stream; the events to wait on (none on the CPU)."""
+        done = [read_back(self.slots[dev], out, streams[dev][1]) for dev, out in outs.items()]
+        return [e for e in done if e is not None]
+
+    def owned_verdicts(self) -> np.ndarray:
+        """The batch's verdict row in lane order, host-owned."""
+        return self.placement.join({dev: owned_verdicts(s) for dev, s in self.slots.items()})
+
+    def release(self) -> None:
+        for dev, slot in self.slots.items():
+            self._pools[dev].release(slot)
+        self.slots = {}
 
 
 class DeviceBufferPool:

@@ -203,9 +203,11 @@ class OgBatch:
         return conclude_batch(self, row)
 
 
-def prepare_batch(entries, device_hash: bool) -> OgBatch:
+def prepare_batch(entries, device_hash: bool, bucket: int = None) -> OgBatch:
     """The host stage (numpy and the host library only; touches no CUDA).
-    Rows padded to bucket_for(n): A = R = the identity, s = 0 (k = 0 on
+    Rows padded to `bucket` (default bucket_for(n); the sharded verifiers
+    and the mesh dispatcher give theirs, which may exceed BUCKETS[-1]):
+    A = R = the identity, s = 0 (k = 0 on
     the host route; the identity pattern's hash on the card's), s_ok = 1.
     args, cold: (A, R, s rows, then k rows or the hash's (hi, lo, counts),
     s_ok); warm (ops/epoch_cache.lookup finds the set's table): the table
@@ -215,10 +217,13 @@ def prepare_batch(entries, device_hash: bool) -> OgBatch:
     raises ValueError (ops/backend.device_hash_for keeps such batches on
     the host route)."""
     n = len(entries)
-    if n > BUCKETS[-1]:
-        raise ValueError(f"an op-graph batch holds at most {BUCKETS[-1]} signatures")
+    if bucket is None:
+        if n > BUCKETS[-1]:
+            raise ValueError(f"an op-graph batch holds at most {BUCKETS[-1]} signatures")
+        bucket = bucket_for(n)
+    elif n > bucket:
+        raise ValueError(f"bucket {bucket} is below the batch's {n} signatures")
     ep = epoch_cache.lookup(entries)
-    bucket = bucket_for(n)
     with record_function("og.prep"):
         if device_hash:
             pub, r_enc, s_enc = packing.pack_rows(entries, bucket)

@@ -119,12 +119,13 @@ def table_columns(entries, bucket: int, ep: "EpochEntry") -> np.ndarray:
     """(bucket,) int32 table columns of an EntryBlock's signatures
     (entries.val_idx), padded with column vp - 1, the identity. A row
     outside the set is refused: on the card it would be a read out of
-    the table's bounds."""
+    the table's bounds. The padding column itself is allowed (the mesh
+    packer's padding rows of a warm lane carry it, ops/mesh.pad_block)."""
     n = len(entries)
     vidx = entries.val_idx
     if vidx is None:
         raise ValueError("a warm batch needs an EntryBlock with val_idx")
-    if n and (int(vidx.min()) < 0 or int(vidx.max()) >= ep.n_vals):
+    if n and bool(((vidx < 0) | ((vidx >= ep.n_vals) & (vidx != ep.vp - 1))).any()):
         raise ValueError(f"val_idx outside the epoch's {ep.n_vals} validators")
     idx = np.full((bucket,), ep.vp - 1, dtype=np.int32)
     idx[:n] = vidx

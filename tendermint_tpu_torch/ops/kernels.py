@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("rlc.cu", "verify.cu", "sr25519.cu", "secp256k1.cu", "bls12381.cu", "sha512.cu",
-           "ed25519_verify.cu")
+           "ed25519_verify.cu", "tally.cu")
 HEADERS = ("fe25519.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,6 +60,7 @@ _ENTRIES = {
     "sha512_challenge": (4, 2),
     "og_verify": (6, 1),
     "og_verify_cached": (8, 2),
+    "commit_tally": (4, 2),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -60,12 +60,33 @@ the kernel wrappers launch on the current stream (ops/kernels.launch),
 and an epoch's table (EpochEntry.coords_tables) is built on the first
 warm batch's stream, the compute stream.
 
+Mesh mode (mesh_lanes >= 1; reference _worker_mesh :870, _prepare_mesh
+:638, submit :386-389): the coalescer drains up to mesh_lanes x
+lane_cap signatures (lingering 8 ms while the device is busy), packs
+whole jobs into the lanes of one superbatch (ops/mesh.pack_jobs: one
+epoch and one scheme a lane; the jobs that fit no lane wait for the next
+superbatch), and prepares it (ops/mesh.prepare_superbatch, span
+pipeline.mesh_pack then pipeline.prep); submit chunks a block at the
+lane capacity. Every batch runs through one path: it has a lane
+placement (sharded.Placement), is copied to each distinct device of it
+through that device's copy stream and slot (device_pool.PlacedSlots),
+each lane's body launches on its device's compute stream, and each
+device reads its verdicts back with an event the resolver waits on. A
+superbatch placed lane by lane on the mesh has its own placement; every
+other batch (the single-lane mode's, a one-lane superbatch, lanes the
+mesh cannot place: simulated lanes) is one lane on the dispatcher's
+card, its arrays one-lane views of the prepared ones. A pack or a
+superbatch's prep that raises fails only its drained jobs. The reference's
+TM_TPU_MESH and TM_TPU_MESH_LANE_BUCKET are the constructor arguments
+mesh_lanes and lane_bucket; `mesh` (default sharded.dispatch_mesh) is the
+devices the lanes go to. Mesh mode refuses an AggBlock (its BLS12-381
+lanes are ROADMAP queue 1's next item); the single-lane mode serves it.
+
 Not ported (ROADMAP): the replay and ingress priority classes (:124-135)
 with their fuse caps, the ingress reservation, preemption and the prep
 pool; they come with their first callers (ops/ingress.py, blocksync
 replay), and until then every job is the consensus class's, served in
-arrival order. Also the mesh coalescer (_worker_mesh :870,
-_prepare_mesh :638); the devcheck canaries and lint-bug seams; the
+arrival order. Also the devcheck canaries and lint-bug seams; the
 metrics and tracer flows; commit_entries_legacy (:1383), whose work the object path
 of types/validation does here. The reference's TM_TPU_POOL_DEPTH is the
 constructor argument pool_depth, with the same default.
@@ -74,6 +95,7 @@ constructor argument pool_depth, with the same default.
 from __future__ import annotations
 
 import contextlib
+import functools
 import queue
 import threading
 import time
@@ -85,8 +107,9 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
-from . import backend, commit_prep
+from . import backend, commit_prep, sharded
 from . import device_pool as _dpool
+from . import mesh as _mesh
 from .entry_block import AggBlock, EntryBlock, block_concat
 
 CLOSE_TIMEOUT = 5.0  # seconds close() waits for each thread
@@ -153,14 +176,33 @@ class AsyncBatchVerifier:
     The default is backend.prepare_block (by the block's scheme); tests
     pass stand-ins. A device batch is capped at
     backend.max_coalesce(scheme), read at each submit, and at `max_batch`
-    where that is given."""
+    where that is given.
+
+    With mesh_lanes >= 1 the dispatcher runs in mesh mode (module
+    docstring): `prepare(block, plan)` is then the host stage of a
+    superbatch (default ops/mesh.prepare_superbatch over `mesh`), whose
+    prepared batch may carry a lane placement."""
 
     def __init__(self, device=None, depth: int = 3, pool_depth: Optional[int] = None, *,
-                 prepare=None, max_batch: Optional[int] = None):
+                 prepare=None, max_batch: Optional[int] = None, mesh_lanes: int = 0,
+                 lane_bucket: Optional[int] = None, mesh: Optional[sharded.Mesh] = None):
         self.device = resolve_device(device)
         self._depth = max(int(depth), 1)
-        self._pool = _dpool.DeviceBufferPool(
-            self._depth + 1 if pool_depth is None else pool_depth, self.device)
+        self._pool_depth = self._depth + 1 if pool_depth is None else pool_depth
+        self._pool = _dpool.DeviceBufferPool(self._pool_depth, self.device)
+        self._mesh_lanes = max(int(mesh_lanes), 0)
+        self._lane_cap = _mesh.lane_cap(lane_bucket)
+        self.mesh: Optional[sharded.Mesh] = None
+        # one pool a device: the dispatcher's, and each other device of the mesh
+        self._pools = {self.device: self._pool}
+        # where a batch without a lane placement runs: one lane, this device
+        self._local = sharded.Mesh([self.device])
+        if self._mesh_lanes:
+            self.mesh = mesh or sharded.dispatch_mesh(self._mesh_lanes, self.device)
+            for dev in self.mesh.distinct():
+                if dev not in self._pools:
+                    self._pools[dev] = _dpool.DeviceBufferPool(self._pool_depth, dev)
+            prepare = prepare or functools.partial(_mesh.prepare_superbatch, mesh=self.mesh)
         self._prepare = prepare or backend.prepare_block
         self._max_batch = max_batch
         self._q: queue.Queue = queue.Queue()
@@ -175,8 +217,9 @@ class AsyncBatchVerifier:
         # the idents of every thread that copied to or launched on the
         # device: one element, the dispatch thread
         self.dispatch_thread_idents: set = set()
-        self._thread = threading.Thread(target=self._worker, daemon=True,
-                                        name="verify-coalesce")
+        self._thread = threading.Thread(
+            target=self._worker_mesh if self._mesh_lanes else self._worker, daemon=True,
+            name="verify-coalesce")
         self._dispatch_thread = threading.Thread(target=self._dispatcher, daemon=True,
                                                  name="verify-dispatch")
         self._resolve_thread = threading.Thread(target=self._resolver, daemon=True,
@@ -195,13 +238,18 @@ class AsyncBatchVerifier:
         """A future of the (n,) bool verdicts of `entries` (an EntryBlock,
         passed by reference, or (pub, msg, sig) triples), or of the (k,)
         int32 verdict codes of an AggBlock. A block above the batch cap
-        is split and its verdicts joined."""
+        (in mesh mode, the lane capacity) is split and its verdicts
+        joined. In mesh mode an AggBlock raises ValueError."""
         if self._stopped.is_set():
             raise RuntimeError("verifier is closed")
         if self._broken is not None:
             raise RuntimeError(f"the device failed: {self._broken!r}")
         block = _as_block(entries)
         max_b = self.max_batch(block.scheme)
+        if self._mesh_lanes:
+            if isinstance(block, AggBlock):
+                raise ValueError(f"a mesh-mode dispatcher takes no AggBlock ({_mesh.BLS_LANES_ITEM})")
+            max_b = min(max_b, self._lane_cap)
         if len(block) > max_b:
             return self._submit_chunked(block, max_b)
         job = _Job(block)
@@ -241,7 +289,8 @@ class AsyncBatchVerifier:
         for t in (self._thread, self._dispatch_thread, self._resolve_thread):
             t.join(timeout=timeout)
         if not any(t.is_alive() for t in (self._dispatch_thread, self._resolve_thread)):
-            self._pool.close()
+            for pool in self._pools.values():
+                pool.close()
 
     # -- coalescer ---------------------------------------------------------
 
@@ -317,18 +366,79 @@ class AsyncBatchVerifier:
         finally:
             self._dispatch_q.put(None)
 
+    def _worker_mesh(self) -> None:
+        """The mesh-mode coalescer (reference :870): drain queued jobs up
+        to mesh_lanes x lane_cap signatures, lingering 8 ms for more while
+        the device is busy, pack them into the lanes of one superbatch
+        (held-over jobs first, in arrival order), build and prepare it,
+        and hand it to the dispatcher. Jobs that fit no lane wait for the
+        next superbatch; a pack that raises fails the drained jobs, a prep
+        that raises the superbatch's; the thread goes on either way. No
+        empty job is queued (submit resolves it)."""
+        held: List[_Job] = []
+        try:
+            while True:
+                jobs, held = held, []
+                if not jobs:
+                    try:
+                        jobs = [self._q.get(timeout=0.05)]
+                    except queue.Empty:
+                        if self._stopped.is_set() and self._q.empty():
+                            break
+                        continue
+                total = sum(len(j.entries) for j in jobs)
+                busy = self._inflight > 0 or self._dispatch_q.qsize() > 0
+                deadline = time.monotonic() + 0.008 if busy else 0.0
+                while total < self._mesh_lanes * self._lane_cap:
+                    try:
+                        nxt = self._q.get_nowait()
+                    except queue.Empty:
+                        wait = deadline - time.monotonic()
+                        if wait <= 0:
+                            break
+                        try:
+                            nxt = self._q.get(timeout=wait)
+                        except queue.Empty:
+                            break
+                    jobs.append(nxt)
+                    total += len(nxt.entries)
+                try:
+                    with record_function("pipeline.mesh_pack"):
+                        plan, held = _mesh.pack_jobs(jobs, self._mesh_lanes, self._lane_cap)
+                        block, spans = _mesh.build_superblock(plan)
+                except Exception as e:  # the drained jobs' failure, not the thread's
+                    drained = [(j, 0, len(j.entries)) for j in jobs]
+                    _fail_spans(drained, _dispatch_error("mesh pack failed", e, 0, drained))
+                    held = []
+                    continue
+                try:
+                    with record_function("pipeline.prep"):
+                        prep = self._prepare(block, plan)
+                except Exception as e:  # the superbatch's failure
+                    _fail_spans(spans, _dispatch_error("batch prep failed", e, plan.bucket,
+                                                       spans))
+                    continue
+                self._dispatch_q.put((spans, prep))
+        finally:
+            self._dispatch_q.put(None)
+
     # -- dispatcher --------------------------------------------------------
 
     def _dispatcher(self) -> None:
+        """Make the device current, a copy and a compute stream for each
+        CUDA device it copies to (the dispatcher's and, in mesh mode,
+        each other device of the mesh), then dispatch batches in order on
+        the dispatcher's compute stream."""
         dev = self.device
-        copy_stream = compute = None
+        streams = {d: (None, None) for d in self._pools}
         on_compute = contextlib.nullcontext()
         if dev.type == "cuda":
             try:
                 torch.cuda.set_device(dev)
-                copy_stream = torch.cuda.Stream(dev)
-                compute = torch.cuda.Stream(dev)
-                on_compute = torch.cuda.stream(compute)
+                for d in streams:
+                    if d.type == "cuda":
+                        streams[d] = (torch.cuda.Stream(d), torch.cuda.Stream(d))
+                on_compute = torch.cuda.stream(streams[dev][1])
             except Exception as e:  # every batch then fails with it
                 self._broken = e
         with on_compute:
@@ -337,39 +447,63 @@ class AsyncBatchVerifier:
                 if item is None:
                     self._resolve_q.put(None)
                     return
-                self._dispatch_one(*item, copy_stream, compute)
+                self._dispatch_one(*item, streams)
 
-    def _dispatch_one(self, spans, prep, copy_stream, compute) -> None:
+    def _placed(self, prep) -> tuple:
+        """(placement, per-device host arrays) of a prepared batch: a
+        superbatch's lane placement, or else one lane on the dispatcher's
+        device, whose arrays are the batch's own as one-lane views."""
+        placement = getattr(prep, "placement", None)
+        if placement is not None:
+            return placement, prep.host
+        placement = sharded.Placement(self._local, (0,) * len(prep.args))
+        return placement, placement.split(prep.args)
+
+    @staticmethod
+    def _launch(prep, placement, dev_args: dict, streams: dict) -> dict:
+        """Each lane's body on its device's compute stream, in lane order;
+        each device's verdicts, its lanes one after another."""
+        outs: Dict[torch.device, list] = {d: [] for d in dev_args}
+        with contextlib.ExitStack() as on:
+            for d in dev_args:
+                if streams[d][1] is not None:
+                    on.enter_context(torch.cuda.stream(streams[d][1]))
+            for d in placement.mesh.devices:
+                outs[d].append(prep.launch(placement.lane_args(dev_args[d], len(outs[d]))))
+            return {d: o[0] if len(o) == 1 else torch.cat(o) for d, o in outs.items()}
+
+    def _dispatch_one(self, spans, prep, streams) -> None:
         """One batch: copy it, wait for a launch slot, launch, start the
         readback and hand it to the resolver. Whatever fails fails only
         this batch, with its launch slot and buffers given back."""
-        slot = None
+        slots = None
         sem_held = False
         try:
             if self._broken is not None:
                 raise RuntimeError(f"the device failed: {self._broken!r}")
             self.dispatch_thread_idents.add(threading.get_ident())
-            slot = self._pool.acquire(_dpool.layout_key(prep.bucket, prep.args), prep.args,
-                                      copy_stream)
+            placement, host = self._placed(prep)
+            slots = _dpool.PlacedSlots(self._pools, placement, prep.bucket, host, streams)
             with record_function("pipeline.h2d"):
-                dev_args = _dpool.transfer(slot, prep.args, copy_stream, compute)
+                dev_args = slots.transfer(host, streams)
             self._sem.acquire()
             sem_held = True
             with record_function("pipeline.launch"):
-                out = prep.launch(dev_args)
+                out = self._launch(prep, placement, dev_args, streams)
             with record_function("pipeline.d2h"):
-                done = _dpool.read_back(slot, out, compute)
+                done = slots.read_back(out, streams)
             with self._mtx:
                 self._inflight += 1
-            self._resolve_q.put((spans, prep, slot, done))
-            sem_held = False  # the resolver releases it and the slot
-            slot = None
+            self._resolve_q.put((spans, prep, slots, done))
+            sem_held = False  # the resolver releases it and the slots
+            slots = None
         except Exception as e:  # this batch fails alone; the thread goes on
             _fail_spans(spans, _dispatch_error("batch dispatch failed", e, prep.bucket, spans))
         finally:
             if sem_held:
                 self._sem.release()
-            self._pool.release(slot)
+            if slots is not None:
+                slots.release()
 
     # -- resolver ----------------------------------------------------------
 
@@ -385,27 +519,26 @@ class AsyncBatchVerifier:
                     self._inflight -= 1
                 self._sem.release()
 
-    def _resolve(self, spans, prep, slot, done) -> None:
-        """Wait for the readback, copy the verdicts out, release the slot,
-        conclude, and give each job its own host-owned verdicts (bools,
-        or int32 codes for a batch with `codes` set). Any failure fails
-        this batch's futures; the slot goes back either way."""
+    def _resolve(self, spans, prep, slots, done) -> None:
+        """Wait for every device's readback, copy the verdicts out, release
+        the slots, conclude, and give each job its own host-owned verdicts
+        (bools, or int32 codes for a batch with `codes` set). Any failure
+        fails this batch's futures; the slots go back either way."""
         with record_function("pipeline.resolve"):
             try:
                 try:
-                    if done is not None:
-                        done.synchronize()
+                    for event in done:
+                        event.synchronize()
                 except Exception as e:  # the device failed: trust nothing after it
                     self._broken = e
                     raise
-                row = _dpool.owned_verdicts(slot)
-                self._pool.release(slot)
-                slot = None
+                row = slots.owned_verdicts()
+                slots.release()
                 verdicts = np.asarray(prep.conclude(row))
                 if not getattr(prep, "codes", False):
                     verdicts = verdicts.astype(bool)
             except Exception as e:  # this batch fails alone
-                self._pool.release(slot)
+                slots.release()
                 what = "device failed" if self._broken is e else "batch resolve failed"
                 _fail_spans(spans, _dispatch_error(what, e, prep.bucket, spans))
                 return

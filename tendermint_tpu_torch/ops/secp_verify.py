@@ -421,15 +421,19 @@ class SecpBatch:
         return conclude_batch(self, row)
 
 
-def prepare_batch(entries, ep=None) -> SecpBatch:
+def prepare_batch(entries, ep=None, bucket: int = None) -> SecpBatch:
     """The host stage for an EntryBlock of scheme secp256k1 (touches no
     CUDA): with the set's epoch entry `ep`
     (its block carries val_idx), prepare_rows_cached's arrays; without,
-    prepare_rows'."""
+    prepare_rows'. Rows pad to `bucket` (default bucket_for(n); the mesh
+    dispatcher gives its superbatch's, which may exceed BUCKETS[-1])."""
     n = len(entries)
-    if n > BUCKETS[-1]:
-        raise ValueError(f"a secp256k1 batch holds at most {BUCKETS[-1]} signatures")
-    bucket = bucket_for(n)
+    if bucket is None:
+        if n > BUCKETS[-1]:
+            raise ValueError(f"a secp256k1 batch holds at most {BUCKETS[-1]} signatures")
+        bucket = bucket_for(n)
+    elif n > bucket:
+        raise ValueError(f"bucket {bucket} is below the batch's {n} signatures")
     with record_function("secp.prep"):
         items = list(entries.iter_entries())
         if ep is None:

@@ -33,7 +33,8 @@ batch), verify, conclude (the blame), so selection, tally and blame live
 in one place for both callers of that split: _verify_commit_batch, and
 the asynchronous seam (prepare_commit_batch, prepare_commit_light,
 prepare_commit_range, prepare_commit_light_trusting; reference
-validation.py:183-370), which returns the batch and its conclude
+validation.py:183-370; prepare_commit_scheme_split, :387-440, for a
+committee of ed25519 and secp256k1 keys), which returns the batch and its conclude
 instead of verifying, for a caller that ships the batch through the
 dispatcher (ops/pipeline.py) itself: the light verifier's
 SigCheck.prepare and the batched light service. The seam also batches
@@ -450,6 +451,77 @@ def prepare_commit_batch(
         chain_id, vals, commit, voting_power_needed, ignore_sig, count_sig,
         count_all_signatures, look_up_by_index)
     return block, conclude
+
+
+def prepare_commit_scheme_split(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    voting_power_needed: int,
+    ignore_sig: Callable[[CommitSig], bool] = _ignore_not_for_block,
+    count_sig: Callable[[CommitSig], bool] = _count_all,
+    count_all_signatures: bool = False,
+    look_up_by_index: bool = True,
+):
+    """The host half for a committee of ed25519 and secp256k1 keys
+    (reference :387-440): selection and tally once (the object path's
+    _select_commit_sigs), then the selected signatures split by key
+    scheme into one EntryBlock each, with their validator rows. Submitted
+    together to a mesh-mode dispatcher, both land in different lanes of
+    one superbatch. Returns (blocks, conclude): blocks in (ed25519,
+    secp256k1) order, those with rows only; conclude takes their verdict
+    rows concatenated in that order and raises the sequential path's
+    blame, the first invalid signature in signature order (not in
+    concatenation order). Raises PrepareUnsupported for a key of another
+    scheme."""
+    view = vals.scheme_rows()
+    if view is None:
+        raise PrepareUnsupported("validator set has non-device key schemes")
+    kinds, pub32, aux = view
+    with record_function("commit.select"):
+        selected, tallied = _select_commit_sigs(
+            vals, commit, voting_power_needed,
+            ignore_sig, count_sig, count_all_signatures, look_up_by_index,
+        )
+    if tallied <= voting_power_needed:
+        raise ErrNotEnoughVotingPowerSigned(got=tallied, needed=voting_power_needed)
+    per: dict = {0: [], 1: []}
+    for sig_idx, val_row, _ in selected:
+        per[int(kinds[val_row])].append((sig_idx, val_row))
+    blocks = []
+    parts_sig_idxs = []
+    sigs = commit.signatures
+    for kind, scheme in ((0, "ed25519"), (1, "secp256k1")):
+        lanes = per[kind]
+        if not lanes:
+            continue
+        sig_idxs = [i for i, _ in lanes]
+        with record_function("commit.sign_bytes"):
+            buf, offsets = commit.vote_sign_bytes_block(chain_id, sig_idxs)
+        rows = np.asarray([r for _, r in lanes], dtype=np.int32)
+        sig = np.frombuffer(b"".join(sigs[i].signature for i in sig_idxs),
+                            dtype=np.uint8).reshape(len(lanes), 64)
+        blocks.append(EntryBlock(
+            pub32[rows], sig, buf, offsets, val_idx=rows, scheme=scheme,
+            pub_aux=np.ascontiguousarray(aux[rows]) if scheme == "secp256k1" else None))
+        parts_sig_idxs.append(sig_idxs)
+    all_idx = (np.concatenate([np.asarray(p, dtype=np.int64) for p in parts_sig_idxs])
+               if parts_sig_idxs else np.zeros(0, dtype=np.int64))
+
+    def conclude(valid) -> None:
+        valid_arr = np.asarray(valid, dtype=bool)
+        if valid_arr.size and valid_arr.all():
+            return
+        if valid_arr.size:
+            # the first invalid signature in signature order: the rows are
+            # per scheme, so the least offending index, not the row's argmin
+            idx = int(all_idx[~valid_arr].min())
+            raise ValueError(
+                f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+            )
+        raise RuntimeError("BUG: batch verification failed with no invalid signatures")
+
+    return blocks, conclude
 
 
 def prepare_commit_light(chain_id: str, vals: ValidatorSet, block_id: BlockID,

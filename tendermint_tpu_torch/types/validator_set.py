@@ -284,6 +284,35 @@ class ValidatorSet:
             self._bls_cols = self._columns(_bls12381.PubKey, 48)
         return self._bls_cols or None
 
+    def scheme_rows(self) -> Optional[tuple]:
+        """The per-validator scheme partition of a set whose keys are each
+        ed25519 or secp256k1 (reference validator_set.py:374): (kinds (n,)
+        uint8, 0 ed25519 and 1 secp256k1, pub (n, 32) uint8, aux (n,)
+        uint8). An ed25519 row holds its key and aux 0, a secp256k1 row X
+        and its SEC1 prefix byte in aux: EntryBlock's (pub, pub_aux)
+        split, so the scheme split gathers each scheme's block by rows.
+        None for an empty set or one with a key of another scheme. Built
+        at each call (mixed sets are rare)."""
+        vals = self.validators
+        n = len(vals)
+        if not n:
+            return None
+        kinds = np.zeros(n, dtype=np.uint8)
+        pub = np.zeros((n, 32), dtype=np.uint8)
+        aux = np.zeros(n, dtype=np.uint8)
+        for i, v in enumerate(vals):
+            k = v.pub_key
+            if isinstance(k, _ed25519.PubKey):
+                pub[i] = np.frombuffer(k.bytes(), dtype=np.uint8)
+            elif isinstance(k, _secp256k1.PubKey):
+                kinds[i] = 1
+                b = k.bytes()
+                aux[i] = b[0]
+                pub[i] = np.frombuffer(b, dtype=np.uint8)[1:]
+            else:
+                return None
+        return kinds, pub, aux
+
     def validate_basic(self) -> None:
         if not self.validators:
             raise ValueError("validator set is nil or empty")

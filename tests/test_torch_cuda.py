@@ -726,3 +726,43 @@ def test_pool_slots_never_take_memory_the_compute_stream_still_uses(cuda):
         got = device_pool.transfer(slot, args, copy, compute)[0]
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), torch.from_numpy(args[0]))
+
+
+@pytest.mark.parametrize("rows,m", [(1, 1), (10240, 1), (10240, 4), (333, 1)])
+def test_commit_tally_matches_plain(cuda, rows, m):
+    """commit_tally against commit_tally_plain, every word: verdicts with
+    zeros and values other than 1, padding rows not live, powers at the
+    top of the range (2^60 - 1); an all-invalid shard too."""
+    from tendermint_tpu_torch.ops import sharded
+
+    rng = np.random.default_rng(rows + m)
+    valid = rng.integers(0, 3, rows // m).astype(np.int32)
+    live = np.ones(rows, np.int32)
+    live[rows - rows // 7 :] = 0
+    powers = rng.integers(0, 1 << 60, rows)
+    powers[0] = (1 << 60) - 1
+    for v in (valid, np.zeros_like(valid)):
+        ins = [torch.from_numpy(x).to(cuda) for x in (v, live, sharded.split_power(powers))]
+        before = kernels.LAUNCHES["commit_tally"]
+        got = sharded.commit_tally(*ins, m)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["commit_tally"] == before + 1
+        assert torch.equal(got, sharded.commit_tally_plain(*ins, m))
+
+
+def test_verify_commit_sharded_two_shards_on_one_card(battery, cuda):
+    """verify_commit_sharded on Mesh((cuda:0, cuda:0)) (two shards run one
+    after another on the card) equals the oracle and the host tally: one
+    og_verify and one commit_tally a shard."""
+    from tendermint_tpu_torch.ops import sharded
+
+    block, oracle = _spread(battery, 300, 5)
+    powers = [int(p) for p in np.random.default_rng(5).integers(1, 1 << 50, len(block))]
+    before = dict(kernels.LAUNCHES)
+    valid, tallied, all_valid = sharded.verify_commit_sharded(
+        block, powers, sharded.Mesh([cuda, cuda]))
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert valid.tolist() == oracle.tolist()
+    assert tallied == sum(p for p, ok in zip(powers, oracle) if ok)
+    assert all_valid is bool(oracle.all())
+    assert launched == {"og_verify": 2, "commit_tally": 2}

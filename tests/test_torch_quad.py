@@ -169,6 +169,12 @@ inline int __shfl_sync(unsigned, int v, int src, int width) {
 inline int __shfl_xor_sync(unsigned, int v, int m, int width) {
   return emu_shfl(v, (tl_lane & ~(width - 1)) + ((tl_lane ^ m) & (width - 1)));
 }
+// warps run one after another: an atomic add is a plain one
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = old + v;
+  return old;
+}
 """
 
 # op 0: quad_double, 1: quad_add_niels, 2: quad_cofactor_eq, 3: quad_add,
@@ -440,6 +446,17 @@ def emu_verify(tmp_path_factory):
     lib.emu_k1_decompress.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
     lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
+
+
+TALLY_HARNESS = r"""
+#include "tally_body.cu"
+""" + LAUNCH + r"""
+extern "C" int emu_commit_tally(const int32_t* valid, const int32_t* live, const int32_t* power,
+                                unsigned long long* out, int rows, int m) {
+  return launch(dim3((rows + tally::THREADS - 1) / tally::THREADS), tally::THREADS,
+                [=] { tally::commit_tally_kernel(valid, live, power, out, rows, m); });
+}
+"""
 
 
 @pytest.fixture(scope="module")
@@ -1053,6 +1070,40 @@ def test_og_verify_kernel_equals_plain(emu_og):
     got = torch.full_like(want, -1)
     assert emu_og.emu_og_verify(*(x.data_ptr() for x in ins), got.data_ptr(), n) == 0
     assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def emu_tally(tmp_path_factory):
+    lib = _kernel_lib(tmp_path_factory, "tally_emu", ("tally",),
+                      TALLY_HARNESS.replace("using namespace edw;", ""))
+    lib.emu_commit_tally.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.mark.parametrize("rows,m", [(1, 1), (300, 1), (600, 4), (2048, 4)])
+def test_commit_tally_kernel_equals_plain(emu_tally, rows, m):
+    """The whole commit_tally kernel (a thread a row, the warp's shuffle
+    sums of each word's halves, a 64-bit atomicAdd a warp) against
+    commit_tally_plain, every word: live padding rows, verdicts of 0, 1
+    and 2, powers up to 2^60 - 1 and, beyond split_power's range, int32
+    lanes of any sign; an all-invalid shard; blocks past the last row."""
+    from tendermint_tpu_torch.ops import sharded
+
+    rng = np.random.default_rng(rows * 10 + m)
+    valid = rng.integers(0, 3, rows // m).astype(np.int32)
+    live = np.ones(rows, np.int32)
+    live[rows - rows // 5 :] = 0
+    powers = rng.integers(0, 1 << 60, rows)
+    powers[0] = (1 << 60) - 1
+    lanes = sharded.split_power(powers)
+    wild = rng.integers(-(1 << 31), 1 << 31, (rows, 4)).astype(np.int32)
+    for v, pw in ((valid, lanes), (np.zeros_like(valid), lanes), (valid, wild)):
+        ins = [torch.from_numpy(np.ascontiguousarray(x)) for x in (v, live, pw)]
+        want = sharded.commit_tally_plain(*ins, m)
+        got = torch.zeros(5, dtype=torch.int64)
+        assert emu_tally.emu_commit_tally(*(x.data_ptr() for x in ins), got.data_ptr(), rows,
+                                          m) == 0
+        assert torch.equal(got, want)
 
 
 def test_og_verify_cached_kernel_equals_plain(emu_og):
