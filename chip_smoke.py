@@ -53,7 +53,9 @@ Phases, in order:
    wrong signature, a malformed, an identity and a non-subgroup G2
    signature, signers taking two crafted non-subgroup G1 keys, an
    identity aggregate, pad commits): apk, f_j and the residues word for
-   word, and the codes they give equal to the battery's; and the
+   word, and the codes they give equal to the battery's, and
+   bls_finalexp by rows and fused on f = 0, f = 1 and seeded random rows
+   (0 gives 0, 1 gives 1); and the
    op-graph kernels: sha512_challenge over a hash battery (R || A || M of
    64 to 256 bytes, the length field's boundaries, 1, 2 and 3 blocks, and
    padding rows) against its plain version, hashlib's SHA-512 and
@@ -159,7 +161,7 @@ Phases, in order:
        commits with every signer, through
        types.validation.prepare_aggregated_commit(k_hint=16), the
        shared dispatcher and conclude, the launch counters set to 0
-       before each window: one warm-up window, two timed (median of
+       before each window: one warm-up window, three timed (median of
        the host prep, launch A's two kernels, end to end, aggregated
        commits a second), each exactly one launch A of width 16 and one
        final exponentiation row (the fused one); then a window with
@@ -225,7 +227,7 @@ Phases, in order:
    max), and 5 traced for its stages (commit.select, commit.sign_bytes,
    secp.prep, pipeline.*) and the card's busy time. Then the BLS kernels
    at (h2)'s shape (K = 16, the epoch table's 256 rows): bls_miller and
-   the fused bls_finalexp and launch B's 16 rows over BLS_ROWS_REPS,
+   the fused bls_finalexp and launch B's 16 rows over KERNEL_REPS,
    beside their bounds. The traces are kept in
    build/traces/.
 
@@ -270,7 +272,7 @@ from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import _edwards, _ristretto
 from tendermint_tpu_torch.crypto import _weierstrass, bls12381, ed25519, secp256k1, sr25519
 from tendermint_tpu_torch.libs.bits import BitArray
-from tendermint_tpu_torch.ops import backend, bls_verify, commit_prep, epoch_cache, fe, host
+from tendermint_tpu_torch.ops import backend, bls_verify, commit_prep, epoch_cache, fe, fe_bls, host
 from tendermint_tpu_torch.ops import kernels, packing, rlc
 from tendermint_tpu_torch.ops import mixed, pipeline, secp_verify, sharded
 from tendermint_tpu_torch.ops import mesh as mesh_pack
@@ -358,11 +360,11 @@ BLS_SHAPES = ((4, 8), (16, 128))
 BLS_VALIDATORS = 128
 BLS_POWER = 100
 BLS_WINDOW = 16
-BLS_WINDOWS = 2
+BLS_WINDOWS = 3
 BLS_TAMPER = 7
+BLS_EDGE_RANDOM = 6  # (h1)'s random rows beside f = 0 and f = 1
 BLS_CHAIN = "bls-bench"
 BLS_BLOCK = BlockID(hash=b"\x20" * 32, part_set_header=PartSetHeader(total=1, hash=b"\x20" * 32))
-BLS_ROWS_REPS = 3  # launch B and the fused final exponentiation: timings (about a second each)
 REPEATS = 20  # warm end-to-end runs (median)
 HOST_REPS = 5  # C calls a host helper's time is the median of
 PROFILED = 5  # verify_commit calls traced by torch.profiler for the stages
@@ -476,13 +478,30 @@ SECP_WIDE = {"mul": 72, "sq": 44, "x21": 8}
 SECP_WIDE_PER_SIG = sum(SECP_OPS[k] * w for k, w in SECP_WIDE.items())
 # The BLS12-381 kernels (csrc/bls12381.cu) form 32 x 32 -> 64 products in
 # their Montgomery product only, 288 a product (12 rows of 12 for a b and
-# 12 for m p). A Miller step is an Fp12 square (57 Fp products), two line
-# evaluations (4) and two products by a line (54); a final exponentiation
-# 4,314 squares and 2,124 products (108) and 24 conversions (the CPU
-# stand-in of tests/test_torch_bls.py counts them: bls_fp_products).
+# 12 for m p). Their Fp12 product is 36 Karatsuba Fp2 products (108), a
+# line by a line 27, f^2 by two lines' product 90; a Miller step of the
+# multi-Miller loop is f^2, four line evaluations (4), two line-by-line
+# products and two products by them. A final exponentiation (the exact
+# chain of the source's header): the easy part (two Fp12 products, the
+# norm's inverse on one thread with its Fp inversion, a product by the
+# Fp6 inverse (54), the p^2 map, a product); the hard part, 314 cyclotomic
+# squares (Granger-Scott, 18), 52 Fp12 products, the p map (20) and a p^2
+# map (10); 24 conversions. The Fp inversion (the binary extended
+# Euclidean algorithm, additions and halvings) forms one product, by R^3.
+# The CPU stand-in of tests/test_torch_bls.py counts them all
+# (bls_fp_products).
 BLS_WIDE_PER_FP = 288
-BLS_STEP_PRODUCTS = 57 + 2 * (4 + 54)
-BLS_FINALEXP_PRODUCTS = 4_314 * 57 + 2_124 * 108 + 24
+BLS_F12_PRODUCT = 108
+BLS_STEP_PRODUCTS = BLS_F12_PRODUCT + 4 * 4 + 2 * 27 + 2 * 90
+BLS_FROB = (20, 10)  # the p and p^2 maps
+BLS_CYCLO_PRODUCTS = 18
+BLS_FP_INV = 1
+# the norm's inverse: 3 Fp2 squares (2), 3 Fp2 products (3) for t0, t1, t2, 3 for N,
+# N0^2 + N1^2, the inversion, 1/N (2), t_i / N (3 Fp2 products)
+BLS_NORM_INVERSE = 3 * 2 + 3 * 3 + 3 * 3 + 2 + BLS_FP_INV + 2 + 3 * 3
+BLS_FINALEXP_PRODUCTS = (3 * BLS_F12_PRODUCT + BLS_NORM_INVERSE + 54 + BLS_FROB[1]
+                         + (62 + 4 * 63) * BLS_CYCLO_PRODUCTS + 52 * BLS_F12_PRODUCT
+                         + sum(BLS_FROB) + 24)
 # The BLS bounds count what the function needs on this run's data, not
 # what these kernels do (bls_bound_products): Fp products of the cheapest
 # published formulas, 288 wide products each at WIDE_PER_SM_CLOCK a clock
@@ -3189,15 +3208,25 @@ def bls_battery(n: int, msg: bytes) -> tuple:
     return items, codes
 
 
+def bls_finalexp_rows(n_random: int, seed: int) -> np.ndarray:
+    """Rows for bls_finalexp's edge cases, (2 + n_random, 6, 2, 12) int32
+    words: f = 0 (its inversion maps 0 to 0, so the residue is 0), f = 1,
+    then seeded random nonzero elements."""
+    rng = random.Random(seed)
+    vals = [0] * 12 + [1] + [0] * 11
+    vals += [rng.randrange(1, bls12381.P) for _ in range(12 * n_random)]
+    return fe_bls.words_from_ints(vals).reshape(2 + n_random, 6, 2, 12)
+
+
 def bls_fp_products(name: str, k: int, vp: int) -> int:
     """The Fp products (BLS_WIDE_PER_FP multiply-adds each) of one launch,
     as csrc/bls12381.cu's header counts them: bls_miller over k commits
     and vp table rows; bls_finalexp fused over k rows (k = rows for
     launch B, each its own exponentiation)."""
     if name == "bls_miller":
-        return k * (14 * vp + 127 * 12 + 2 * BLS_STEP_PRODUCTS * bls_verify.N_ATE + 6 + 108 + 15)
+        return k * (14 * vp + 127 * 12 + 6 + BLS_STEP_PRODUCTS * bls_verify.N_ATE + 15)
     if name == "bls_finalexp_fused":
-        return BLS_FINALEXP_PRODUCTS + 120 * (k - 1)
+        return BLS_FINALEXP_PRODUCTS + (BLS_F12_PRODUCT + 12) * (k - 1)
     return k * BLS_FINALEXP_PRODUCTS
 
 
@@ -3272,6 +3301,20 @@ def bls_kernel_phase(stats: dict, dev) -> dict:
         out[f"K{k}_n{n}"] = got
         log(f"slice (h1): K = {k} over {n} keys: both kernels equal their plain versions "
             f"word for word; codes {got} as expected")
+    rows = torch.from_numpy(bls_finalexp_rows(BLS_EDGE_RANDOM, seed=18)).to(dev)
+    label = f"f = 0, f = 1 and {BLS_EDGE_RANDOM} random rows"
+    res = hold(stats, "bls_finalexp", label, lambda: bls_verify.finalexp_plain(rows),
+               lambda: bls_verify.bls_finalexp(rows))
+    hold(stats, "bls_finalexp", label + " fused (f = 1 and the random rows)",
+         lambda: bls_verify.finalexp_plain(rows[1:], fused=True),
+         lambda: bls_verify.bls_finalexp(rows[1:], fused=True))
+    res = res.cpu().numpy()
+    check(not res[0].any() and bls_verify.residue_is_one(res[1])
+          and res[2:].any(axis=(1, 2, 3)).all(),
+          "(h1) the final exponentiation of 0 is not 0, or of 1 not 1")
+    out["edge_rows"] = len(rows)
+    log(f"slice (h1): bls_finalexp on {label}, by rows and fused, equals its plain version "
+        "word for word; 0 gives 0 and 1 gives 1")
     return out
 
 
@@ -3486,9 +3529,9 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
     vp rows), on the tampered window (so launch B meets a residue that is
     not 1): each held word for word to its plain version (bls_miller, launch
     B's rows, the fused bls_finalexp, whose plain time the record keeps),
-    then timed with CUDA events beside its bound: bls_miller over
-    KERNEL_REPS launches, the fused bls_finalexp and launch B's rows over
-    BLS_ROWS_REPS. Returns their kernel records."""
+    then timed with CUDA events beside its bound: bls_miller, the fused
+    bls_finalexp and launch B's rows, KERNEL_REPS launches each. Returns
+    their kernel records."""
     vset, window = data["vset"], data["windows"][-1]
     epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
     epoch_cache.note_valset(vset)
@@ -3519,7 +3562,7 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
         "bls_miller": (lambda: bls_verify.bls_miller(gx, gy, masks, coeffs),
                        (gx, gy, masks, coeffs, apk, f), "bls_miller", KERNEL_REPS),
         "bls_finalexp": (lambda: bls_verify.bls_finalexp(f, fused=True), (f, fused),
-                         "bls_finalexp_fused", BLS_ROWS_REPS),
+                         "bls_finalexp_fused", KERNEL_REPS),
     }
     records = []
     for name, (fn, tensors, kind, reps) in runs.items():
@@ -3542,7 +3585,7 @@ def bls_timing(data: dict, stats: dict, dev, sm_clock_hz: float) -> list:
             f"({products} Fp products the function needs, the kernel forms "
             f"{records[-1]['kernel_fp_products']}; {products * BLS_WIDE_PER_FP / 1e9:.4f} G "
             f"multiply-adds -> {ops_ms:.6f} ms; {io_bytes / 1e6:.3f} MB -> {bytes_ms:.6f} ms)")
-    rows_ms = event_ms(lambda: bls_verify.bls_finalexp(f), BLS_ROWS_REPS)
+    rows_ms = event_ms(lambda: bls_verify.bls_finalexp(f), KERNEL_REPS)
     rows_bound = bls_bound_products("bls_finalexp", *host) * BLS_WIDE_PER_FP / rate * 1e3
     records[-1].update(launch_b_ms=rows_ms, launch_b_bound_ms=rows_bound,
                        launch_b_plain_ms=rows_plain_ms)

@@ -22,13 +22,18 @@ ops/backend.py, types/validation.py).
   reference's halving tree): the projective apk and the raw f_j,
   compared cross-multiplied.
 - The kernels themselves: csrc/bls12381.cu compiled for the host with the
-  system C++ compiler against a stand-in of the CUDA runtime (WIDE_MAD in
-  plain C++, counted): the Montgomery product and its conversions, the
-  Fp12 product and square, the line, the RCB addition with the identity
-  on either side, a Miller chain of three steps and of 63, and the whole
-  final exponentiation kernel (rows and fused) against the plain
-  versions word for word, and their multiply-adds against
-  chip_smoke.bls_fp_products.
+  system C++ compiler against a stand-in of the CUDA runtime that runs
+  whole blocks (a host thread per CUDA thread, std::barrier for
+  __syncthreads and __syncwarp; WIDE_MAD in plain C++, counted on every
+  thread): the Montgomery product and its conversions, the inversion (0
+  to 0), a warp's Fp12 product, cyclotomic square and Frobenius maps, the
+  line, the RCB addition with the identity on either side, the block's
+  multi-Miller loop of three steps and of 63, and both whole kernels
+  (bls_miller at K = 4; bls_finalexp by rows and fused, on the battery's
+  f_j and on f = 0, f = 1 and random rows) against the plain versions
+  word for word, and their multiply-adds against
+  chip_smoke.bls_fp_products; the hard part's identity and the source's
+  constants in Python integers.
 - The slice: a committee as a ValidatorSet (crossed as protobuf) and its
   aggregated commits (crossed as AggregatedCommit bytes) through
   prepare_aggregated_commit, the dispatcher and conclude,
@@ -45,6 +50,7 @@ Tolerance: none; every compared value is an integer or a flag.
 import ctypes
 import os
 import random
+import re
 import shutil
 import subprocess
 import time
@@ -392,14 +398,22 @@ def test_pad_commits_verify_and_never_fail_a_batchmate(port_run):
 # -- the kernels on the CPU stand-in ------------------------------------------------------
 
 # The CUDA runtime as far as csrc/bls12381.cu uses it, for the host: the
-# qualifiers are empty or plain attributes, shared memory is static and a
-# barrier does nothing (only device functions and the one-thread final
-# exponentiation kernel run here), and mad.wide.u32 (WIDE_MAD) is plain
-# C++ and counted.
+# qualifiers are empty or plain attributes, shared memory is static (a
+# launch runs its blocks one after another), and a block's CUDA threads are
+# host threads: __syncthreads waits on a std::barrier of the block,
+# __syncwarp on one of the thread's warp, and a thread that ends drops out of
+# both. mad.wide.u32 (WIDE_MAD) is plain C++, counted on each thread and
+# summed as each ends.
 SHIM = r"""
 #pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __constant__
@@ -408,17 +422,45 @@ SHIM = r"""
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __shared__ static
-inline void __syncthreads() {}
-inline thread_local uint64_t emu_wide_mads = 0;
-#define WIDE_MAD(a, b, c) \
-  (++emu_wide_mads, (uint64_t)(uint32_t)(a) * (uint32_t)(b) + (uint64_t)(c))
-extern "C" uint64_t emu_wide_mad_count() { return emu_wide_mads; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline std::barrier<>* emu_block = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warps;
+inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warps[threadIdx.x / 32]->arrive_and_wait(); }
+inline thread_local uint64_t emu_wide_mads = 0;
+inline std::atomic<uint64_t> emu_wide_ended{0};
+#define WIDE_MAD(a, b, c) \
+  (++emu_wide_mads, (uint64_t)(uint32_t)(a) * (uint32_t)(b) + (uint64_t)(c))
+extern "C" uint64_t emu_wide_mad_count() { return emu_wide_ended + emu_wide_mads; }
+template <class F>
+void emu_launch(unsigned grid, unsigned block, F body) {
+  for (unsigned b = 0; b < grid; ++b) {
+    std::barrier<> bar(block);
+    emu_block = &bar;
+    emu_warps.clear();
+    for (unsigned w = 0; w < block; w += 32)
+      emu_warps.push_back(std::make_unique<std::barrier<>>(std::min(32u, block - w)));
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        blockDim = dim3(block);
+        body();
+        emu_wide_ended += emu_wide_mads;
+        emu_warps[t / 32]->arrive_and_drop();
+        bar.arrive_and_drop();
+      });
+    for (auto& th : threads) th.join();
+  }
+}
 """
 
 # Entries over the kernel source cut above its C interface (whose <<<>>>
-# launches are CUDA syntax); canonical words in and out.
+# launches are CUDA syntax); canonical words in and out. The team
+# operations run in a launched warp (emu_fp12) or block (emu_miller_loop),
+# the kernels whole (emu_miller, emu_finalexp).
 HARNESS = r"""
 #include "bls_body.cu"
 using namespace bls;
@@ -435,21 +477,43 @@ extern "C" void emu_to_mont(const int32_t* a, int32_t* out, int n) {
 extern "C" void emu_from_mont(const int32_t* a, int32_t* out, int n) {
   for (int i = 0; i < n; ++i) fp_store(out + i * NW, from_mont(fp_load(a + i * NW)));
 }
-extern "C" void emu_fp12(const int32_t* a, const int32_t* b, int32_t* out, int square) {
-  fp12 x, y, r;
-  fp12_load_mont(x, a);
-  fp12_load_mont(y, b);
-  if (square) fp12_sqr(r, x); else fp12_mul(r, x, y);
-  fp12_store_canon(out, r);
+extern "C" void emu_fp_inv(const int32_t* a, int32_t* out, int n) {
+  for (int i = 0; i < n; ++i) fp_store(out + i * NW, fp_inv(fp_load(a + i * NW)));
+}
+// op 0: a b, 1: a a, 2: the cyclotomic square of a, 3: a^p, 4: a^(p^2)
+static void f12_op_kernel(const int32_t* a, const int32_t* b, int32_t* out, int op) {
+  __shared__ fp12 x, y, r;
+  __shared__ fp prod[108];
+  const int t = threadIdx.x;
+  team_load<WARP>(x, a, t);
+  team_load<WARP>(y, b, t);
+  if (op == 0) team_mul<WARP, ALL, ALL>(r, x, y, prod, t);
+  if (op == 1) team_mul<WARP, ALL, ALL>(r, x, x, prod, t);
+  if (op == 2) {
+    team_copy<WARP>(r, x, t);
+    team_cyclo_sqr<WARP>(r, prod, t);
+  }
+  if (op == 3) team_frob1<WARP>(r, x, prod, t);
+  if (op == 4) team_frob2<WARP>(r, x, t);
+  for (int o = t; o < 12; o += WARP) fp_store(out + o * NW, from_mont(r.c[o]));
+}
+extern "C" void emu_fp12(const int32_t* a, const int32_t* b, int32_t* out, int op) {
+  emu_launch(1, WARP, [&] { f12_op_kernel(a, b, out, op); });
 }
 extern "C" void emu_line(const int32_t* lw, const int32_t* xyz, int32_t* out) {
   const pt p = load_pt(xyz);
-  fp2 l[3];
-  line_eval(l, lw, fp_mul_call(p.x, fp_const(R2_W)), p.y, fp_mul_call(p.z, fp_const(R2_W)));
-  for (int s = 0; s < 3; ++s) {
-    fp_store(out + (2 * s) * NW, from_mont(l[s].c0));
-    fp_store(out + (2 * s + 1) * NW, from_mont(l[s].c1));
+  const fp xw = fp_mul(p.x, fp_const(R2_W)), zw = fp_mul(p.z, fp_const(R2_W));
+  const int32_t* const co[2] = {lw, lw};
+  fp12 line[1];
+  for (int q = 0; q < 4; ++q) {
+    fp x, y;
+    line_operands(x, y, co, 0, &xw, &zw, q);
+    line_store(line, q, fp_mul(x, y));
   }
+  fp_store(out, from_mont(p.y));
+  fp_store(out + NW, from_mont(p.y));
+  for (int i = 0; i < 4; ++i)
+    fp_store(out + (2 + i) * NW, from_mont(line[0].c[i < 2 ? 6 + i : 8 + i]));
 }
 extern "C" void emu_point_add(const int32_t* p, const int32_t* q, int32_t* out) {
   const pt r = point_add(load_pt(p), load_pt(q));
@@ -457,18 +521,31 @@ extern "C" void emu_point_add(const int32_t* p, const int32_t* q, int32_t* out) 
   fp_store(out + NW, from_mont(r.y));
   fp_store(out + 2 * NW, from_mont(r.z));
 }
-extern "C" void emu_miller_chain(const int32_t* co, const int32_t* xyz, int steps, int32_t* out) {
-  const pt p = load_pt(xyz);
-  fp12 f;
-  miller_chain(f, co, p.x, p.y, p.z, steps);
-  fp12_store_canon(out, f);
+static void miller_loop_kernel(const int32_t* co, const int32_t* xyz, int steps, int32_t* out) {
+  __shared__ fp12 f;
+  __shared__ fp xw[2], y[2], zw[2];
+  __shared__ miller_smem s;
+  const int t = threadIdx.x;
+  if (t < 2) {
+    const pt p = load_pt(xyz + t * 3 * NW);
+    xw[t] = fp_mul(p.x, fp_const(R2_W));
+    y[t] = p.y;
+    zw[t] = fp_mul(p.z, fp_const(R2_W));
+  }
+  __syncthreads();
+  const int32_t* const c[2] = {co, co + PAIR_WORDS};
+  miller_loop<THREADS>(f, c, xw, y, zw, steps, s, t);
+  if (t < 12) fp_store(out + t * NW, from_mont((t & 2) ? fp_neg(f.c[t]) : f.c[t]));
+}
+extern "C" void emu_miller_loop(const int32_t* co, const int32_t* xyz, int steps, int32_t* out) {
+  emu_launch(1, THREADS, [&] { miller_loop_kernel(co, xyz, steps, out); });
+}
+extern "C" void emu_miller(const int32_t* gx, const int32_t* gy, const bool* masks,
+                           const int32_t* coeffs, int32_t* apk, int32_t* f, int k, int vp) {
+  emu_launch(k, THREADS, [&] { bls_miller_kernel(gx, gy, masks, coeffs, apk, f, k, vp); });
 }
 extern "C" void emu_finalexp(const int32_t* f, int32_t* out, int rows, int fused) {
-  threadIdx = dim3(0);
-  for (int b = 0; b < (fused ? 1 : rows); ++b) {
-    blockIdx = dim3(b);
-    bls_finalexp_kernel(f, out, rows, fused);
-  }
+  emu_launch(fused ? 1 : rows, WARP, [&] { bls_finalexp_kernel(f, out, rows, fused); });
 }
 """
 
@@ -483,7 +560,7 @@ def emu(tmp_path_factory):
     body = (kernels.CSRC / "bls12381.cu").read_text().split("// ---- C interface")[0]
     (d / "bls_body.cu").write_text(body)
     (d / "harness.cpp").write_text(HARNESS)
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}",
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w", f"-I{d}",
                     "-o", str(d / "libbls_emu.so"), str(d / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "libbls_emu.so"))
@@ -517,8 +594,28 @@ def test_stand_in_montgomery_product_and_conversions(emu):
     assert fe.ints_from_words(out) == [x * rinv % P for x in a]
 
 
+def test_stand_in_inversion_maps_zero_to_zero(emu):
+    """fp_inv (the binary extended Euclidean algorithm, then a product by
+    R^3): for the Montgomery word a = A R it gives A^-1 R, which as a word
+    is a^-1 R^2 mod p; and 0 for 0, which the final exponentiation of f = 0
+    relies on. Powers of 2 and their neighbours make long runs of
+    halvings."""
+    rng = random.Random(12)
+    a = [0, 1, 2, P - 1, P - 2, (P + 1) // 2, 1 << 380, (1 << 380) - 1, 3]
+    a += [rng.randrange(1, P) for _ in range(40)]
+    wa = fe.words_from_ints(a)
+    out = np.zeros_like(wa)
+    n = _mads(emu, emu.emu_fp_inv, _ptr(wa), _ptr(out), len(a))
+    r2 = pow(2, 768, P)
+    assert fe.ints_from_words(out) == [pow(x, P - 2, P) * r2 % P for x in a]
+    assert fe.ints_from_words(out)[0] == 0
+    assert n == len(a) * chip_smoke.BLS_FP_INV * chip_smoke.BLS_WIDE_PER_FP
+
+
 @pytest.mark.parametrize("square", [0, 1])
 def test_stand_in_fp12_product_equals_plain(emu, square):
+    """A warp's Fp12 product (36 Karatsuba Fp2 products over its lanes; the
+    Miller loop's f^2 is this product of f by itself)."""
     rng = random.Random(11 + square)
     a, b = _r12(rng), _r12(rng)
     wa, wb = fe.to_words(_t12(a)).numpy(), fe.to_words(_t12(b)).numpy()
@@ -527,7 +624,49 @@ def test_stand_in_fp12_product_equals_plain(emu, square):
     want = bv.f12_mul(_t12(a), _t12(a) if square else _t12(b))
     np.testing.assert_array_equal(out, fe.to_words(want).numpy())
     # 24 conversions in, 12 out, and the product's own
-    assert n == (24 + 12 + (57 if square else 108)) * chip_smoke.BLS_WIDE_PER_FP
+    assert n == (24 + 12 + chip_smoke.BLS_F12_PRODUCT) * chip_smoke.BLS_WIDE_PER_FP
+
+
+def _cyclotomic(rng):
+    """A random element of the cyclotomic subgroup: f^((p^6 - 1)(p^2 + 1))
+    by the oracle's square-and-multiply."""
+    f, acc = _r12(rng), bls.FP12_ONE
+    for bit in bin((P**6 - 1) * (P**2 + 1))[2:]:
+        acc = bls.fp12_mul(acc, acc)
+        if bit == "1":
+            acc = bls.fp12_mul(acc, f)
+    return acc
+
+
+def _oracle_pow(a, e):
+    acc = bls.FP12_ONE
+    for bit in bin(e)[2:]:
+        acc = bls.fp12_mul(acc, acc)
+        if bit == "1":
+            acc = bls.fp12_mul(acc, a)
+    return acc
+
+
+@pytest.mark.parametrize("op", ["cyclotomic_square", "frobenius_p", "frobenius_p2"])
+def test_stand_in_cyclotomic_square_and_frobenius_equal_the_oracle(emu, op):
+    """Granger-Scott's square on an element of the cyclotomic subgroup
+    equals the plain square; the p and p^2 Frobenius maps (slot i times
+    XI^(i (p - 1)/6), XI^(i (p^2 - 1)/6)) equal a^p and a^(p^2) on any
+    element."""
+    rng = random.Random(13)
+    a = _cyclotomic(rng) if op == "cyclotomic_square" else _r12(rng)
+    wa = fe.to_words(_t12(a)).numpy()
+    out = np.zeros_like(wa)
+    code, products, want = {
+        "cyclotomic_square": (2, chip_smoke.BLS_CYCLO_PRODUCTS,
+                              fe.to_words(bv.f12_mul(_t12(a), _t12(a))).numpy()),
+        "frobenius_p": (3, chip_smoke.BLS_FROB[0], fe.to_words(_t12(_oracle_pow(a, P))).numpy()),
+        "frobenius_p2": (4, chip_smoke.BLS_FROB[1],
+                         fe.to_words(_t12(_oracle_pow(a, P * P))).numpy()),
+    }[op]
+    n = _mads(emu, emu.emu_fp12, _ptr(wa), _ptr(wa), _ptr(out), code)
+    np.testing.assert_array_equal(out, want)
+    assert n == (24 + 12 + products) * chip_smoke.BLS_WIDE_PER_FP
 
 
 def test_stand_in_line_and_point_add_equal_plain(emu):
@@ -558,30 +697,51 @@ def test_stand_in_line_and_point_add_equal_plain(emu):
 
 @pytest.mark.parametrize("steps", [3, 63])
 def test_stand_in_miller_chain_equals_plain(emu, steps):
-    coeffs = np.ascontiguousarray(bv._coeff_rows(bls.g2_mul(4242, bls.G2_GEN)))
-    pt = fe.words_from_ints(_proj(bls.g1_mul(9, bls.G1_GEN), 31337))
+    """The block's multi-Miller loop over two pairs (each G2 point's lines
+    at its projective G1 point), `steps` steps, conjugated: conj(f_0 f_1)
+    of the plain loops."""
+    coeffs = np.ascontiguousarray(np.stack([bv._coeff_rows(bls.g2_mul(s, bls.G2_GEN))
+                                            for s in (4242, 99)]))
+    pts = np.ascontiguousarray(np.stack([
+        fe.words_from_ints(_proj(bls.g1_mul(9, bls.G1_GEN), 31337)),
+        fe.words_from_ints(_proj(bls.g1_mul(5, bls.G1_GEN), 17))]))
     out = np.zeros((6, 2, fe.NWORDS), dtype=np.int32)
-    n = _mads(emu, emu.emu_miller_chain, _ptr(coeffs), _ptr(pt), steps, _ptr(out))
-    xyz = fe.from_words(torch.from_numpy(pt))
+    n = _mads(emu, emu.emu_miller_loop, _ptr(coeffs), _ptr(pts), steps, _ptr(out))
+    cl = fe.from_words(torch.from_numpy(coeffs))
+    xyz = fe.from_words(torch.from_numpy(pts)).unbind(1)  # X, Y, Z each (2, 36)
     if steps == bv.N_ATE:
-        want = bv.miller(fe.from_words(torch.from_numpy(coeffs)), *xyz)
-    else:  # the plain loop cut to `steps` steps
-        cl = fe.from_words(torch.from_numpy(coeffs))
-        f = bv.f12_one((), CPU)
+        fp = bv.miller(cl, *xyz)
+        want = bv.f12_mul(fp[0], fp[1])
+    else:  # the plain loops cut to `steps` steps
+        f = bv.f12_one((2,), CPU)
         for s in range(steps):
             f = bv.f12_mul(f, f)
             for d in range(2):
-                f = bv.f12_mul_sparse(f, bv._line_slots(cl[s, d, 0], cl[s, d, 1], *xyz))
-        want = bv.f12_conj(f)
+                f = bv.f12_mul_sparse(f, bv._line_slots(cl[:, s, d, 0], cl[:, s, d, 1], *xyz))
+        want = bv.f12_conj(bv.f12_mul(f[0], f[1]))
     np.testing.assert_array_equal(out, fe.to_words(want).numpy())
-    # 3 conversions and 12 outputs here; the chain's X R^2, Z R^2 and steps
-    assert n == (15 + 2 + steps * chip_smoke.BLS_STEP_PRODUCTS) * chip_smoke.BLS_WIDE_PER_FP
+    # 6 conversions and 4 products for the points, 12 outputs; the steps
+    assert n == (10 + 12 + steps * chip_smoke.BLS_STEP_PRODUCTS) * chip_smoke.BLS_WIDE_PER_FP
+
+
+def test_stand_in_miller_kernel_equals_plain(emu, port_run):
+    """The whole bls_miller_kernel, K = 4 blocks of THREADS host threads:
+    the apk sum and f_j of chunk 0 word for word against verify_plain (port_run)."""
+    args, apk_want, f_want = port_run[0][:3]
+    gx, gy, masks, coeffs = (np.ascontiguousarray(a.numpy()) for a in args)
+    k, vp = masks.shape
+    apk = np.zeros((k, 3, fe.NWORDS), dtype=np.int32)
+    f = np.zeros((k, 6, 2, fe.NWORDS), dtype=np.int32)
+    n = _mads(emu, emu.emu_miller, _ptr(gx), _ptr(gy), _ptr(masks), _ptr(coeffs), _ptr(apk),
+              _ptr(f), k, vp)
+    np.testing.assert_array_equal(apk, apk_want)
+    np.testing.assert_array_equal(f, f_want)
+    assert n == chip_smoke.bls_fp_products("bls_miller", k, vp) * chip_smoke.BLS_WIDE_PER_FP
 
 
 def test_stand_in_final_exponentiation_kernel_equals_plain(emu, port_run):
-    """The whole bls_finalexp_kernel (one thread a row needs no barrier),
-    rows and fused, over chunk 0's f_j, against the plain versions'
-    residues of port_run."""
+    """The whole bls_finalexp_kernel (a warp a row), rows and fused, over
+    chunk 0's f_j, against the plain versions' residues of port_run."""
     _, _, f, fused, res, _, _ = port_run[0]
     f = np.ascontiguousarray(f)
     out = np.zeros((K, 6, 2, fe.NWORDS), dtype=np.int32)
@@ -595,10 +755,71 @@ def test_stand_in_final_exponentiation_kernel_equals_plain(emu, port_run):
                  * chip_smoke.BLS_WIDE_PER_FP)
 
 
+def test_stand_in_final_exponentiation_of_zero_one_and_random_rows(emu):
+    """f = 0 (the inversion maps 0 to 0, so the chain gives 0, as square and
+    multiply does), f = 1 and seeded random nonzero rows, by rows and fused
+    (the random rows and 1), word for word against finalexp_plain."""
+    rows = chip_smoke.bls_finalexp_rows(2, seed=14)
+    assert not rows[0].any() and bv.residue_is_one(rows[1])
+    out = np.zeros_like(rows)
+    emu.emu_finalexp(_ptr(rows), _ptr(out), len(rows), 0)
+    want = bv.finalexp_plain(torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(out, want)
+    assert not out[0].any() and bv.residue_is_one(out[1]) and out[2:].any(axis=(1, 2, 3)).all()
+    tail = np.ascontiguousarray(rows[1:])
+    one = np.zeros((1, 6, 2, fe.NWORDS), dtype=np.int32)
+    emu.emu_finalexp(_ptr(tail), _ptr(one), len(tail), 1)
+    np.testing.assert_array_equal(one, bv.finalexp_plain(torch.from_numpy(tail), fused=True))
+
+
+def test_the_hard_part_chain_is_exact():
+    """The integers behind bls_finalexp's hard part: (p^4 - p^2 + 1) / r =
+    ((x - 1)^2 / 3)(x + p)(x^2 + p^2 - 1) + 1 for x = -|x|, the source's
+    E3 = (1 - x) / 3 and X_ABS, its chain's exponent a^(E3 (1 - x)),
+    and its Frobenius constants XI^(i (p^k - 1)/6) R mod p."""
+    x = -bls.X_ABS
+    hard = (P**4 - P**2 + 1) // bls.R
+    assert (P**4 - P**2 + 1) % bls.R == 0 and (1 - x) % 3 == 0
+    assert hard == ((x - 1) ** 2 // 3) * (x + P) * (x**2 + P**2 - 1) + 1
+    src = (kernels.CSRC / "bls12381.cu").read_text()
+    e3 = int(re.search(r"E3 = (0x[0-9a-f]+)ull", src).group(1), 16)
+    assert e3 == (1 - x) // 3 and e3 * (1 - x) == (x - 1) ** 2 // 3
+    assert int(re.search(r"X_ABS = (0x[0-9a-f]+)ull", src).group(1), 16) == bls.X_ABS
+    # the easy part and the hard part give (p^12 - 1) / r
+    assert (P**6 - 1) * (P**2 + 1) * hard == bls.FINAL_EXP
+
+    def table(name):
+        body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S).group(1)
+        w = [int(v, 16) for v in re.findall(r"0x[0-9a-f]+|\b0\b", body)]
+        return [sum(v << (32 * i) for i, v in enumerate(w[c : c + 12]))
+                for c in range(0, len(w), 12)]
+
+    r = 1 << 384
+    xi = (1, 1)
+
+    def f2_pow(a, e):
+        acc = (1, 0)
+        for bit in bin(e)[2:]:
+            acc = bls.f2_mul(acc, acc)
+            if bit == "1":
+                acc = bls.f2_mul(acc, a)
+        return acc
+
+    frob1 = table("FROB1_W")
+    assert [tuple(frob1[2 * i : 2 * i + 2]) for i in range(5)] == [
+        tuple(c * r % P for c in f2_pow(xi, i * (P - 1) // 6)) for i in range(1, 6)]
+    g2 = [f2_pow(xi, i * (P * P - 1) // 6) for i in range(1, 6)]
+    assert all(g[1] == 0 for g in g2)
+    assert table("FROB2_W") == [g[0] * r % P for g in g2]
+
+
 def test_miller_count_matches_the_source(committee):
-    # the header's count of a commit, from the parts the stand-in counts
-    assert chip_smoke.bls_fp_products("bls_miller", 1, 10) == 14 * 10 + 23_451
-    assert chip_smoke.BLS_FINALEXP_PRODUCTS == 475_314
+    # the header's counts of a commit and of a row, from the parts the stand-in counts
+    assert chip_smoke.BLS_STEP_PRODUCTS == 358
+    assert chip_smoke.bls_fp_products("bls_miller", 1, 10) == 14 * 10 + 24_099
+    assert chip_smoke.BLS_FP_INV == 1
+    assert chip_smoke.BLS_FINALEXP_PRODUCTS == 11_748
+    assert chip_smoke.bls_fp_products("bls_finalexp_fused", 4, 0) == 11_748 + 3 * 120
 
 
 # -- keys, wire types, blocks ------------------------------------------------------------

@@ -619,6 +619,22 @@ def test_bls_kernels_match_plain(cuda, k, n, rows):
     assert got == want
 
 
+def test_bls_finalexp_edge_rows_match_plain(cuda):
+    """bls_finalexp by rows and fused on f = 0 (the norm's inversion maps 0
+    to 0, so the residue is 0), f = 1 and seeded random rows, word for word
+    against finalexp_plain."""
+    import chip_smoke
+    from tendermint_tpu_torch.ops import bls_verify as bv
+
+    rows = torch.from_numpy(chip_smoke.bls_finalexp_rows(6, seed=7)).to(cuda)
+    res = bv.bls_finalexp(rows)
+    fused = bv.bls_finalexp(rows[1:], fused=True)
+    torch.cuda.synchronize()
+    assert torch.equal(res, bv.finalexp_plain(rows))
+    assert torch.equal(fused, bv.finalexp_plain(rows[1:], fused=True))
+    assert not res[0].any() and bv.residue_is_one(res[1].cpu().numpy())
+
+
 # -- the op-graph path: sha512_challenge, og_verify, og_verify_cached ----------------
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's eleven kernels on one CUDA card, for comparing two
-checkouts (or two builds of one) on one machine.
+"""Time the port's ed25519, sr25519 and BLS12-381 kernels on one CUDA
+card, for comparing two checkouts (or two builds of one) on one machine.
 
-    python tools/torch_ladder_ab.py [--root DIR] [--sweep]
+    python tools/torch_ladder_ab.py [--root DIR] [--sweep] [--only NAMES]
 
 imports tendermint_tpu_torch from DIR (default: this checkout), builds
 its kernel library with nvcc, and prints one JSON line with:
@@ -16,10 +16,14 @@ its kernel library with nvcc, and prints one JSON line with:
 - the CUDA-event time of every kernel at the 10,000-validator commit's
   shapes: k1_rlc, k1_rlc_cached, k2_rlc and k3_rlc at 2,560 lanes, the
   per-signature and sr25519 kernels at 10,240 signatures, epoch_coords
-  at 16,384 table rows; median of --rounds rounds of --reps launches;
+  at 16,384 table rows; bls_miller at the BLS12-381 window's shape (16
+  commits over a table of 256 rows) and bls_finalexp over its 16 Miller
+  values, fused (launch A) and as 16 rows (launch B, `bls_finalexp_rows`);
+  median of --rounds rounds of --reps launches;
 - whether k1_rlc, k1_rlc_cached, epoch_coords, k1_decompress,
-  k1_decompress_cached, k2_table and k1r_decode equal their plain
-  versions on these inputs, every raw limb (`equal`):
+  k1_decompress_cached, k2_table, k1r_decode, bls_miller and both forms
+  of bls_finalexp equal their plain versions on these inputs, every raw
+  limb or word (`equal`):
   a variant timed from a copy is built and run by nothing else in the
   call, so this says whether a faster variant is also a right one;
 - with --sweep, the same times of k3_rlc, k2_rlc, k1_rlc and
@@ -29,11 +33,13 @@ its kernel library with nvcc, and prints one JSON line with:
   with the batch says the card is full, a flat one that the warps' own
   latency bounds it.
 
-The inputs are seeded random limbs, digits and bytes in range, not
-signatures: a ladder's or a table build's work does not depend on the
-data, only a ladder's table reads do, and the verdicts are not read; a
-decompression of random bytes runs the same chain whether or not they
-encode a point. To compare a parent with a change, run parent, change,
+The inputs are seeded random limbs, digits, bytes and field elements in
+range, not signatures: a ladder's or a table build's work does not depend
+on the data, only a ladder's table reads do, and the verdicts are not
+read; a decompression of random bytes runs the same chain whether or not
+they encode a point; the BLS kernels' work is the same on any elements.
+--only (a comma-separated list of the names above) times and checks
+those alone. To compare a parent with a change, run parent, change,
 change, parent on one machine; to compare block sizes or other
 variants, edit the kernels' constants or code in copies and pass each
 with --root.
@@ -42,8 +48,10 @@ with --root.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
+import random
 import re
 import shutil
 import statistics
@@ -56,8 +64,10 @@ SIGS = 10240
 TABLE_ROWS = 16384
 SWEEP_LANES = (640, 1280, 2560, 5120, 10240)
 SWEEP_SIGS = (2560, 5120, 10240, 20480, 40960)
+BLS_K, BLS_VP = 16, 256
 TIMED = ("k1_rlc", "k1_rlc_cached", "k2_rlc", "k3_rlc", "epoch_coords", "k1_decompress",
-         "k1_decompress_cached", "k2_table", "k3_ladder", "k1r_decode", "k3r_ladder")
+         "k1_decompress_cached", "k2_table", "k3_ladder", "k1r_decode", "k3r_ladder",
+         "bls_miller", "bls_finalexp")
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -68,7 +78,7 @@ def _sass(lib: Path) -> dict:
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
     out, name = {}, None
     for line in text.splitlines():
-        m = re.match(r"\s*Function : _ZN3edw\d+(\w+?)_kernelE", line)
+        m = re.match(r"\s*Function : _ZN(?:3edw|3bls)\d+(\w+?)_kernelE", line)
         if m or "Function :" in line:
             name = m.group(1) if m and m.group(1) in TIMED else None
             continue
@@ -88,11 +98,13 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--only", default="", help="comma-separated kernel names")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
-    from tendermint_tpu_torch.ops import epoch_cache, kernels, rlc, verify
+    from tendermint_tpu_torch.ops import bls_verify, epoch_cache, kernels, rlc, verify
+    from tendermint_tpu_torch.ops import fe_bls
     from tendermint_tpu_torch.ops import sr25519 as osr
 
     if not torch.cuda.is_available():
@@ -152,6 +164,24 @@ def main() -> int:
     warm_in = (ctbl, oktbl, sig_idx, rows(SIGS), rows(SIGS), rows(SIGS))
     sr_in = [octets(SIGS) for _ in range(4)] + [ones(1, SIGS), ones(1, SIGS)]
     warm_lanes = (ctbl, oktbl, lane_idx, lane_r, lane_scal)
+    rng = random.Random(5)
+
+    def field(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        w = fe_bls.words_from_ints([rng.randrange(bls_verify.P) for _ in range(n)])
+        return torch.from_numpy(w.reshape(*shape, bls_verify.NW)).to(dev)
+
+    masks = torch.ones((BLS_K, BLS_VP), dtype=torch.bool, device=dev)
+    masks[:, -1] = False  # the padding row
+    bls_in = (field(BLS_VP), field(BLS_VP), masks,
+              field(BLS_K, 2, bls_verify.N_ATE, 2, 2, 2))
+
+    @functools.cache
+    def bls_want():  # the plain Miller values, whose f the final exponentiations take
+        return bls_verify.verify_plain(*bls_in)
+
     runs = {
         "k1_rlc": lambda: rlc.k1_rlc(lane_a, lane_rt, scal),
         "k1_rlc_cached": lambda: rlc.k1_rlc_cached(*warm_lanes),
@@ -164,22 +194,31 @@ def main() -> int:
         "k3_ladder": lambda: verify.k3_ladder(*v_in),
         "k1r_decode": lambda: osr.k1r_decode(*sr_in),
         "k3r_ladder": lambda: osr.k3r_ladder(*v_in),
+        "bls_miller": lambda: bls_verify.bls_miller(*bls_in),
+        "bls_finalexp": lambda: bls_verify.bls_finalexp(bls_want()[1], fused=True),
+        "bls_finalexp_rows": lambda: bls_verify.bls_finalexp(bls_want()[1]),
     }
 
     def same(got, want) -> bool:
         got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
         return all(torch.equal(g, w) for g, w in zip(got, want))
 
-    equal = {
-        "k1_rlc": same(runs["k1_rlc"](), rlc.k1_rlc_plain(lane_a, lane_rt, scal)),
-        "k1_decompress": same(runs["k1_decompress"](), verify.k1_decompress_plain(*k1_in)),
-        "k2_table": same(runs["k2_table"](), verify.k2_table_plain(v_in[3])),
-        "k1_decompress_cached": same(runs["k1_decompress_cached"](),
-                                     verify.k1_decompress_cached_plain(*warm_in)),
-        "k1_rlc_cached": same(runs["k1_rlc_cached"](), rlc.k1_rlc_cached_plain(*warm_lanes)),
-        "epoch_coords": same(runs["epoch_coords"](), epoch_cache.epoch_coords_plain(pub_t)),
-        "k1r_decode": same(runs["k1r_decode"](), osr.k1r_decode_plain(*sr_in)),
+    plain = {
+        "k1_rlc": lambda: rlc.k1_rlc_plain(lane_a, lane_rt, scal),
+        "k1_decompress": lambda: verify.k1_decompress_plain(*k1_in),
+        "k2_table": lambda: verify.k2_table_plain(v_in[3]),
+        "k1_decompress_cached": lambda: verify.k1_decompress_cached_plain(*warm_in),
+        "k1_rlc_cached": lambda: rlc.k1_rlc_cached_plain(*warm_lanes),
+        "epoch_coords": lambda: epoch_cache.epoch_coords_plain(pub_t),
+        "k1r_decode": lambda: osr.k1r_decode_plain(*sr_in),
+        "bls_miller": bls_want,
+        "bls_finalexp": lambda: bls_verify.finalexp_plain(bls_want()[1], fused=True),
+        "bls_finalexp_rows": lambda: bls_verify.finalexp_plain(bls_want()[1]),
     }
+    if args.only:
+        only = args.only.split(",")
+        runs = {k: v for k, v in runs.items() if k in only}
+    equal = {k: same(runs[k](), fn()) for k, fn in plain.items() if k in runs}
 
     def event_ms(fn):
         fn()
