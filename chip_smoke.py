@@ -242,7 +242,8 @@ one of slice (h)'s, one of slice (j)'s, one JSON line of kernel records
 slices (a)-(d) and of config #5's first run in (f3); the secp256k1
 kernels' of the cold and warm calls of (g1) and the first config #4
 call of (g2); the BLS kernels' of (h2)'s five windows; the op-graph
-kernels' of the valid calls of (i)), then the
+kernels' of the valid calls of (i), of (j2)'s shards and of (j3)'s
+op-graph superbatches, each split by slice in `launches_by_slice`), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -423,15 +424,19 @@ RAM_PATHS = ("opgraph_cold", "opgraph_warm")
 
 # Bound model of one H100 (SXM, 700 W): 132 SMs, each 64 INT32 lanes a
 # clock at the SM clock nvidia-smi reports as its maximum, and HBM3 at
-# 3.35 TB/s. The work is the 32-bit multiply-adds of the limb
-# convolutions: 400 for a field multiply, 210 for a squaring.
+# 3.35 TB/s. The work is the field products of the plain versions, each
+# priced at the cheaper of its two formulations (product_slots): on the
+# 13-bit limbs the 32-bit multiply-adds of the limb convolutions, 400 for
+# a field multiply and 210 for a squaring; on the wide field (WIDE_MUL,
+# WIDE_SQ) 248.4 and 138.2 multiply-add slots.
 SMS = 132
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 PRODUCTS_MUL = 400
 PRODUCTS_SQ = 210
-# multiply-adds per unit of work (an RLC lane, a table row, a signature),
-# as the headers of csrc/rlc.cu, csrc/verify.cu and csrc/sr25519.cu state them
+# 13-bit multiply-adds per unit of work (an RLC lane, a table row, a
+# signature) of the plain versions' formulas, as the headers of csrc/rlc.cu,
+# csrc/verify.cu, csrc/sr25519.cu and csrc/ed25519_verify.cu state them
 PRODUCTS_PER_UNIT = {
     "k1_rlc": 492_400, "k1_rlc_cached": 246_200, "k2_rlc": 203_520,
     "k3_rlc": 1_956_000, "epoch_coords": 61_550,
@@ -449,7 +454,8 @@ PRODUCTS_PER_UNIT = {
 # (a squaring) or 1..9 (a multiply) and 19 times the top carry's high
 # word. On the 13-bit functions a point forms one squaring (y^2) and three
 # multiplies (d y^2, r sqrt(-1), counted in every point as the plain
-# version forms it, x y). A 32 x 32 -> 64 product takes
+# version forms it, x y), which the bound prices at product_slots as it
+# does every other kernel's. A 32 x 32 -> 64 product takes
 # INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK of the SM's 32-bit multiply-add
 # slots a clock.
 WIDE_AROUND_CHAIN = (3, 6)  # squarings, multiplies
@@ -529,11 +535,16 @@ BLS_LINE_EVAL = (4, 2)  # at the apk, at -g1
 BLS_EASY_PART = 97 + 2 * 54 + 10
 BLS_HARD_PART = 5 * (63 * 18 + 5 * 54) + 2 * 18 + 10 * 54 + 15 + 10 + 15
 BLS_FINALEXP_BOUND = BLS_EASY_PART + BLS_HARD_PART
-# og_verify and og_verify_cached decompress 2 and 1 points: their bound
-# counts those on the wide field, as k1_decompress's does, and the rest
-# (table, ladder, final test) from the 13-bit formulas. One point's
-# decompression on the 13-bit formulas is epoch_coords' count.
-OG_POINTS_PER_UNIT = {"og_verify": 2, "og_verify_cached": 1}
+# The op-graph kernels' own products (csrc/ed25519_verify.cu's header):
+# a quad a signature, each thread forming one product of every round, and
+# every thread one decompression (threads 2 and 3 of og_verify's quad repeat
+# threads 0 and 1's, og_verify_cached's four threads all decompress R).
+# Per thread: these quad operations, a double a squaring and a multiply, a
+# Niels add two multiplies, an add three (its to-Niels one), a to-Niels
+# one; a decompression pow22523's chain and OG_AROUND_CHAIN around it, all
+# on the wide field.
+OG_QUAD_OPS = {"double": 259, "add_niels": 127, "add": 12, "to_niels": 16}
+OG_AROUND_CHAIN = (4, 9)  # squarings (y^2, v^2, (v^3)^2, r^2), multiplies
 # sha512_challenge's bound counts what SHA-512 mod L needs, not what
 # csrc/sha512.cu does (as the BLS bounds do), in 32-bit operations at
 # INT32_LANES_PER_SM a clock an SM, a 64-bit word in two halves, a
@@ -2636,23 +2647,52 @@ def _count_mul_sq(fn) -> tuple:
     return counts["mul"], counts["sq"]
 
 
+def product_slots() -> tuple:
+    """(a field multiply, a squaring) in 32-bit multiply-add slots, each at
+    the cheaper of its formulations: PRODUCTS_MUL / PRODUCTS_SQ on the
+    13-bit limbs, or WIDE_MUL / WIDE_SQ's 32 x 32 -> 64 products at
+    INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK slots each and their 32-bit
+    multiplies."""
+    wide = INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
+    return (min(PRODUCTS_MUL, wide * WIDE_MUL[0] + WIDE_MUL[1]),
+            min(PRODUCTS_SQ, wide * WIDE_SQ[0] + WIDE_SQ[1]))
+
+
 def wide_multiplies() -> dict:
     """Multiplies a point of decompress_wide: 32 x 32 -> 64 products
-    (`wide`), 32-bit multiplies (`int32`) and the 32-bit multiply-add
-    slots they take (`slots`, INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK a wide
-    product). The chain's
-    squarings and multiplies are counted by running fe.pow22523 (the same
-    chain) on one column; the rest is as WIDE_* state. The counts must
-    equal the ones stated in the sources' headers (WIDE_PER_POINT)."""
+    (`wide`), 32-bit multiplies (`int32`, with the multiply-adds of its
+    13-bit products) and the 32-bit multiply-add slots the bound counts
+    (`slots`, INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK a wide product, its
+    13-bit products at product_slots). The chain's squarings and
+    multiplies are counted by running fe.pow22523 (the same chain) on one
+    column; the rest is as WIDE_* state. The counts must equal the ones
+    stated in the sources' headers (WIDE_PER_POINT)."""
     n_mul, n_sq = _count_mul_sq(lambda: fe.pow22523(fe.from_ints([2])))
     n_sq += WIDE_AROUND_CHAIN[0]
     n_mul += WIDE_AROUND_CHAIN[1]
     wide = n_sq * WIDE_SQ[0] + n_mul * WIDE_MUL[0]
-    int32 = (n_sq * WIDE_SQ[1] + n_mul * WIDE_MUL[1]
-             + WIDE_13BIT[0] * PRODUCTS_SQ + WIDE_13BIT[1] * PRODUCTS_MUL)
-    check((wide, int32) == WIDE_PER_POINT,
-          f"decompress_wide's multiplies a point {(wide, int32)}, the sources state "
-          f"{WIDE_PER_POINT}")
+    int32 = n_sq * WIDE_SQ[1] + n_mul * WIDE_MUL[1]
+    adds13 = WIDE_13BIT[0] * PRODUCTS_SQ + WIDE_13BIT[1] * PRODUCTS_MUL
+    check((wide, int32 + adds13) == WIDE_PER_POINT, f"decompress_wide's multiplies a point "
+          f"{(wide, int32 + adds13)}, the sources state {WIDE_PER_POINT}")
+    mul_slots, sq_slots = product_slots()
+    return {"squarings": n_sq, "multiplies": n_mul, "wide": wide, "int32": int32 + adds13,
+            "slots": (INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK * wide + int32
+                      + WIDE_13BIT[0] * sq_slots + WIDE_13BIT[1] * mul_slots)}
+
+
+def og_kernel_products() -> dict:
+    """The products one signature of og_verify (or og_verify_cached) forms
+    in the kernel, a quad of threads (OG_QUAD_OPS, OG_AROUND_CHAIN):
+    squarings and multiplies a thread, 32 x 32 -> 64 products (`wide`) and
+    32-bit multiplies (`int32`) a signature, and their multiply-add slots.
+    pow22523's chain is counted by running fe.pow22523 on one column."""
+    n_mul, n_sq = _count_mul_sq(lambda: fe.pow22523(fe.from_ints([2])))
+    n_sq += OG_AROUND_CHAIN[0] + OG_QUAD_OPS["double"]
+    n_mul += (OG_AROUND_CHAIN[1] + OG_QUAD_OPS["double"] + 2 * OG_QUAD_OPS["add_niels"]
+              + 3 * OG_QUAD_OPS["add"] + OG_QUAD_OPS["to_niels"])
+    wide = 4 * (n_sq * WIDE_SQ[0] + n_mul * WIDE_MUL[0])
+    int32 = 4 * (n_sq * WIDE_SQ[1] + n_mul * WIDE_MUL[1])
     return {"squarings": n_sq, "multiplies": n_mul, "wide": wide, "int32": int32,
             "slots": INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK * wide + int32}
 
@@ -2682,19 +2722,17 @@ def sha_fold_mod_l(x: int) -> tuple:
 
 
 def count_products(units: dict) -> dict:
-    """Multiply-adds per unit of each kernel, counted by running the plain
-    versions on one unit (a lane, a table row, a signature) on the CPU
-    with fe.mul and fe.sq counted per column (the kernels run the same
-    formulas; a squaring is counted at the kernel's 210 products). Each
-    count must equal the one stated in its source's header: a field
-    product the count misses would otherwise lower the bound without an
-    error. `units` maps a kernel to a thunk of its plain version."""
-    counted = {}
-    for name, fn in units.items():
-        n_mul, n_sq = _count_mul_sq(fn)
-        counted[name] = n_mul * PRODUCTS_MUL + n_sq * PRODUCTS_SQ
-    check(counted == PRODUCTS_PER_UNIT,
-          f"multiply-adds per unit {counted}, the sources state {PRODUCTS_PER_UNIT}")
+    """(multiplies, squarings) per unit of each kernel, counted by running
+    the plain versions on one unit (a lane, a table row, a signature) on
+    the CPU with fe.mul and fe.sq counted per column. Their 13-bit
+    multiply-adds (400 a multiply, 210 a squaring) must equal the count
+    stated in the kernel's source's header: a field product the count
+    misses would otherwise lower the bound without an error. `units` maps
+    a kernel to a thunk of its plain version."""
+    counted = {name: _count_mul_sq(fn) for name, fn in units.items()}
+    adds = {name: m * PRODUCTS_MUL + q * PRODUCTS_SQ for name, (m, q) in counted.items()}
+    check(adds == PRODUCTS_PER_UNIT,
+          f"multiply-adds per unit {adds}, the sources state {PRODUCTS_PER_UNIT}")
     return counted
 
 
@@ -3058,15 +3096,19 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
             lambda: og.og_verify_cached(ctbl, oktbl, oidx, orr, osr_, ok_rows, osok),
             (ctbl, oktbl, oidx, orr, osr_, ok_rows, osok, ocout), n_og),
     }
-    products = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr, og_in))
+    counted = count_products(_one_unit_thunks(cold, warm, pub_t, sig, warm_sig, sr, og_in))
+    products = {name: m * PRODUCTS_MUL + q * PRODUCTS_SQ for name, (m, q) in counted.items()}
     wide = wide_multiplies()
-    log(f"timing: decompress_wide a point: {wide['squarings']} squarings and "
-        f"{wide['multiplies']} multiplies on the wide field, {wide['wide']} 32 x 32 -> 64 "
-        f"products and {wide['int32']} 32-bit multiplies, {wide['slots']:.0f} multiply-add slots")
-    # the multiply-add slots a unit takes: the cold K1s' and the table's
-    # from their own formulation, every other kernel's from the 13-bit
-    # formulas
-    ops = dict(products)
+    mul_slots, sq_slots = product_slots()
+    log(f"timing: a field multiply {mul_slots:.1f} and a squaring {sq_slots:.1f} multiply-add "
+        f"slots (the cheaper formulation); decompress_wide a point: {wide['squarings']} "
+        f"squarings and {wide['multiplies']} multiplies on the wide field, {wide['wide']} "
+        f"32 x 32 -> 64 products and {wide['int32']} 32-bit multiplies, {wide['slots']:.0f} "
+        f"slots")
+    # the multiply-add slots a unit needs: each product of the plain
+    # versions at the cheaper formulation; the cold K1s' and the table's
+    # from their own formulation, whose 13-bit products priced the same way
+    ops = {name: m * mul_slots + q * sq_slots for name, (m, q) in counted.items()}
     for name, points in WIDE_POINTS_PER_UNIT.items():
         ops[name] = wide["slots"] * points
     # the secp256k1 kernels: wide products only, counted from the plain
@@ -3075,9 +3117,12 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
     log(f"timing: a secp256k1 row: {secp_counts}, {SECP_WIDE_PER_SIG} 32 x 32 -> 64 products")
     for name in ("secp_verify", "secp_verify_cached"):
         ops[name] = SECP_WIDE_PER_SIG * INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
-    # the op-graph checks: their decompressions on the wide field
-    for name, points in OG_POINTS_PER_UNIT.items():
-        ops[name] = products[name] + points * (wide["slots"] - PRODUCTS_PER_UNIT["epoch_coords"])
+    # the op-graph checks: the kernels' own count beside the bound
+    og_kernel = og_kernel_products()
+    log(f"timing: og_verify{{,_cached}}: {og_kernel['wide']} 32 x 32 -> 64 products and "
+        f"{og_kernel['int32']} 32-bit multiplies a signature in the kernel, "
+        f"{og_kernel['slots']:.0f} slots; the plain version {counted['og_verify']} "
+        f"(multiplies, squarings), {ops['og_verify']:.0f} slots")
     # the hash: the least 32-bit operations of the blocks this run's
     # messages use and of one reduction a message (the fold checked
     # exact on this run's digests); the source's count beside it
@@ -3090,7 +3135,8 @@ def kernel_timing(vals, block: EntryBlock, sr_block: EntryBlock, secp_vals, secp
     red_slots = red[2] + red[1] * INT32_LANES_PER_SM / WIDE_PER_SM_CLOCK
     ops["sha512_challenge"] = (SHA_OPS_PER_BLOCK * blocks_used + red_slots * n_og) / n_og
     kernel_ops = {"sha512_challenge": (SHA_KERNEL_OPS_PER_BLOCK * blocks_used
-                                       + SHA_KERNEL_OPS_REDUCE * n_og) / n_og}
+                                       + SHA_KERNEL_OPS_REDUCE * n_og) / n_og,
+                  "og_verify": og_kernel["slots"], "og_verify_cached": og_kernel["slots"]}
     log(f"timing: sha512_challenge hashes {blocks_used} SHA-512 blocks for {n_og} messages "
         f"({SHA_OPS_PER_BLOCK} operations a block, a reduction {red[1]} 32 x 32 -> 64 products "
         f"and {red[2]} operations, {red_slots:.1f} slots; the source's count "
@@ -4201,11 +4247,15 @@ def main() -> int:
         for p, s in paths.items()))
     for r in records:
         # slices (a)-(d), config #5's first run in slice (f); the secp256k1
-        # kernels' in slice (g1) and (g2); the op-graph kernels' in slice (i)
+        # kernels' in slice (g1) and (g2); the op-graph kernels' in slice (i),
+        # the shards of (j2) and the op-graph superbatches of (j3)
         if r["name"].startswith("secp_"):
             r["launches"] = secp_launches[r["name"]]
         elif r["name"] in ("sha512_challenge", "og_verify", "og_verify_cached"):
-            r["launches"] = og_launches[r["name"]]
+            r["launches_by_slice"] = {
+                "i": og_launches[r["name"]], "j2": shard_launches.get(r["name"], 0),
+                "j3": mesh_launches.get(r["name"], 0)}
+            r["launches"] = sum(r["launches_by_slice"].values())
         elif r["name"].startswith("bls_"):
             r["launches"] = bls_launches.get(r["name"], 0)
         else:

@@ -6,9 +6,10 @@
 // and every operation below performs the same integer steps as its plain
 // PyTorch counterpart, so kernels and plain versions agree limb for limb,
 // not only modulo p. The wide field at the end (10 limbs of 25.5 bits, for
-// the chains of the one-thread decompressions) is the exception: it keeps
-// only the value, and comes back to canonical limbs before anything the
-// plain version's limbs depend on.
+// the chains of the one-thread decompressions and for the whole op-graph
+// check, whose only output is a verdict) is the exception: it keeps only
+// the value, and comes back to canonical limbs before anything the plain
+// version's limbs depend on.
 //
 // All products and sums stay below 2^31 by fe_t's bound analysis
 // (fe_t.py:60-66, :103-108): one carry pass after add/sub/neg keeps limbs
@@ -841,8 +842,9 @@ __device__ __forceinline__ bool split_decompress(fe& x_out, fe& y_out, fe& t_out
 // pass of carries. The column sums do not depend on each other, so one
 // thread's products issue back to back. Between operations these limbs
 // are not fe.py's, so only what depends on the value alone runs here:
-// pow22523's chain and sqrt_ratio's products around it (decompress_wide);
-// wide_in goes in from the canonical limbs and wide_out comes out to them.
+// pow22523's chain and sqrt_ratio's products around it (decompress_wide),
+// and the op-graph check (the wide quad functions below); wide_in goes in
+// from the canonical limbs and wide_out comes out to them.
 // A radix-2^32 element (8 words, 36 products a squaring, each product's
 // carry running into the next) took 0.14 ms where this one takes 0.13 in
 // the cold K1s (H100 80GB HBM3, 700 W; PERF.md). Plain C++ on 32- and
@@ -1068,6 +1070,288 @@ __device__ __forceinline__ bool decompress_wide(pt& o, const uint8_t* __restrict
   o.y = y;
   o.z = fe_one();
   o.t = mul(x, y);
+  return ok_pos || ok_neg;
+}
+
+// ---- the wide quad point functions: a quad shares one point, wide ----------
+// The quad point functions above, on the wide field, for the op-graph check
+// (ed25519_verify.cu), whose only output is a verdict: no limb of its points
+// has to equal a plain version's, only their values modulo p. Each function
+// forms the same field values as its ops/point.py counterpart (point_double,
+// point_add_niels, point_add, to_niels; decompress) on 10 unsigned limbs.
+// Thread q of the quad holds coordinate q of the point as an fw; a round is
+// four independent products, one a thread, by wide_mul or wide_sq (100 or 55
+// 32 x 32 -> 64 products and one pass of carries, against 400 or 210
+// multiply-adds, a wrap and three passes over 20 limbs), and a shuffle of an
+// element is 10 words. Round 1 of a double has thread 0 square X, 1 X + Y
+// (X from thread 0), 2 Z and 3 Y (from thread 1): one shuffle of 10 words
+// where two would bring X and Y to one thread. As above, every thread of a
+// warp executes every shuffle: the callers pick, they do not branch.
+//
+// Limb bounds. A limb is unsigned, so a - b is formed as a + k p - b with
+// every limb of k p at least b's (2p: 2^27 - 38, 2^26 - 2, 2^27 - 2, ...;
+// 4p: twice that), and nothing is carried after an add or a subtract but
+// where stated. wide_mul(f, g) doubles f's odd limbs and multiplies g's by
+// 19: f may reach 2^31, g only 2^27.75. The numbers (each checked by
+// test_wide_quad_limb_bounds in tests/test_torch_quad.py, which runs these
+// formulas on limb maxima, exactly, and held by the functions on inputs at
+// these ends):
+//  - M, the coordinates a function takes and returns, and the table's
+//    entries: limb 0 at most 2^26 + 56, limb 1 2^25 + 950, limb 5 2^25 +
+//    590, the others 2^26 + 2 (even) or 2^25 + 2 (odd). wide_carry leaves a
+//    product there, wide_fold (one parallel pass of carries) the sums and
+//    differences below, and wide_in and wide_from_bytes leave limbs within
+//    their widths.
+//  - In a double, E = D + 4p - (A + B), F = B + 4p - (A + 2 Z^2) and H =
+//    4p - (A + B) (subtrahends up to 3 M, under 4p) reach 5 * 2^26 - 5
+//    (2^28.32); G = B + 2p - A. In a Niels add, E = B + 2p - A, F = 2 Z Z'
+//    + 2p - C, G = 2 Z Z' + C and H = B + A reach 2^28.
+//  - Round 2 multiplies l (E, G, F, E in threads 0..3) as f by r (F, H, G,
+//    H) as g after wide_fold: r is back in M. Round 1 of a Niels add
+//    multiplies Y + 2p - X or Y + X (up to 2^27.58) by the entry; of a
+//    double squares X + Y, 2 M (19 (2^27 + 112) < 2^32).
+//  - Every column sum stays below 2^61.29 (a double's round 2), against
+//    the 2^61 wide_carry's note assumes: its carries into a column then
+//    stay below 2^37, far from 2^64, and limbs 1 and 5 take at most 950
+//    and 590 over 2^25 (the M above).
+//  - wide_out takes what wide_carry or wide_fold leaves: below 2^230 +
+//    2^207 under limb 9, so a value of at least p has limb 9 at 2^25 - 1
+//    or more and q0 = 19, and a value below p has q0 at most 19, as its
+//    argument needs.
+
+// Wide limbs of 2p and 4p (the subtractions), 1, d, 2d, sqrt(-1) and the
+// base point's x, y and t (canonical).
+__device__ __forceinline__ fw fw_2p() {
+  return fw{{134217690, 67108862, 134217726, 67108862, 134217726, 67108862, 134217726,
+             67108862, 134217726, 67108862}};
+}
+
+__device__ __forceinline__ fw fw_4p() {
+  return fw{{268435380, 134217724, 268435452, 134217724, 268435452, 134217724, 268435452,
+             134217724, 268435452, 134217724}};
+}
+
+__device__ __forceinline__ fw fw_zero() {
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ fw fw_one() {
+  fw r = fw_zero();
+  r.v[0] = 1;
+  return r;
+}
+
+__device__ __forceinline__ fw fw_d() {
+  return fw{{56195235, 13857412, 51736253, 6949390, 114729, 24766616, 60832955, 30306712,
+             48412415, 21499315}};
+}
+
+__device__ __forceinline__ fw fw_d2() {
+  return fw{{45281625, 27714825, 36363642, 13898781, 229458, 15978800, 54557047, 27058993,
+             29715967, 9444199}};
+}
+
+__device__ __forceinline__ fw fw_sqrt_m1() {
+  return fw{{34513072, 25610706, 9377949, 3500415, 12389472, 33281959, 41962654, 31548777,
+             326685, 11406482}};
+}
+
+// Coordinate q of the base point (x, y, 1, x y).
+__device__ __forceinline__ fw fw_base(int q) {
+  const fw x{{52811034, 25909283, 16144682, 17082669, 27570973, 30858332, 40966398, 8378388,
+              20764389, 8758491}};
+  const fw y{{40265304, 26843545, 13421772, 20132659, 26843545, 6710886, 53687091, 13421772,
+              40265318, 26843545}};
+  const fw t{{28827043, 27438313, 39759291, 244362, 8635006, 11264893, 19351346, 13413597,
+              16611511, 27139452}};
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i)
+    r.v[i] = q == 0 ? x.v[i] : q == 1 ? y.v[i] : q == 2 ? (i == 0 ? 1u : 0u) : t.v[i];
+  return r;
+}
+
+__device__ __forceinline__ fw wide_add(const fw& a, const fw& b) {
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = a.v[i] + b.v[i];
+  return r;
+}
+
+// a - b as a + K p - b (K = 2 or 4); every limb of K p must be at least b's.
+template <int K>
+__device__ __forceinline__ fw wide_sub(const fw& a, const fw& b) {
+  const fw kp = K == 2 ? fw_2p() : fw_4p();
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = a.v[i] + kp.v[i] - b.v[i];
+  return r;
+}
+
+// One parallel pass of carries: limb i keeps its low bits and takes limb i -
+// 1's carry, limb 0 19 times limb 9's; the value is the same modulo p.
+__device__ __forceinline__ fw wide_fold(const fw& x) {
+  fw r;
+  r.v[0] = (x.v[0] & ((1u << 26) - 1)) + 19 * (x.v[NWL - 1] >> 25);
+#pragma unroll
+  for (int i = 1; i < NWL; ++i)
+    r.v[i] = (x.v[i] & ((1u << wide_bits(i)) - 1)) + (x.v[i - 1] >> wide_bits(i - 1));
+  return r;
+}
+
+__device__ __forceinline__ fw wpick(bool c, const fw& a, const fw& b) {
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
+// The value of v in quad thread s (s may differ between threads).
+__device__ __forceinline__ fw wquad_slot(const fw& v, int s) {
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = __shfl_sync(QUAD_ALL, v.v[i], s, 4);
+  return r;
+}
+
+// The value of v in quad thread q ^ 1.
+__device__ __forceinline__ fw wquad_partner(const fw& v) {
+  fw r;
+#pragma unroll
+  for (int i = 0; i < NWL; ++i) r.v[i] = __shfl_xor_sync(QUAD_ALL, v.v[i], 1, 4);
+  return r;
+}
+
+// Coordinate q of the identity (0, 1, 1, 0).
+__device__ __forceinline__ fw wquad_identity(int q) {
+  return (q == 1 || q == 2) ? fw_one() : fw_zero();
+}
+
+// Round 2 of a double or a Niels add: X = EF in thread 0, Y = GH in 1, Z =
+// FG in 2, T = EH in 3 (zero where need_t is false, as point_double does);
+// the right factor folded back into M.
+__device__ __forceinline__ fw wquad_round2(const fw& e, const fw& f, const fw& g, const fw& h,
+                                           int q, bool need_t) {
+  const fw l = wpick(q == 1, g, wpick(q == 2, f, e));
+  const fw r = wide_fold(wpick(q == 0, f, wpick(q == 2, g, h)));
+  const fw p = wide_mul(l, r);
+  return (q == 3 && !need_t) ? fw_zero() : p;
+}
+
+// point_double on the quad's point: round 1 is X^2 (thread 0), (X + Y)^2
+// (1), Z^2 (2) and Y^2 (3).
+__device__ __forceinline__ fw wquad_double(const fw& c, int q, bool need_t) {
+  const fw o = wquad_slot(c, q == 1 ? 0 : q == 3 ? 1 : q);
+  const fw s = wide_sq(q == 1 ? wide_add(c, o) : q == 3 ? o : c);
+  const fw a = wquad_slot(s, 0), d = wquad_slot(s, 1);
+  const fw zz = wquad_slot(s, 2), b = wquad_slot(s, 3);
+  const fw ab = wide_add(a, b);
+  const fw e = wide_sub<4>(d, ab);                     // (X + Y)^2 - A - B
+  const fw g = wide_sub<2>(b, a);                      // B - A
+  const fw f = wide_sub<4>(b, wide_add(a, wide_add(zz, zz)));  // B - A - 2 Z^2
+  const fw h = wide_sub<4>(fw_zero(), ab);             // -(A + B)
+  return wquad_round2(e, f, g, h, q, need_t);
+}
+
+// point_add_niels on the quad's point and a Niels entry (in M) of which this
+// thread holds coordinate niels_coord(q): round 1 is (Y - X) (y - x)', (Y +
+// X) (y + x)', Z z' and T (2d t)'.
+__device__ __forceinline__ fw wquad_add_niels(const fw& c, const fw& ent, int q, bool need_t) {
+  const fw o = wquad_partner(c);
+  const fw y = wpick(q & 1, c, o), x = wpick(q & 1, o, c);
+  const fw p = wide_mul(q == 0 ? wide_sub<2>(y, x) : q == 1 ? wide_add(y, x) : c, ent);
+  const fw a = wquad_slot(p, 0), b = wquad_slot(p, 1);
+  const fw zz = wquad_slot(p, 2), t = wquad_slot(p, 3);
+  const fw dd = wide_add(zz, zz);
+  return wquad_round2(wide_sub<2>(b, a), wide_sub<2>(dd, t), wide_add(dd, t), wide_add(b, a), q,
+                      need_t);
+}
+
+// to_niels on the quad's point: thread 0 forms Y + X, 1 Y - X, 2 keeps Z and
+// 3 forms T 2d, so thread q holds Niels coordinate q (not folded).
+__device__ __forceinline__ fw wquad_to_niels(const fw& c, int q) {
+  const fw o = wquad_partner(c);
+  const fw y = wpick(q & 1, c, o), x = wpick(q & 1, o, c);
+  const fw t2d = wide_mul(c, fw_d2());
+  return q == 0 ? wide_add(y, x) : q == 1 ? wide_sub<2>(y, x) : q == 2 ? c : t2d;
+}
+
+// point_add on the quad's points c and d: a Niels add of d's Niels form,
+// each thread taking coordinate niels_coord(q) of it, folded.
+__device__ __forceinline__ fw wquad_add(const fw& c, const fw& d, int q) {
+  const fw ent = wide_fold(wquad_slot(wquad_to_niels(d, q), niels_coord(q)));
+  return wquad_add_niels(c, ent, q, true);
+}
+
+// Canonical limbs of a and b equal (both as wide_carry or wide_fold leave
+// them).
+__device__ __forceinline__ bool wide_eq(const fw& a, const fw& b) {
+  const fe x = wide_out(a), y = wide_out(b);
+  bool eq = true;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) eq = eq && x.v[i] == y.v[i];
+  return eq;
+}
+
+// [8]acc is the identity (X = 0, Y = Z) by three T-free doubles; the answer
+// is that of quad thread 0.
+__device__ __forceinline__ bool wquad_cofactor_identity(fw acc, int q) {
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) acc = wquad_double(acc, q, false);
+  const fw x = wquad_slot(acc, 0), y = wquad_slot(acc, 1), z = wquad_slot(acc, 2);
+  if (q != 0) return false;
+  return wide_eq(x, fw_zero()) && wide_eq(y, z);
+}
+
+// The low 255 bits of the 32 bytes at src as wide limbs (each within its
+// width: y is not reduced, so a non-canonical y is accepted), and bit 255.
+__device__ __forceinline__ fw wide_from_bytes(const uint8_t* __restrict__ src, uint32_t& sign) {
+  uint32_t e[32];
+#pragma unroll
+  for (int b = 0; b < 32; ++b) e[b] = src[b];
+  sign = e[31] >> 7;
+  e[31] &= 0x7F;
+  fw r;
+#pragma unroll
+  for (int k = 0; k < NWL; ++k) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const int sh = 8 * b - wide_at(k);  // where byte b's bit 0 lands in limb k
+      if (sh > -8 && sh < wide_bits(k)) v |= sh >= 0 ? e[b] << sh : e[b] >> -sh;
+    }
+    r.v[k] = v & ((1u << wide_bits(k)) - 1);
+  }
+  return r;
+}
+
+// ZIP-215 decompression (point.decompress) of the 32 bytes at src, all on
+// the wide field, on one thread: x, y and t = x y in M (z = 1). u = y^2 - 1
+// is folded so that wide_out takes it; v = d y^2 + 1; sqrt_ratio's products
+// and the chain as decompress_wide's; check = u and check = -u, and the
+// parity of x, on canonical limbs (wide_out).
+__device__ __forceinline__ bool wide_decompress(fw& x_out, fw& y_out, fw& t_out,
+                                                const uint8_t* __restrict__ src) {
+  uint32_t sign;
+  const fw y = wide_from_bytes(src, sign);
+  const fw yy = wide_sq(y);
+  const fw u = wide_fold(wide_sub<2>(yy, fw_one()));
+  const fw v = wide_add(wide_mul(fw_d(), yy), fw_one());
+  const fw v3 = wide_mul(wide_sq(v), v);
+  const fw w = wide_pow22523(wide_mul(u, wide_mul(wide_sq(v3), v)));
+  const fw r = wide_mul(wide_mul(u, v3), w);
+  const fw check = wide_mul(v, wide_sq(r));
+  const bool ok_pos = wide_eq(check, u);
+  const bool ok_neg = wide_eq(wide_fold(wide_add(check, u)), fw_zero());
+  const fw xr = wpick(ok_pos, r, wide_mul(r, fw_sqrt_m1()));
+  const bool flip = (wide_out(xr).v[0] & 1) != (int32_t)sign;
+  const fw x = wpick(flip, wide_fold(wide_sub<2>(fw_zero(), xr)), xr);
+  x_out = x;
+  y_out = y;
+  t_out = wide_mul(x, y);
   return ok_pos || ok_neg;
 }
 

@@ -244,7 +244,7 @@ extern "C" int emu_sqrt_ratio(const int32_t* u, const int32_t* v, int32_t* r_out
 }
 // The wide field on n elements, one after another (no warp), element k
 // in column k: op 0 wide_mul, 1 wide_sq, 2 wide_pow22523 of x (and y), 3
-// x alone, written to the 20 limbs lo by wide_out. x and y are wide_in of
+// x alone, 4 wide_fold of x, written to the 20 limbs lo by wide_out. x and y are wide_in of
 // the 13-bit limbs la and lb (20, n) or, where wa is given, the 10 wide
 // limbs wa and wb (10, n) as they are.
 extern "C" void emu_wide(int op, const int32_t* la, const int32_t* lb, const uint32_t* wa,
@@ -257,9 +257,56 @@ extern "C" void emu_wide(int op, const int32_t* la, const int32_t* lb, const uin
       x = wide_in(load(la, 0, k, n));
       y = wide_in(load(lb, 0, k, n));
     }
-    const fw r = op == 0 ? wide_mul(x, y) : op == 1 ? wide_sq(x) : op == 2 ? wide_pow22523(x) : x;
+    const fw r = op == 0 ? wide_mul(x, y)
+                 : op == 1 ? wide_sq(x)
+                 : op == 2 ? wide_pow22523(x)
+                 : op == 4 ? wide_fold(x)
+                           : x;
     const fe f = wide_out(r);
     for (int l = 0; l < NL; ++l) lo[l * n + k] = f.v[l];
+  }
+}
+// The wide quad point functions on one warp of eight quads, thread 4k + q
+// on coordinate q of point k of (4, 10, b) wide limbs: op 0
+// wquad_double, 1 wquad_add_niels (thread q taking Niels coordinate
+// niels_coord(q) of ents), 2 wquad_cofactor_identity (to out[k]), 3
+// wquad_add, 4 wquad_to_niels; thread q writes coordinate q of the result,
+// folded, as canonical limbs (wide_out) to out (4, 20, b).
+static fw wload(const uint32_t* p, int c, int k, int b) {
+  fw x;
+  for (int i = 0; i < NWL; ++i) x.v[i] = p[(c * NWL + i) * b + k];
+  return x;
+}
+extern "C" int emu_wquad(int op, int need_t, const uint32_t* pts, const uint32_t* ents,
+                         int32_t* out, int b) {
+  return emu_warp([=](int tid) {
+      const int q = tid & 3, k = tid >> 2;
+      const fw c = wload(pts, q, k, b);
+      if (op == 2) {
+        const bool z = wquad_cofactor_identity(c, q);
+        if (q == 0) out[k] = z ? 1 : 0;
+        return;
+      }
+      const fw r = op == 0 ? wquad_double(c, q, need_t != 0)
+                   : op == 1 ? wquad_add_niels(c, wload(ents, niels_coord(q), k, b), q,
+                                               need_t != 0)
+                   : op == 3 ? wquad_add(c, wload(ents, q, k, b), q)
+                             : wquad_to_niels(c, q);
+      const fe f = wide_out(wide_fold(r));
+      for (int l = 0; l < NL; ++l) out[(q * NL + l) * b + k] = f.v[l];
+    });
+}
+// wide_decompress of n rows of 32 bytes, one after another: x, y, t as
+// canonical limbs to out (3, 20, n), the flag to ok (n,).
+extern "C" void emu_wide_decompress(const uint8_t* rows, int32_t* out, int32_t* ok, int n) {
+  for (int k = 0; k < n; ++k) {
+    fw x, y, t;
+    ok[k] = wide_decompress(x, y, t, rows + 32 * k) ? 1 : 0;
+    const fw c[3] = {x, y, t};
+    for (int j = 0; j < 3; ++j) {
+      const fe f = wide_out(wide_fold(c[j]));
+      for (int l = 0; l < NL; ++l) out[(j * NL + l) * n + k] = f.v[l];
+    }
   }
 }
 // A warp whose lane 5 leaves before the quad's shuffle: the stand-in must
@@ -407,6 +454,8 @@ def emu_lib(tmp_path_factory):
     lib.emu_split.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.emu_sqrt_ratio.argtypes = [ctypes.c_void_p] * 4
     lib.emu_wide.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    lib.emu_wquad.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.emu_wide_decompress.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
@@ -465,6 +514,7 @@ def emu_og(tmp_path_factory):
     lib.emu_sha512_challenge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     lib.emu_og_verify.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
     lib.emu_og_verify_cached.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
 
@@ -1006,6 +1056,269 @@ def test_epoch_coords_kernel_equals_plain(emu_kernels, rows):
     if rows > 1:
         ok = want[1].flatten().tolist()
         assert 0 in ok and 1 in ok and ok[-4:] == [1] * 4
+
+
+# -- the wide quad point functions (csrc/ed25519_verify.cu's ladder) ------------
+
+WIDE_P = _wide_split(fe.P)
+
+
+def _wide_bounds() -> dict:
+    """The limb maxima of fe25519.cuh's wide quad functions, by exact
+    arithmetic on limb maxima over the formulas as its header states them:
+    every subtrahend within its multiple of p, every operand within what
+    wide_mul and wide_sq take (19 g and 2 f below 2^32), every column sum
+    and every step of wide_carry below 2^64. M (the limbs of a coordinate
+    or a table entry) is taken to its fixed point from limbs within their
+    widths. Returns M, the largest left factor l of a round 2 and the
+    largest column sum."""
+    top = {"column": 0}
+
+    def add(*xs):
+        return [sum(c) for c in zip(*xs)]
+
+    def sub(a, b, k):  # a + k p - b
+        assert all(k * p >= y for p, y in zip(WIDE_P, b))
+        return [x + k * p for x, p in zip(a, WIDE_P)]
+
+    def fold(x):
+        assert max(x) < 1 << 32
+        c = [v >> b for v, b in zip(x, WIDE_BITS)]
+        return [min(v, (1 << b) - 1) + (19 * c[9] if i == 0 else c[i - 1])
+                for i, (v, b) in enumerate(zip(x, WIDE_BITS))]
+
+    def mul(f, g):
+        assert all(2 * x < 1 << 32 for x in f[1::2]) and all(19 * x < 1 << 32 for x in g)
+        h = [0] * 10
+        for i in range(10):
+            for j in range(10):
+                h[(i + j) % 10] += (f[i] * (2 if i & j & 1 else 1)
+                                    * g[j] * (19 if i + j >= 10 else 1))
+        top["column"] = max(top["column"], *h)
+        for i in (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0):  # wide_carry's order
+            c, h[i] = h[i] >> WIDE_BITS[i], min(h[i], (1 << WIDE_BITS[i]) - 1)
+            h[(i + 1) % 10] += 19 * c if i == 9 else c
+            assert max(h) < 1 << 64
+        return h
+
+    def mx(*xs):
+        return [max(c) for c in zip(*xs)]
+
+    m, zero = [(1 << b) - 1 for b in WIDE_BITS], [0] * 10
+    while True:
+        # a double: round 1 squares X, X + Y, Z and Y (wide_sq's column sums
+        # are mul's), round 2 E F, G H, F G, E H
+        c = mx(mul(m, m), mul(add(m, m), add(m, m)))
+        e, f = sub(c, add(c, c), 4), sub(c, add(c, c, c), 4)
+        g, h = sub(c, c, 2), sub(zero, add(c, c), 4)
+        l_dbl = mx(e, g, f)
+        out = [mul(l_dbl, fold(mx(f, h, g)))]
+        # a table entry (to_niels, folded), then a Niels add
+        ent = fold(mx(add(m, m), sub(m, m, 2), m, mul(m, m)))
+        c = mul(mx(sub(m, m, 2), add(m, m), m), ent)
+        e, f = sub(c, c, 2), sub(add(c, c), c, 2)
+        g, h = add(c, c, c), add(c, c)
+        l_add = mx(e, g, f)
+        out += [c, mul(l_add, fold(mx(f, h, g))), ent, fold(sub(zero, m, 2))]
+        nxt = mx(m, *out)
+        if nxt == m:
+            return {"M": m, "l": mx(l_dbl, l_add), "column": top["column"]}
+        m = nxt
+
+
+def test_wide_quad_limb_bounds():
+    """The bounds fe25519.cuh states for the wide quad functions: M, the
+    left factors of round 2 (5 * 2^26 - 5), the column sums (below
+    2^61.29) hold, and every operation stays in range (asserted inside)."""
+    b = _wide_bounds()
+    over = [2**26 + 56, 2**25 + 950] + [2**26 + 2, 2**25 + 2] * 4
+    over[5] = 2**25 + 590
+    assert b["M"] == over
+    assert max(b["l"]) == 5 * 2**26 - 5
+    assert b["column"] < 2**61.29
+
+
+def _wide_fe(limbs) -> torch.Tensor:
+    """(10, n) wide limbs of any size -> fe limbs of their values mod p."""
+    return fe.from_ints([_wide_value(c) % fe.P for c in np.asarray(limbs).T])
+
+
+def _wide_at_ends(rng, top, n: int) -> np.ndarray:
+    """(10, n) uint32 limbs: column 0 every limb at top, column 1 all 0,
+    column 2 top and 0 alternating, the rest seeded random up to top."""
+    top = np.asarray(top, dtype=np.uint64)[:, None]
+    w = (rng.random((10, n)) * (top + 1)).astype(np.uint64)
+    w[:, 0] = top[:, 0]
+    w[:, 1] = 0
+    w[:, 2] = np.where(np.arange(10) % 2 == 0, top[:, 0], 0)
+    return w.astype(np.uint32)
+
+
+@pytest.mark.parametrize("op", ["mul", "sq", "fold"])
+def test_wide_field_at_the_quad_bounds(emu_lib, op):
+    """wide_mul, wide_sq and wide_fold on limbs at the ends the header
+    states for the wide quad functions, written out by wide_out against
+    ops/fe.py on the values: a round 2 product (l up to its bound, r in
+    M), X + Y squared (2 M), and a fold of l into M."""
+    b = _wide_bounds()
+    rng = np.random.default_rng(68)
+    if op == "mul":
+        wa, wb = _wide_at_ends(rng, b["l"], 16), _wide_at_ends(rng, b["M"], 16)
+        wb[:, 1] = b["M"]  # the largest l by the largest r
+    else:
+        wa = _wide_at_ends(rng, [2 * x for x in b["M"]] if op == "sq" else b["l"], 16)
+        wb = wa
+    a, c = _wide_fe(wa), _wide_fe(wb)
+    got = _wide(emu_lib, {"mul": 0, "sq": 1, "fold": 4}[op], a, c, wa, wb)
+    want = fe.mul(a, c) if op == "mul" else fe.sq(a) if op == "sq" else a
+    assert torch.equal(got, fe.canon(want))
+
+
+def _wquad_points(seed: int, top=None) -> np.ndarray:
+    """(4, 10, 8) uint32: eight points' coordinates in M, at its ends."""
+    rng = np.random.default_rng(seed)
+    top = _wide_bounds()["M"] if top is None else top
+    return np.stack([_wide_at_ends(rng, top, B) for _ in range(4)])
+
+
+def _wquad_run(emu_lib, op: int, need_t: bool, pts, ents=None):
+    ents = np.zeros_like(pts) if ents is None else ents
+    out = torch.full((4, fe.NLIMBS, B), -1, dtype=torch.int32)
+    pts, ents = np.ascontiguousarray(pts), np.ascontiguousarray(ents)
+    assert emu_lib.emu_wquad(op, int(need_t), pts.ctypes.data, ents.ctypes.data,
+                             out.data_ptr(), B) == 0
+    return out
+
+
+def _as_point(w):
+    return tuple(_wide_fe(w[c]) for c in range(4))
+
+
+def _canon_point(p):
+    return torch.stack([fe.canon(c) for c in p])
+
+
+@pytest.mark.parametrize("need_t", [True, False])
+def test_wquad_double_equals_point_double(emu_lib, need_t):
+    p = _wquad_points(71)
+    want = _canon_point(point.point_double(_as_point(p), need_t=need_t))
+    assert torch.equal(_wquad_run(emu_lib, 0, need_t, p), want)
+
+
+@pytest.mark.parametrize("need_t", [True, False])
+def test_wquad_add_niels_equals_point_add_niels(emu_lib, need_t):
+    p, q = _wquad_points(72), _wquad_points(73)
+    want = _canon_point(point.point_add_niels(_as_point(p), _as_point(q), need_t=need_t))
+    assert torch.equal(_wquad_run(emu_lib, 1, need_t, p, q), want)
+
+
+def test_wquad_add_equals_point_add(emu_lib):
+    """wquad_add against point.point_add on unrelated points and with P
+    = Q."""
+    p, q = _wquad_points(74), _wquad_points(75)
+    want = _canon_point(point.point_add(_as_point(p), _as_point(q)))
+    assert torch.equal(_wquad_run(emu_lib, 3, True, p, q), want)
+    want = _canon_point(point.point_add(_as_point(p), _as_point(p)))
+    assert torch.equal(_wquad_run(emu_lib, 3, True, p, p), want)
+
+
+def test_wquad_to_niels_equals_to_niels(emu_lib):
+    p = _wquad_points(76)
+    assert torch.equal(_wquad_run(emu_lib, 4, False, p), _canon_point(point.to_niels(_as_point(p))))
+
+
+def test_wquad_cofactor_identity_equals_the_plain_test(emu_lib):
+    """[8]P == O (X = 0, Y = Z after three doubles) against the same
+    test on point.py's doubles: the identity and points of order 8 ([L]
+    Q of curve points Q, by y = 3, 4, ...), each scaled by a factor
+    lambda, in the even columns, and the points Q themselves and random
+    limbs in the odd ones."""
+    rng = np.random.default_rng(77)
+    cols, y = [], 3
+    for i in range(B // 2):
+        q = None
+        while i and q is None:
+            q = _edwards.decompress(y.to_bytes(32, "little"))
+            y += 1
+            t8 = q and _edwards.scalar_mult(_edwards.L, q)
+            if q and _edwards.is_identity(_edwards.scalar_mult(4, t8)):
+                q = None  # not of order 8
+        lam = int(rng.integers(1, 1 << 62))
+        for pt in (t8 if i else _edwards.IDENTITY, q or _edwards.BASE):
+            cols.append([c * lam % fe.P for c in pt])
+    cols[-1] = [int(x) for x in rng.integers(0, 1 << 62, 4)]
+    pts = np.array([[_wide_split(v) for v in c] for c in cols], dtype=np.uint32)
+    pts = np.ascontiguousarray(pts.transpose(1, 2, 0))  # (4, 10, 8)
+    a8 = _as_point(pts)
+    for _ in range(3):
+        a8 = point.point_double(a8, need_t=False)
+    want = (fe.is_zero(a8[0]) & fe.is_zero(fe.sub(a8[1], a8[2])))[0].int()
+    got = _wquad_run(emu_lib, 2, False, pts)[0, 0]
+    assert got.tolist() == want.tolist() == [1, 0] * (B // 2)
+
+
+def test_wide_decompress_equals_decompress(emu_lib):
+    """wide_decompress (one thread, all on the wide field) against
+    point.decompress on the keys and R of chip_smoke.py's ZIP-215 edge
+    battery (non-canonical y, the sqrt(-1) branch, small-order keys,
+    points that do not decompress, random bytes), the encodings of y = 1
+    and y = -1 with the sign bit set ("negative zero"), and 2^255 - 1:
+    the flag and x, y, t modulo p."""
+    import chip_smoke
+
+    rows = [p for p, _, _ in chip_smoke.edge_entries()]
+    rows += [s[:32] for _, _, s in chip_smoke.edge_entries()]
+    rows += [(1).to_bytes(32, "little")[:31] + b"\x80",
+             (fe.P - 1).to_bytes(32, "little")[:31] + bytes([0x80 | 0x7F]), b"\xff" * 32]
+    n = len(rows)
+    raw = np.frombuffer(b"".join(rows), np.uint8).reshape(n, 32)
+    out = torch.full((3, fe.NLIMBS, n), -1, dtype=torch.int32)
+    ok = torch.full((n,), -1, dtype=torch.int32)
+    emu_lib.emu_wide_decompress(np.ascontiguousarray(raw).ctypes.data, out.data_ptr(),
+                                ok.data_ptr(), n)
+    y, sign = point.unpack_limbs(torch.from_numpy(raw.T.astype(np.int32)))
+    want_ok, (x, y, _, t) = point.decompress(y, sign)
+    assert ok.tolist() == want_ok[0].int().tolist()
+    assert 0 in ok.tolist() and 1 in ok.tolist()
+    assert torch.equal(out, torch.stack([fe.canon(c) for c in (x, y, t)]))
+
+
+@pytest.mark.parametrize("kernel", ["og_verify", "og_verify_cached"])
+def test_og_wide_products_equal_the_count(emu_og, kernel):
+    """The WIDE_MAD products of one whole og_verify (or og_verify_cached)
+    signature, 16 signatures of one row, equal
+    chip_smoke.og_kernel_products' count (less the product a wide
+    squaring or multiply forms for 19 times the top carry), and exceed
+    the count of chip_smoke.py's bound: the plain version's multiplies
+    and squarings on the wide field."""
+    import chip_smoke
+
+    from tendermint_tpu_torch.ops import ed25519_verify as og
+
+    count = chip_smoke.og_kernel_products()
+    want = count["wide"] - 4 * (count["squarings"] + count["multiplies"])
+    ents = _og_entries()[:1]
+    rows = og.prepare_batch(EntryBlock.from_entries(ents), device_hash=False).args
+    n_mul, n_sq = chip_smoke._count_mul_sq(
+        lambda: og.og_verify_plain(*(torch.from_numpy(a[:1]) for a in rows)))
+    args = [torch.from_numpy(np.repeat(a[:1], 16, axis=0)) for a in rows]
+    assert n_mul * chip_smoke.PRODUCTS_MUL + n_sq * chip_smoke.PRODUCTS_SQ == (
+        chip_smoke.PRODUCTS_PER_UNIT["og_verify"])
+    assert want > n_mul * (chip_smoke.WIDE_MUL[0] - 1) + n_sq * (chip_smoke.WIDE_SQ[0] - 1)
+    out = torch.full((16,), -1, dtype=torch.int32)
+    if kernel == "og_verify":
+        ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
+        launch = lambda: emu_og.emu_og_verify(*ptrs, 16)  # noqa: E731
+    else:
+        block, ep = chip_smoke.with_epoch(EntryBlock.from_entries(ents), 9)
+        ctbl, oktbl = epoch_cache.epoch_coords_plain(
+            torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T)))
+        idx = torch.from_numpy(np.repeat(epoch_cache.table_columns(block, 1, ep), 16))
+        ptrs = [x.data_ptr() for x in [ctbl, oktbl, idx] + args[1:]] + [out.data_ptr()]
+        launch = lambda: emu_og.emu_og_verify_cached(*ptrs, 16, ep.vp)  # noqa: E731
+    rc = []
+    assert _wide_mads(emu_og, lambda: rc.append(launch())) == 16 * want
+    assert rc == [0] and out.tolist() == [1] * 16
 
 
 # -- the op-graph kernels (csrc/sha512.cu, csrc/ed25519_verify.cu) --------------

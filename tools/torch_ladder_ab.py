@@ -19,25 +19,34 @@ its kernel library with nvcc, and prints one JSON line with:
   at 16,384 table rows; bls_miller at the BLS12-381 window's shape (16
   commits over a table of 256 rows) and bls_finalexp over its 16 Miller
   values, fused (launch A) and as 16 rows (launch B, `bls_finalexp_rows`);
-  median of --rounds rounds of --reps launches;
+  og_verify and og_verify_cached (over an epoch table of the battery's
+  keys, columns out of order) at 10,240 signatures; median of --rounds
+  rounds of --reps launches;
 - whether k1_rlc, k1_rlc_cached, epoch_coords, k1_decompress,
-  k1_decompress_cached, k2_table, k1r_decode, bls_miller and both forms
-  of bls_finalexp equal their plain versions on these inputs, every raw
-  limb or word (`equal`):
+  k1_decompress_cached, k2_table, k1r_decode, bls_miller, both forms
+  of bls_finalexp and the two op-graph checks equal their plain versions
+  on these inputs, every raw limb or word, or verdict for verdict
+  (`equal`); the op-graph checks' verdicts are also counted (`og_accepts`,
+  accepted of rows):
   a variant timed from a copy is built and run by nothing else in the
   call, so this says whether a faster variant is also a right one;
 - with --sweep, the same times of k3_rlc, k2_rlc, k1_rlc and
   k1_rlc_cached over 640 to 10,240 lanes and of k3_ladder,
-  k1_decompress, k1_decompress_cached and k1r_decode over 2,560 to
-  40,960 signatures: a time that grows in step
-  with the batch says the card is full, a flat one that the warps' own
-  latency bounds it.
+  k1_decompress, k1_decompress_cached, k1r_decode, og_verify and
+  og_verify_cached over 2,560 to 40,960 signatures: a time that grows in
+  step with the batch says the card is full, a flat one that the warps'
+  own latency bounds it.
 
 The inputs are seeded random limbs, digits, bytes and field elements in
 range, not signatures: a ladder's or a table build's work does not depend
 on the data, only a ladder's table reads do, and the verdicts are not
 read; a decompression of random bytes runs the same chain whether or not
 they encode a point; the BLS kernels' work is the same on any elements.
+The op-graph checks' rows are signatures: chip_smoke.py's ZIP-215 edge
+battery (valid, tampered, small-order, non-canonical, off-curve and
+random rows) with its bucket's padding, repeated to the batch, with the
+challenges from the host, so that both the accept and the reject paths
+are compared.
 --only (a comma-separated list of the names above) times and checks
 those alone. To compare a parent with a change, run parent, change,
 change, parent on one machine; to compare block sizes or other
@@ -67,7 +76,7 @@ SWEEP_SIGS = (2560, 5120, 10240, 20480, 40960)
 BLS_K, BLS_VP = 16, 256
 TIMED = ("k1_rlc", "k1_rlc_cached", "k2_rlc", "k3_rlc", "epoch_coords", "k1_decompress",
          "k1_decompress_cached", "k2_table", "k3_ladder", "k1r_decode", "k3r_ladder",
-         "bls_miller", "bls_finalexp")
+         "bls_miller", "bls_finalexp", "og_verify", "og_verify_cached")
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -103,9 +112,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
+    import numpy as np
+
     from tendermint_tpu_torch.ops import bls_verify, epoch_cache, kernels, rlc, verify
+    from tendermint_tpu_torch.ops import ed25519_verify as og
     from tendermint_tpu_torch.ops import fe_bls
     from tendermint_tpu_torch.ops import sr25519 as osr
+    from tendermint_tpu_torch.ops.entry_block import EntryBlock
 
     if not torch.cuda.is_available():
         print("torch_ladder_ab: torch sees no CUDA device", file=sys.stderr)
@@ -182,6 +195,24 @@ def main() -> int:
     def bls_want():  # the plain Miller values, whose f the final exponentiations take
         return bls_verify.verify_plain(*bls_in)
 
+    # the op-graph checks: the edge battery's rows with host challenges,
+    # over an epoch table of its keys (columns out of order), repeated
+    edge = EntryBlock.from_entries(smoke.edge_entries())
+    block, ep = smoke.with_epoch(edge, 19)
+    og_rows = og.prepare_batch(edge, device_hash=False).args  # a, r, s, k rows, s_ok
+    og_idx = epoch_cache.table_columns(block, len(og_rows[-1]), ep)
+    og_tbl = tuple(t.to(dev) for t in epoch_cache.epoch_coords_plain(
+        torch.from_numpy(np.ascontiguousarray(ep.pub_rows.T))))
+
+    def og_in(n):
+        """(a, r, s, k, s_ok) and the cached check's (ctbl, oktbl, idx, r,
+        s, k, s_ok) of n rows, the battery repeated."""
+        rows = [torch.from_numpy(np.resize(x, (n,) + x.shape[1:])).to(dev) for x in og_rows]
+        idx = torch.from_numpy(np.resize(og_idx, n)).to(dev)
+        return tuple(rows), og_tbl + (idx,) + tuple(rows[1:])
+
+    og_plain_in, og_cached_in = og_in(SIGS)
+
     runs = {
         "k1_rlc": lambda: rlc.k1_rlc(lane_a, lane_rt, scal),
         "k1_rlc_cached": lambda: rlc.k1_rlc_cached(*warm_lanes),
@@ -197,6 +228,8 @@ def main() -> int:
         "bls_miller": lambda: bls_verify.bls_miller(*bls_in),
         "bls_finalexp": lambda: bls_verify.bls_finalexp(bls_want()[1], fused=True),
         "bls_finalexp_rows": lambda: bls_verify.bls_finalexp(bls_want()[1]),
+        "og_verify": lambda: og.og_verify(*og_plain_in),
+        "og_verify_cached": lambda: og.og_verify_cached(*og_cached_in),
     }
 
     def same(got, want) -> bool:
@@ -214,11 +247,15 @@ def main() -> int:
         "bls_miller": bls_want,
         "bls_finalexp": lambda: bls_verify.finalexp_plain(bls_want()[1], fused=True),
         "bls_finalexp_rows": lambda: bls_verify.finalexp_plain(bls_want()[1]),
+        "og_verify": lambda: og.og_verify_plain(*og_plain_in),
+        "og_verify_cached": lambda: og.og_verify_cached_plain(*og_cached_in),
     }
     if args.only:
         only = args.only.split(",")
         runs = {k: v for k, v in runs.items() if k in only}
     equal = {k: same(runs[k](), fn()) for k, fn in plain.items() if k in runs}
+    og_accepts = {k: [int(runs[k]().sum().item()), SIGS]
+                  for k in ("og_verify", "og_verify_cached") if k in runs}
 
     def event_ms(fn):
         fn()
@@ -257,6 +294,12 @@ def main() -> int:
             runs[f"k1_decompress@{n}"] = (lambda a: lambda: verify.k1_decompress(*a))(cold)
             sr = [octets(n) for _ in range(4)] + [ones(1, n), ones(1, n)]
             runs[f"k1r_decode@{n}"] = (lambda a: lambda: osr.k1r_decode(*a))(sr)
+            plain_in, cached_in = og_in(n)
+            runs[f"og_verify@{n}"] = (lambda a: lambda: og.og_verify(*a))(plain_in)
+            runs[f"og_verify_cached@{n}"] = (
+                lambda a: lambda: og.og_verify_cached(*a))(cached_in)
+    if args.only:
+        runs = {k: v for k, v in runs.items() if k.split("@")[0] in only}
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
@@ -268,6 +311,7 @@ def main() -> int:
         "ms": {k: statistics.median(v) for k, v in times.items()},
         "ms_rounds": times,
         "equal": equal,
+        "og_accepts": og_accepts,
         "ptxas": {k: v for k, v in smoke.kernel_resources(build.ptxas).items() if k in TIMED},
         "sass": _sass(build.path),
     }), flush=True)
