@@ -37,7 +37,7 @@ Phases, in order:
    signatures; and the epoch table build at 16,384 rows; over the
    ZIP-215 and ristretto edge batteries, padding and one tampered
    signature; and the two secp256k1 kernels (secp_verify,
-   secp_verify_cached) at 16 and 10,240 rows over the secp256k1 edge
+   secp_verify_cached) at 16, 250 and 10,240 rows over the secp256k1 edge
    battery (tampered s, wrong message, high S, a 63-byte signature, r =
    n, r = 0, s = 0, a key off the curve, an 04 prefix), two crafted rows
    where only the r + n candidate matches (one with it withheld),
@@ -240,10 +240,10 @@ card's name and power limit), one of slice (f)'s, one of slice (g)'s,
 one of slice (h)'s, one of slice (j)'s, one JSON line of kernel records
 (commit_tally's launches those of (j2); the launches of
 slices (a)-(d) and of config #5's first run in (f3); the secp256k1
-kernels' of the cold and warm calls of (g1) and the first config #4
-call of (g2); the BLS kernels' of (h2)'s five windows; the op-graph
-kernels' of the valid calls of (i), of (j2)'s shards and of (j3)'s
-op-graph superbatches, each split by slice in `launches_by_slice`), then the
+kernels' of every call of (g1)-(g4) and of (j3)'s mixed committee; the
+BLS kernels' of (h2)'s five windows; the op-graph kernels' of the valid
+calls of (i), of (j2)'s shards and of (j3)'s mesh runs; the secp256k1
+and op-graph kernels' split by slice in `launches_by_slice`), then the
 `nvidia-smi` line, then, last, `{"ok": true, "device": {...}}`. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA card
 or a directory without the package.
@@ -350,7 +350,7 @@ SECP_VALIDATORS = 10_240
 SECP_POWER = 100
 SECP_LIGHT_STOP = 6_827
 SECP_LATE_TAMPER = 9_000
-SECP_SHAPES = (16, 10_240)
+SECP_SHAPES = (16, 250, 10_240)
 MIXED = (2_048, 1_792, 256)
 G4_ED = 1_000
 # slice (h): (h1)'s (K, committee keys) shapes; (h2)'s committee
@@ -472,13 +472,14 @@ WIDE_PER_POINT = (15_941, 3_104)
 # the programming guide gives no rate for it)
 WIDE_PER_SM_CLOCK = 27.11
 WIDE_POINTS_PER_UNIT = {"k1_rlc": 8, "k1_decompress": 2, "epoch_coords": 1}
-# The secp256k1 kernels (csrc/secp256k1.cu) form 32 x 32 -> 64 products
-# only: 72 a multiply (64 schoolbook, 8 folding the high half), 44 a
-# squaring (28 cross products, 8 squares, 8 folding), 8 a multiply by 21;
+# The secp256k1 bound counts 32 x 32 -> 64 products only (what
+# csrc/secp256k1.cu forms): 72 a multiply (64 schoolbook, 8 folding the
+# high half), 44 a squaring at its cheaper formulation (28 cross
+# products, 8 squares, 8 folding), 8 a multiply by 21;
 # the multiplies by 2, 3 and 8 are shifts and additions. A signature's
-# operations of each kind, as the source's header states them (the CPU
-# stand-in of tests/test_torch_secp.py counts the products). Bound: these
-# products at WIDE_PER_SM_CLOCK a clock an SM.
+# operations of each kind, as the source's header states them
+# (secp_products counts them on the plain ladder). Bound: these products
+# at WIDE_PER_SM_CLOCK a clock an SM.
 SECP_OPS = {"mul": 2_475, "sq": 260, "x21": 412, "x2": 130, "x3": 271, "x8": 130}
 SECP_WIDE = {"mul": 72, "sq": 44, "x21": 8}
 SECP_WIDE_PER_SIG = sum(SECP_OPS[k] * w for k, w in SECP_WIDE.items())
@@ -2439,8 +2440,9 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
     #4 through verify_mixed; (g3) Secp256k1DeviceBatchVerifier and
     backend.verify_batch over the battery; (g4) an ed25519 and a
     secp256k1 block submitted at once while the card is busy. Returns the
-    launches of (g1) and (g2) and the checks' numbers."""
-    out = {}
+    checks' numbers and the launches of each of (g1)-(g4), counted from 0
+    at the start of (g1)."""
+    out, by_slice = {}, {}
     bad, bad_msg, late, low, low_msg = _secp_commits(vals, commit)
     needed = vals.total_voting_power() * 2 // 3
     stop = needed // SECP_POWER + 1
@@ -2449,7 +2451,6 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
         kernels.reset_launches()
         n_cold, cold = _light_call(vals, commit, dev)
         n_warm, warm = _light_call(vals, commit, dev)
-        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         check((n_cold, n_warm) == (stop, stop) == (SECP_LIGHT_STOP, SECP_LIGHT_STOP),
               f"(g1) batches of {n_cold} and {n_warm} signatures, wanted {SECP_LIGHT_STOP}")
         check((cold, warm) == ({"secp_verify": 1}, {"secp_verify_cached": 1}),
@@ -2468,6 +2469,7 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
         expect_error(lambda: _light_call(vals, bad, dev), ValueError, bad_msg)
         check(_launched(before) == {"secp_verify": 1}, "(g1) the tampered commit did not run "
               "cold")
+        by_slice["g1"] = _launched({})
         log(f"slice (g1): {SECP_VALIDATORS}-validator secp256k1 commit, {n_cold} signatures to "
             f"the light stop; cold {cold}, warm {warm}; tampered #{TAMPER_AT} blamed warm and "
             f"cold, tampered #{SECP_LATE_TAMPER} (past the stop) accepted, low power rejected")
@@ -2482,15 +2484,13 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
         tampered[i] = (pk, msg, sig[:63] + bytes([sig[63] ^ 1]))
         bad_rows.append(i)
     epoch_cache.reset(depth=epoch_cache.DEFAULT_DEPTH)
-    before = dict(kernels.LAUNCHES)
+    g2_start = before = dict(kernels.LAUNCHES)
     res = mixed.verify_mixed(mixed_ents, device=dev)
     lane_l = _launched(before)
     check(all(res) and len(res) == sum(MIXED), "(g2) the clean config #4 batch did not verify")
     want_l = {"k1_rlc": 1, "k2_rlc": 1, "k3_rlc": 1, "k1r_decode": 1, "k2_table": 1,
               "k3r_ladder": 1, "secp_verify": 1}
     check(lane_l == want_l, f"(g2) verify_mixed launched {lane_l}, wanted {want_l}")
-    for k, v in lane_l.items():
-        launches[k] = launches.get(k, 0) + v
     res = mixed.verify_mixed(tampered, device=dev)
     falses = [i for i, r in enumerate(res) if not r]
     check(falses == sorted(bad_rows), f"(g2) rejected rows {falses[:8]}, wanted {bad_rows}")
@@ -2501,6 +2501,7 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
         runs.append((time.perf_counter() - t) * 1e3)
     out["mixed"] = dict(_run_stats(runs), sigs_per_s=sum(MIXED) / statistics.median(runs) * 1e3,
                         launches=lane_l)
+    by_slice["g2"] = _launched(g2_start)
     log(f"slice (g2): config #4 ({'+'.join(map(str, MIXED))}) through verify_mixed launched "
         f"{lane_l}; the three tampered rows {sorted(bad_rows)} rejected alone; median "
         f"{out['mixed']['median_ms']:.2f} ms over {REPEATS} (min {min(runs):.2f}, max "
@@ -2516,7 +2517,8 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
     check(bv.verify() == (False, want), "(g3) Secp256k1DeviceBatchVerifier differs")
     got = backend.verify_batch(EntryBlock.from_entries(items, scheme="secp256k1"), device=dev)
     check(got.tolist() == want, "(g3) backend.verify_batch differs from the oracle")
-    check(_launched(before) == {"secp_verify": 2}, f"(g3) launched {_launched(before)}")
+    by_slice["g3"] = _launched(before)
+    check(by_slice["g3"] == {"secp_verify": 2}, f"(g3) launched {by_slice['g3']}")
     log(f"slice (g3): Secp256k1DeviceBatchVerifier and backend.verify_batch over the "
         f"{len(items)}-entry battery equal the oracle")
 
@@ -2533,11 +2535,13 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
     ed_want = np.ones(G4_ED, dtype=bool)
     secp_block = EntryBlock.from_entries(items, scheme="secp256k1")
     v = pipeline.AsyncBatchVerifier(dev, prepare=recording)
+    before = dict(kernels.LAUNCHES)
     try:
         futs = [v.submit(busy), v.submit(ed_block), v.submit(secp_block)]
         got = [f.result(timeout=600) for f in futs]
     finally:
         v.close()
+    by_slice["g4"] = _launched(before)
     check(got[0].all() and got[1].tolist() == ed_want.tolist() and got[2].tolist() == want,
           "(g4) a job's verdicts are wrong")
     check([p for p in prepared if p[0] == "ed25519"] == [("ed25519", G4_ED)]
@@ -2546,7 +2550,7 @@ def secp_phase(vals, commit, mixed_ents: list, ed_ents: list, battery: list, dev
     out["g4_prepared"] = prepared
     log(f"slice (g4): batches prepared {prepared}: the ed25519 block never fused with a "
         "secp256k1 one; each job's verdicts right")
-    return out, launches
+    return out, by_slice
 
 
 SECP_STAGES = ("commit.select", "commit.sign_bytes", "pipeline.prep", "secp.prep",
@@ -4052,6 +4056,10 @@ def mesh_phase(light_wire: dict, ents: list, vals, split: tuple, dev) -> tuple:
             got = str(e)
         check(got == expect, f"the split's conclude gave {got!s:.80}, the sequential path "
               f"{expect!s:.80}")
+    # the mesh points' launches and the mixed committee's (its secp256k1
+    # segment runs secp_verify)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(launches.get("secp_verify", 0) > 0, "the mixed committee never launched secp_verify")
     out["split"] = {"validators": list(SPLIT_VALIDATORS),
                     "rows": [len(b) for b in blocks2], "segment_rows": cap,
                     "tampered": list(tampered), "blame": blame[:24], "ms": split_ms}
@@ -4247,10 +4255,14 @@ def main() -> int:
         for p, s in paths.items()))
     for r in records:
         # slices (a)-(d), config #5's first run in slice (f); the secp256k1
-        # kernels' in slice (g1) and (g2); the op-graph kernels' in slice (i),
-        # the shards of (j2) and the op-graph superbatches of (j3)
+        # kernels' in slices (g1)-(g4) and (j3)'s mixed committee; the
+        # op-graph kernels' in slice (i), the shards of (j2) and the mesh
+        # runs of (j3)
         if r["name"].startswith("secp_"):
-            r["launches"] = secp_launches[r["name"]]
+            r["launches_by_slice"] = {
+                **{k: v.get(r["name"], 0) for k, v in secp_launches.items()},
+                "j3": mesh_launches.get(r["name"], 0)}
+            r["launches"] = sum(r["launches_by_slice"].values())
         elif r["name"] in ("sha512_challenge", "og_verify", "og_verify_cached"):
             r["launches_by_slice"] = {
                 "i": og_launches[r["name"]], "j2": shard_launches.get(r["name"], 0),

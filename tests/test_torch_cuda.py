@@ -10,7 +10,9 @@ the quad k2_rlc's and k2_table's tables and the outputs of the four K1s
 and of k1r_decode raw, every row of every slot.
 """
 
+import ctypes
 import hashlib
+import subprocess
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from tendermint_tpu_torch.crypto import sr25519
 from tendermint_tpu_torch.ops import epoch_cache, fe, kernels, rlc, verify
 from tendermint_tpu_torch.ops import sr25519 as osr
 from tendermint_tpu_torch.ops.entry_block import EntryBlock
+import secp_field_cases as field_cases  # tests/, on the path by pytest
 
 pytestmark = pytest.mark.cuda
 
@@ -546,15 +549,16 @@ def test_epoch_coords_matches_plain(battery, cuda, rows):
         assert 0 < int(want[1].sum()) < rows and bool(want[1][0, live:].all())
 
 
-@pytest.mark.parametrize("rows", [1, 16, 200])
+@pytest.mark.parametrize("rows", [1, 5, 16, 200, 250, 10240])
 def test_secp_kernels_match_plain(cuda, rows):
     """secp_verify and secp_verify_cached against their plain versions:
     verdicts and the canonical final (X, Y, Z), outputs allocated on
-    -1-filled memory. Over chip_smoke.py's secp256k1 edge battery and the
-    two crafted rows where only the r + n candidate matches (padding
-    where rows > 15); 1 and 200 rows leave threads of the last block past
-    the end. The cached kernel reads a table of the battery's keys in
-    reverse order."""
+    -1-filled memory. Over chip_smoke.py's secp256k1 edge battery,
+    repeated, and the two crafted rows where only the r + n candidate
+    matches (padding where rows > 15); 1, 5, 200 and 250 rows leave quads
+    of the last warp and block past the end (a block runs 16 signatures),
+    10,240 is the main path's batch. The cached kernel reads a table of
+    the battery's keys in reverse order."""
     import chip_smoke
     from tendermint_tpu_torch.ops import secp_verify as sv
 
@@ -579,8 +583,56 @@ def test_secp_kernels_match_plain(cuda, rows):
     got = sv.secp_verify_cached(*tbl, *ct, want_xyz=True)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if rows > 2:
+    if len(items) > 4:  # the rows reach the battery's rejects
         assert 0 < int(want[0].sum()) < rows
+
+
+# The secp256k1 field functions as the card runs them (their sums,
+# differences and folds are PTX carry chains there), built by nvcc from
+# the source cut above its C interface, one thread a pair.
+SECP_FIELD_HARNESS = r"""
+#include "secp256k1_body.cu"
+namespace secp {
+""" + field_cases.FIELD_OP + r"""
+__global__ void field_kernel(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                             int n) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < n) field_op(op, a, b, out, k);
+}
+}  // namespace secp
+extern "C" int card_secp_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                               int n) {
+  secp::field_kernel<<<(n + 127) / 128, 128>>>(op, a, b, out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def secp_field(cuda, tmp_path_factory):
+    d = tmp_path_factory.mktemp("secp_field")
+    body = (kernels.CSRC / "secp256k1.cu").read_text().split("// ---- C interface")[0]
+    (d / "secp256k1_body.cu").write_text(body)
+    (d / "harness.cu").write_text(SECP_FIELD_HARNESS)
+    lib = d / "libsecp_field.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(lib),
+                    str(d / "harness.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib))
+    lib.card_secp_field.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    return lib
+
+
+@pytest.mark.parametrize("op", list(field_cases.FIELD_OPS))
+def test_secp_field_operations_at_the_ends_on_the_card(cuda, secp_field, op):
+    """tests/test_torch_secp.py's stand-in test of the field operations,
+    on the card: every pair of the weak edge values and a few random
+    ones, each result below 2^256 and equal to the value mod p."""
+    both, a, b = field_cases.pairs()
+    a, b = (torch.from_numpy(x.view(np.int32)).to(cuda) for x in (a, b))
+    out = torch.zeros_like(a)
+    assert secp_field.card_secp_field(list(field_cases.FIELD_OPS).index(op), a.data_ptr(),
+                                      b.data_ptr(), out.data_ptr(), len(both)) == 0
+    field_cases.check(op, both, out.cpu().numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("k,n,rows", [(4, 8, 4), (16, 20, 8)])

@@ -169,6 +169,8 @@ inline int __shfl_sync(unsigned, int v, int src, int width) {
 inline int __shfl_xor_sync(unsigned, int v, int m, int width) {
   return emu_shfl(v, (tl_lane & ~(width - 1)) + ((tl_lane ^ m) & (width - 1)));
 }
+// a barrier of the warp: every thread waits until all 32 reached it
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_shfl(0, tl_lane); }
 // warps run one after another: an atomic add is a plain one
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   const unsigned long long old = *p;
@@ -324,7 +326,6 @@ extern "C" int emu_stray_lane() {
 # warp: the 32 threads of a warp run together, one warp after another.
 # Each launcher returns 1 where a warp broke, else 0.
 LAUNCH = r"""
-using namespace edw;
 template <class F> static int launch(dim3 grid, int threads, F body) {
   int broken = 0;
   blockDim = dim3(threads);
@@ -341,6 +342,7 @@ template <class F> static int launch(dim3 grid, int threads, F body) {
 KERNEL_HARNESS = r"""
 #include "rlc_body.cu"
 #include "sr25519_body.cu"
+using namespace edw;
 """ + LAUNCH + r"""
 extern "C" int emu_k2_rlc(const int32_t* coords, int32_t* tbl, int g) {
   return launch(dim3((4 * g + K2_THREADS - 1) / K2_THREADS, M), K2_THREADS,
@@ -379,6 +381,7 @@ extern "C" int emu_k3r_ladder(const int32_t* tbl, const int32_t* sdig, const int
 
 VERIFY_HARNESS = r"""
 #include "verify_body.cu"
+using namespace edw;
 """ + LAUNCH + r"""
 extern "C" int emu_k2_table(const int32_t* coords, int32_t* tbl, int n) {
   return launch(dim3((4 * n + K2_THREADS - 1) / K2_THREADS), K2_THREADS,
@@ -407,6 +410,7 @@ extern "C" int emu_k1_decompress_cached(const int32_t* ctbl, const int32_t* oktb
 OG_HARNESS = r"""
 #include "sha512_body.cu"
 #include "ed25519_verify_body.cu"
+using namespace edw;
 """ + LAUNCH + r"""
 extern "C" int emu_sha512_challenge(const uint32_t* hi, const uint32_t* lo, const int32_t* nb,
                                     uint8_t* out, int n, int nblock) {
@@ -1387,8 +1391,7 @@ def test_og_verify_kernel_equals_plain(emu_og):
 
 @pytest.fixture(scope="module")
 def emu_tally(tmp_path_factory):
-    lib = _kernel_lib(tmp_path_factory, "tally_emu", ("tally",),
-                      TALLY_HARNESS.replace("using namespace edw;", ""))
+    lib = _kernel_lib(tmp_path_factory, "tally_emu", ("tally",), TALLY_HARNESS)
     lib.emu_commit_tally.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     return lib
 

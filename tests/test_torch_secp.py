@@ -21,12 +21,16 @@ ops/fe_secp.py, ops/secp_verify.py, types/validation.py).
   coordinates against _weierstrass's u1 G + u2 Q; the cached plain
   version against the uncached one and the oracle.
 - The kernel itself: csrc/secp256k1.cu compiled for the host with the
-  system C++ compiler against a stand-in of the CUDA runtime (a thread
-  a signature needs no shuffles: each block's threads run one after
-  another), both entries against the plain versions on the 16 rows,
-  verdicts and every word of the final coordinates, and its
-  multiply-adds a signature equal to the count of chip_smoke.py's
-  bound.
+  system C++ compiler against tests/test_torch_quad.py's stand-in of the
+  CUDA runtime (a warp's threads are fibers, a shuffle waits for all
+  of them; a quad of threads runs a signature), both entries against
+  the plain versions on the 16 rows and at 1, 5 and 33 of them (quads
+  past the end of the batch), verdicts and every word of the final
+  coordinates, no warp broken, and its multiply-adds equal to the
+  kernel's count (SECP_KERNEL_WIDE) for every quad
+  launched; its field operations on weak values at the ends against
+  Python integers mod p (tests/secp_field_cases.py; on the card in
+  tests/test_torch_cuda.py).
 - The slice: a 12-validator secp256k1 commit through
   prepare_commit_light and the dispatcher, cold and warm, equal to the
   JAX package's prepare_commit_light and backend.verify_batch (cold,
@@ -44,8 +48,6 @@ import dataclasses
 import hashlib
 import os
 import random
-import shutil
-import subprocess
 import threading
 
 os.environ.setdefault("TM_TPU_PUREPY_CRYPTO", "1")
@@ -92,6 +94,8 @@ from tendermint_tpu_torch.ops import verify as pverify  # noqa: E402
 from tendermint_tpu_torch.ops.entry_block import EntryBlock  # noqa: E402
 from tendermint_tpu_torch.types import validation  # noqa: E402
 from tendermint_tpu_torch.types.block import BlockID  # noqa: E402
+import secp_field_cases as field_cases  # noqa: E402
+from tests import test_torch_quad as quad  # noqa: E402
 from tests.test_torch_pipeline import Tagged, WAIT, _until  # noqa: E402
 
 # The plain versions run thousands of small tensor ops: one intra-op
@@ -394,74 +398,57 @@ def test_cached_plain_equals_the_uncached_and_the_oracle(rows, plain):
 
 # -- the kernel on the CPU stand-in --------------------------------------------------
 
-# The CUDA runtime as far as csrc/secp256k1.cu uses it, for the host: the
-# qualifiers are empty, and mad.wide.u32 (WIDE_MAD) is plain C++ and
-# counted.
-SHIM = r"""
-#pragma once
-#include <cstdint>
-#define __device__
-#define __global__
-#define __constant__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__ __restrict
-inline thread_local uint64_t emu_wide_mads = 0;
-#define WIDE_MAD(a, b, c) \
-  (++emu_wide_mads, (uint64_t)(uint32_t)(a) * (uint32_t)(b) + (uint64_t)(c))
-extern "C" uint64_t emu_wide_mad_count() { return emu_wide_mads; }
-struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
-"""
-
 # Both kernels cut above their C interface, whose <<<>>> launches are CUDA
-# syntax; a launch runs every thread of every block in turn.
+# syntax, compiled against tests/test_torch_quad.py's stand-in of the CUDA
+# runtime: a warp's 32 threads are fibers and a shuffle or __syncwarp waits
+# until all of them reached it, the block's warps run one after another.
+# Each launcher returns 1 where a warp broke (a thread returned while
+# others waited at a shuffle), else 0.
 HARNESS = r"""
-#include "secp_body.cu"
+#include "secp256k1_body.cu"
+""" + quad.LAUNCH + r"""
 using namespace secp;
-template <class F> static void launch(int n, F body) {
-  blockDim = dim3(THREADS);
-  for (int b = 0; b < (n + THREADS - 1) / THREADS; ++b)
-    for (int t = 0; t < THREADS; ++t) {
-      blockIdx = dim3(b);
-      threadIdx = dim3(t);
-      body();
-    }
+extern "C" int emu_secp_verify(const int32_t* qx, const int32_t* qy, const int32_t* scalars,
+                               const int32_t* signs, const int32_t* r1, const int32_t* r2,
+                               const bool* ok_host, bool* out, int32_t* xyz, int n) {
+  return launch(dim3((4 * n + THREADS - 1) / THREADS), THREADS, [=] {
+    secp_verify_kernel(qx, qy, scalars, signs, r1, r2, ok_host, out, xyz, n);
+  });
 }
-extern "C" void emu_secp_verify(const int32_t* qx, const int32_t* qy, const int32_t* scalars,
-                                const int32_t* signs, const int32_t* r1, const int32_t* r2,
-                                const bool* ok_host, bool* out, int32_t* xyz, int n) {
-  launch(n, [=] { secp_verify_kernel(qx, qy, scalars, signs, r1, r2, ok_host, out, xyz, n); });
-}
-extern "C" void emu_secp_verify_cached(const int32_t* qx_tbl, const int32_t* qy_tbl,
-                                       const bool* q_ok_tbl, const int32_t* val_idx,
-                                       const int32_t* scalars, const int32_t* signs,
-                                       const int32_t* r1, const int32_t* r2, const bool* ok_host,
-                                       bool* out, int32_t* xyz, int n, int v) {
-  launch(n, [=] {
+extern "C" int emu_secp_verify_cached(const int32_t* qx_tbl, const int32_t* qy_tbl,
+                                      const bool* q_ok_tbl, const int32_t* val_idx,
+                                      const int32_t* scalars, const int32_t* signs,
+                                      const int32_t* r1, const int32_t* r2, const bool* ok_host,
+                                      bool* out, int32_t* xyz, int n, int v) {
+  return launch(dim3((4 * n + THREADS - 1) / THREADS), THREADS, [=] {
     secp_verify_cached_kernel(qx_tbl, qy_tbl, q_ok_tbl, val_idx, scalars, signs, r1, r2,
                               ok_host, out, xyz, n, v);
   });
 }
+""" + field_cases.FIELD_OP + r"""
+// fp's field operation op on n pairs, one after another
+extern "C" void emu_secp_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* out,
+                               int n) {
+  for (int k = 0; k < n; ++k) field_op(op, a, b, out, k);
+}
 """
+SIGS_PER_BLOCK = 16  # csrc/secp256k1.cu THREADS / 4: the launch's quads come in blocks of it
+# The kernels' own 32 x 32 -> 64 products a signature (the source's header):
+# a quad forms every squaring as a multiply; in each of a signature's 141
+# additions (130 in the ladder, 11 in the table) two of its threads form a
+# second product of each round that goes unused (4 multiplies), and two
+# each form the addition's 21 t2 (one more multiply by 21). That is 3,299
+# multiplies of 72 products and 553 multiplies by 21 of 8, against the
+# bound's 192,936 (chip_smoke.SECP_WIDE_PER_SIG).
+SECP_KERNEL_WIDE = 241_952
 
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    d = tmp_path_factory.mktemp("secp_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    body = (kernels.CSRC / "secp256k1.cu").read_text().split("// ---- C interface")[0]
-    (d / "secp_body.cu").write_text(body)
-    (d / "harness.cpp").write_text(HARNESS)
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}",
-                    "-o", str(d / "libsecp_emu.so"), str(d / "harness.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(d / "libsecp_emu.so"))
+    lib = quad._kernel_lib(tmp_path_factory, "secp_emu", ("secp256k1",), HARNESS)
     lib.emu_secp_verify.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     lib.emu_secp_verify_cached.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    lib.emu_secp_field.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_wide_mad_count.restype = ctypes.c_uint64
     return lib
 
@@ -471,16 +458,42 @@ def _ptr(a: np.ndarray):
 
 
 def _emu_run(lib, args, cached: bool):
+    """(verdicts, xyz, multiply-adds) of one launch on the stand-in; no
+    warp may break."""
     args = [np.ascontiguousarray(a) for a in args]
     n = args[3].shape[0] if cached else args[0].shape[0]
     out = np.zeros(n, dtype=bool)
-    xyz = np.zeros((n, 3, sv.NW), dtype=np.int32)
+    xyz = np.full((n, 3, sv.NW), -1, dtype=np.int32)
     before = lib.emu_wide_mad_count()
     if cached:
-        lib.emu_secp_verify_cached(*map(_ptr, args), _ptr(out), _ptr(xyz), n, args[0].shape[0])
+        broken = lib.emu_secp_verify_cached(*map(_ptr, args), _ptr(out), _ptr(xyz), n,
+                                            args[0].shape[0])
     else:
-        lib.emu_secp_verify(*map(_ptr, args), _ptr(out), _ptr(xyz), n)
+        broken = lib.emu_secp_verify(*map(_ptr, args), _ptr(out), _ptr(xyz), n)
+    assert broken == 0
     return out, xyz, lib.emu_wide_mad_count() - before
+
+
+def _launched(n: int) -> int:
+    """The signatures a launch of n rows runs, the clamped quads of its
+    last block included."""
+    return -(-n // SIGS_PER_BLOCK) * SIGS_PER_BLOCK
+
+
+@pytest.fixture(scope="module")
+def cached_rows(rows):
+    """The cached kernel's 16 rows: the battery's keys in a table in
+    reverse order, one index outside it; with the plain verdicts and
+    final coordinates."""
+    items = [e for e in rows[0] if len(e[0]) == 33]
+    pubs = [p for p, _, _ in items]
+    tbl = sv.table_columns(pubs[::-1])
+    vidx = np.array([len(pubs) - 1 - i for i in range(len(items))], dtype=np.int32)
+    args = list(sv.prepare_rows_cached(items, vidx, ROWS, len(pubs), len(pubs)))
+    args[0][5] = -1  # outside the table: rejected by both
+    full = list(tbl) + args
+    want, want_xyz = sv.secp_verify_cached(*[torch.from_numpy(a) for a in full], want_xyz=True)
+    return full, want.numpy(), want_xyz.numpy()
 
 
 def test_kernel_equals_plain_on_the_stand_in(emu, rows, plain):
@@ -489,23 +502,48 @@ def test_kernel_equals_plain_on_the_stand_in(emu, rows, plain):
     want, want_xyz = plain
     np.testing.assert_array_equal(out, want)
     np.testing.assert_array_equal(xyz, want_xyz)
-    # every signature forms the same products: the bound's count
-    assert mads == ROWS * chip_smoke.SECP_WIDE_PER_SIG
+    # every signature forms the same products: the kernel's count
+    assert mads == _launched(ROWS) * SECP_KERNEL_WIDE
 
 
-def test_cached_kernel_equals_plain_on_the_stand_in(emu, rows):
-    items = [e for e in rows[0] if len(e[0]) == 33]
-    pubs = [p for p, _, _ in items]
-    tbl = sv.table_columns(pubs[::-1])
-    vidx = np.array([len(pubs) - 1 - i for i in range(len(items))], dtype=np.int32)
-    args = list(sv.prepare_rows_cached(items, vidx, ROWS, len(pubs), len(pubs)))
-    args[0][5] = -1  # outside the table: rejected by both
-    full = list(tbl) + args
+def test_cached_kernel_equals_plain_on_the_stand_in(emu, cached_rows):
+    full, want, want_xyz = cached_rows
     out, xyz, mads = _emu_run(emu, full, cached=True)
-    want, want_xyz = sv.secp_verify_cached(*[torch.from_numpy(a) for a in full], want_xyz=True)
-    np.testing.assert_array_equal(out, want.numpy())
-    np.testing.assert_array_equal(xyz, want_xyz.numpy())
-    assert not out[5] and mads == ROWS * chip_smoke.SECP_WIDE_PER_SIG
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(xyz, want_xyz)
+    assert not out[5] and mads == _launched(ROWS) * SECP_KERNEL_WIDE
+
+
+@pytest.mark.parametrize("op", list(field_cases.FIELD_OPS))
+def test_field_operations_at_the_ends_on_the_stand_in(emu, op):
+    """The kernels' field operations on every pair of WEAK_EDGE values and
+    a few random ones: each result is below 2^256 and equal to the value
+    mod p (canonical for fp_canon)."""
+    both, a, b = field_cases.pairs()
+    out = np.zeros_like(a)
+    emu.emu_secp_field(list(field_cases.FIELD_OPS).index(op), _ptr(a), _ptr(b), _ptr(out),
+                       len(both))
+    field_cases.check(op, both, out)
+
+
+@pytest.mark.parametrize("n", [1, 5, 33])
+@pytest.mark.parametrize("cached", [False, True], ids=["uncached", "cached"])
+def test_kernels_equal_plain_where_the_batch_ends_inside_a_warp(emu, rows, plain, cached_rows,
+                                                                 n, cached):
+    """n rows of the 16 (33: every row twice and one more), so that the
+    last warp, and the last block, hold quads past the end: they run a
+    clamped signature with their stores masked, and no warp breaks."""
+    pick = np.arange(n) % ROWS
+    if cached:
+        full, want, want_xyz = cached_rows
+        args = full[:3] + [a[pick] for a in full[3:]]
+    else:
+        args = [a[pick] for a in rows[1]]
+        want, want_xyz = plain
+    out, xyz, mads = _emu_run(emu, args, cached)
+    np.testing.assert_array_equal(out, want[pick])
+    np.testing.assert_array_equal(xyz, want_xyz[pick])
+    assert mads == _launched(n) * SECP_KERNEL_WIDE
 
 
 # -- blocks, the epoch cache, the verifiers ---------------------------------------------
@@ -841,3 +879,7 @@ def test_plain_ladder_forms_the_products_of_the_bound():
     rest."""
     assert chip_smoke.secp_products() == chip_smoke.SECP_OPS
     assert chip_smoke.SECP_WIDE_PER_SIG == 192_936
+    # the kernels' own count, which the stand-in tests hold the source to
+    ops = chip_smoke.SECP_OPS
+    assert SECP_KERNEL_WIDE == ((ops["mul"] + ops["sq"] + 4 * 141) * chip_smoke.SECP_WIDE["mul"]
+                                + (ops["x21"] + 141) * chip_smoke.SECP_WIDE["x21"])
